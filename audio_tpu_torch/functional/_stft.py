@@ -1,0 +1,77 @@
+"""Short-time Fourier transform (``torch.stft`` semantics).
+
+Same contract as ``audio_tpu.functional._stft``: center padding, framing by
+hop, windowing, and a one-sided or full DFT, with the frequency axis before
+the time axis in the output.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["frame_signal", "stft", "num_frames"]
+
+_PAD_MODES = {"reflect": "reflect", "constant": "constant", "replicate": "replicate", "circular": "circular"}
+
+
+def _pad_center(waveform: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    if mode not in _PAD_MODES:
+        raise ValueError(f"Unsupported pad_mode {mode!r}")
+    lead = waveform.shape[:-1]
+    flat = waveform.reshape(-1, 1, waveform.shape[-1])
+    padded = F.pad(flat, (pad, pad), mode=_PAD_MODES[mode])
+    return padded.reshape(lead + (padded.shape[-1],))
+
+
+def num_frames(length: int, n_fft: int, hop_length: int, center: bool) -> int:
+    if center:
+        return 1 + length // hop_length
+    return 1 + (length - n_fft) // hop_length
+
+
+def frame_signal(waveform: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
+    """Slice ``waveform`` (..., T) into overlapping frames (..., n_frames, frame_length)."""
+    return waveform.unfold(-1, frame_length, hop_length)
+
+
+def _prepare_window(window: Optional[torch.Tensor], n_fft: int, win_length: int, dtype,
+                    device) -> torch.Tensor:
+    if window is None:
+        window = torch.ones((win_length,), dtype=dtype, device=device)
+    if window.shape[-1] != win_length:
+        raise ValueError(f"window length {window.shape[-1]} != win_length {win_length}")
+    if win_length < n_fft:
+        left = (n_fft - win_length) // 2
+        window = F.pad(window, (left, n_fft - win_length - left))
+    return window.to(dtype=dtype, device=device)
+
+
+def stft(
+    waveform: torch.Tensor,
+    n_fft: int,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    window: Optional[torch.Tensor] = None,
+    center: bool = True,
+    pad_mode: str = "reflect",
+    normalized: bool = False,
+    onesided: bool = True,
+) -> torch.Tensor:
+    """Complex STFT of shape (..., n_freq, n_frames); torch.stft semantics."""
+    hop_length = hop_length or n_fft // 4
+    win_length = win_length or n_fft
+    window = _prepare_window(window, n_fft, win_length, waveform.dtype, waveform.device)
+    if center:
+        waveform = _pad_center(waveform, n_fft // 2, pad_mode)
+    frames = frame_signal(waveform, n_fft, hop_length) * window  # (..., n_frames, n_fft)
+    if onesided:
+        spec = torch.fft.rfft(frames, dim=-1)
+    else:
+        spec = torch.fft.fft(frames, dim=-1)
+    if normalized:
+        spec = spec * (1.0 / math.sqrt(n_fft))
+    return spec.transpose(-1, -2)
