@@ -5,8 +5,12 @@ Each op follows its inputs' device: a CUDA tensor runs through the
 hand-written Hopper kernels in ``csrc/`` (or the op raises), a CPU tensor
 through the plain PyTorch version beside each kernel.
 
-This release ports the streaming-alignment chain: ``lowpass_biquad`` ->
-``lfilter`` -> ``mel_spectrogram`` -> ``forced_align``.
+Ported so far: the streaming-alignment chain (``functional``:
+``lowpass_biquad`` -> ``lfilter`` -> ``mel_spectrogram`` -> ``forced_align``)
+and streaming Emformer RNN-T beam search (``models``: ``Emformer``, ``RNNT``,
+``RNNTBeamSearch``; ``transforms.MelSpectrogram``; ``pipelines``), with
+``_interop`` to carry the JAX package's parameters across.  Factories make
+their tensors on CUDA unless the caller names another device.
 """
 
 __version__ = "0.1.0"

@@ -4,16 +4,21 @@
 from the JAX side with ``numpy.asarray`` (filter coefficients, windows,
 filterbanks, projections) into the same tree of tensors on ``device``, with
 the same dtype and layout.
+
+``rnnt_state_dict_from_jax_params`` turns the flax parameter tree of the JAX
+package's RNN-T into the ``state_dict`` of the port's ``RNNT``, which carries
+torchaudio's names: the inverse of the JAX package's
+``import_rnnt_state_dict`` and ``import_emformer_state_dict``.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -34,3 +39,62 @@ def from_jax_params(tree: Any, device="cuda") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_params(v, device) for v in tree)
     return _leaf(tree, device)
+
+
+def _dense(out: dict, name: str, node: dict, device) -> None:
+    """flax Dense {kernel (in, out), bias} -> torch Linear {weight (out, in), bias}."""
+    out[f"{name}.weight"] = _leaf(node["kernel"], device).t().contiguous()
+    if "bias" in node:
+        out[f"{name}.bias"] = _leaf(node["bias"], device)
+
+
+def _norm(out: dict, name: str, node: dict, device) -> None:
+    """flax LayerNorm {scale, bias} -> torch LayerNorm {weight, bias}."""
+    out[f"{name}.weight"] = _leaf(node["scale"], device)
+    out[f"{name}.bias"] = _leaf(node["bias"], device)
+
+
+def rnnt_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's RNN-T ``state_dict`` from the JAX package's flax parameters.
+
+    ``params`` is ``{"params": {transcriber, predictor, joiner}}`` (or that
+    inner dict) with array leaves, bf16 leaves included.  Dense kernels are
+    transposed; names follow torchaudio (``transcriber.transformer.
+    emformer_layers.{i}.pos_ff.{0,1,4}``, ``predictor.lstm_layers.{i}.{x2g,
+    p2g,c_norm,g_norm}``, ``joiner.linear``), in the order of the model's own
+    ``state_dict``.  ``RNNT.load_state_dict(..., strict=True)`` takes the result.
+    """
+    tree = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+
+    tr = tree["transcriber"]
+    _dense(sd, "transcriber.input_linear", tr["input_linear"], device)
+    layers = tr["transformer"]
+    for i in range(len(layers)):
+        layer, name = layers[f"emformer_layers_{i}"], f"transcriber.transformer.emformer_layers.{i}"
+        for lin in ("emb_to_key_value", "emb_to_query", "out_proj"):
+            _dense(sd, f"{name}.attention.{lin}", layer["attention"][lin], device)
+        _norm(sd, f"{name}.pos_ff.0", layer["pos_ff_layer_norm"], device)
+        _dense(sd, f"{name}.pos_ff.1", layer["pos_ff_1"], device)
+        _dense(sd, f"{name}.pos_ff.4", layer["pos_ff_2"], device)
+        _norm(sd, f"{name}.layer_norm_input", layer["layer_norm_input"], device)
+        _norm(sd, f"{name}.layer_norm_output", layer["layer_norm_output"], device)
+    _dense(sd, "transcriber.output_linear", tr["output_linear"], device)
+    _norm(sd, "transcriber.layer_norm", tr["layer_norm"], device)
+
+    pr = tree["predictor"]
+    sd["predictor.embedding.weight"] = _leaf(pr["embedding"]["embedding"], device)
+    _norm(sd, "predictor.input_layer_norm", pr["input_layer_norm"], device)
+    n_lstm = sum(1 for k in pr if k.startswith("lstm_layers_"))
+    for i in range(n_lstm):
+        layer, name = pr[f"lstm_layers_{i}"], f"predictor.lstm_layers.{i}"
+        _dense(sd, f"{name}.x2g", layer["x2g"], device)
+        _dense(sd, f"{name}.p2g", layer["p2g"], device)
+        for norm in ("c_norm", "g_norm"):
+            if norm in layer:
+                _norm(sd, f"{name}.{norm}", layer[norm], device)
+    _dense(sd, "predictor.linear", pr["linear"], device)
+    _norm(sd, "predictor.output_layer_norm", pr["output_layer_norm"], device)
+
+    _dense(sd, "joiner.linear", tree["joiner"]["linear"], device)
+    return sd

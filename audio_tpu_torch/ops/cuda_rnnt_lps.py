@@ -1,0 +1,217 @@
+"""Kernels K5, K6 and K8: per-row statistics of the RNN-T join logits.
+
+CUDA C++ in ``csrc/rnnt_lps.cu``, replacing the TPU kernels of
+``audio_tpu/ops/pallas_rnnt_lps.py``:
+
+* K5 ``join_stats_topk``: ``act @ w + b`` with f32 accumulation and, per row,
+  the logsumexp over columns <= blank, the blank logit and the top-k of
+  columns [0, blank); the (N, V) logits never reach device memory;
+* K6 ``row_stats_topk``: the same four outputs from logits that exist;
+* K8 ``lattice_row_stats``: per row the logsumexp over all V columns, the
+  blank logit and the logit at a per-row target.
+
+Each wrapper launches its kernel for a CUDA tensor (float32 or bfloat16,
+anything else raises) and runs its plain PyTorch version, ``*_plain``, for a
+CPU tensor.  ``launches`` counts each kernel's launches by name.
+
+Top-k everywhere is ``jax.lax.top_k``'s: descending, ties to the lowest
+index.  ``torch.topk`` promises no order among equal values, so the plain
+versions use :func:`top_k`, a stable descending sort.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "join_stats_topk",
+    "join_stats_topk_plain",
+    "lattice_row_stats",
+    "lattice_row_stats_plain",
+    "launches",
+    "row_stats_topk",
+    "row_stats_topk_plain",
+    "top_k",
+]
+
+launches = {"join_stats_topk": 0, "row_stats_topk": 0, "lattice_row_stats": 0}
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ROW_ARGTYPES = [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_LATTICE_ARGTYPES = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P]
+_JOIN_ARGTYPES = [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_JOIN_QUERY_ARGTYPES = [_I, _I, _I, _LL, _P, _P]
+# shared memory a block can opt in to on sm_90: a row kernel keeps one f32 row a warp
+_MAX_ROW_COLS = 232448 // 4
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last axis, descending, ties to the lowest index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+# ------------------------------------------------------------------ plain versions
+def row_stats_topk_plain(x: torch.Tensor, blank: int, k: int):
+    """Plain PyTorch version of K6."""
+    xf = x[..., : blank + 1].float()
+    vals, idx = top_k(xf[..., :blank], k)
+    return torch.logsumexp(xf, dim=-1), xf[..., blank], vals, idx.to(torch.int32)
+
+
+def join_stats_topk_plain(act: torch.Tensor, w: torch.Tensor, b: torch.Tensor, blank: int, k: int):
+    """Plain PyTorch version of K5: the product in f32, whatever the inputs' type."""
+    return row_stats_topk_plain(act.float() @ w.float() + b.float(), blank, k)
+
+
+def lattice_row_stats_plain(x: torch.Tensor, tgt: torch.Tensor, blank: int):
+    """Plain PyTorch version of K8."""
+    xf = x.float()
+    label = xf.gather(-1, tgt.long().unsqueeze(-1)).squeeze(-1)
+    return torch.logsumexp(xf, dim=-1), xf[..., blank], label
+
+
+# ------------------------------------------------------------------ what the kernels take
+def _check_logits(name: str, x: torch.Tensor, blank: int, n_cols: int) -> None:
+    """``n_cols``: the columns of a row that the kernel reads."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 logits; got {x.dtype}")
+    if x.dim() < 1 or not 0 <= blank < x.shape[-1]:
+        raise ValueError(f"{name}: blank {blank} is outside the {tuple(x.shape)} logits' last axis")
+    if n_cols > _MAX_ROW_COLS:
+        raise ValueError(f"{name} kernel keeps a row in shared memory: at most {_MAX_ROW_COLS} columns; "
+                         f"got {n_cols}")
+
+
+def _check_k(name: str, blank: int, k: int) -> None:
+    if not 1 <= k <= blank:
+        raise ValueError(f"{name}: k must be in [1, blank={blank}]; got {k}")
+
+
+def _check_join(act: torch.Tensor, w: torch.Tensor, b: torch.Tensor, blank: int, k: int) -> None:
+    if act.dtype not in _DTYPES or w.dtype != act.dtype or b.dtype != act.dtype:
+        raise TypeError("join_stats_topk kernel takes act, w and b all float32 or all bfloat16; got "
+                        f"{act.dtype}, {w.dtype}, {b.dtype}")
+    if act.dim() < 1 or w.dim() != 2 or w.shape[0] != act.shape[-1] or b.shape != (w.shape[1],):
+        raise ValueError(f"join_stats_topk: act (..., D), w (D, V), b (V,) expected; got {tuple(act.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if not 0 <= blank < w.shape[1]:
+        raise ValueError(f"join_stats_topk: blank {blank} is outside the {w.shape[1]} columns of w")
+    _check_k("join_stats_topk", blank, k)
+    if k > 256:
+        raise ValueError(f"join_stats_topk kernel keeps a k-best list a row in shared memory: k <= 256; got {k}")
+
+
+def _stats_outputs(lead, k: int, device):
+    lse = torch.empty(lead, dtype=torch.float32, device=device)
+    blank_raw = torch.empty(lead, dtype=torch.float32, device=device)
+    vals = torch.empty(tuple(lead) + (k,), dtype=torch.float32, device=device)
+    idx = torch.empty(tuple(lead) + (k,), dtype=torch.int32, device=device)
+    return lse, blank_raw, vals, idx
+
+
+# ------------------------------------------------------------------ wrappers
+def row_stats_topk(x: torch.Tensor, blank: int, k: int):
+    """Per-row ``(lse, blank_logit, top-k values, top-k indices)`` of logits.
+
+    x (..., V) with the blank at column ``blank`` and the candidates at
+    columns [0, blank); columns past ``blank`` are ignored.  Returns lse and
+    blank_logit (...) f32 over the columns <= blank, and vals (..., k) f32,
+    idx (..., k) int32: the k largest of ``x[..., :blank]``, descending, ties
+    to the lowest index.  A CUDA tensor runs kernel K6; a CPU tensor runs
+    :func:`row_stats_topk_plain`.
+    """
+    if not x.is_cuda:
+        return row_stats_topk_plain(x, blank, k)
+    _check_logits("row_stats_topk", x, blank, blank + 1)
+    _check_k("row_stats_topk", blank, k)
+    v = x.shape[-1]
+    x2 = x.reshape(-1, v).contiguous()
+    outs = _stats_outputs(x.shape[:-1], k, x.device)
+    if x2.shape[0] == 0:
+        return outs
+    lse, blank_raw, vals, idx = outs
+    with torch.cuda.device(x.device):
+        fn = _build.bind("rnnt_lps", "row_stats_topk", _ROW_ARGTYPES)
+        err = fn(x2.data_ptr(), x2.shape[0], v, blank, k, int(x.dtype == torch.bfloat16), lse.data_ptr(),
+                 blank_raw.data_ptr(), vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "row_stats_topk")
+    launches["row_stats_topk"] += 1
+    return outs
+
+
+def lattice_row_stats(x: torch.Tensor, tgt: torch.Tensor, blank: int):
+    """Per-row ``(logsumexp(x, -1), x[..., blank], x[..., tgt])`` as f32.
+
+    x (..., V) logits; tgt (...) integer label of each row, in [0, V).  A
+    CUDA tensor runs kernel K8; a CPU tensor runs
+    :func:`lattice_row_stats_plain`.
+    """
+    if not x.is_cuda:
+        return lattice_row_stats_plain(x, tgt, blank)
+    _check_logits("lattice_row_stats", x, blank, x.shape[-1] if x.dim() else 0)
+    if tgt.shape != x.shape[:-1]:
+        raise ValueError(f"lattice_row_stats: tgt must have shape {tuple(x.shape[:-1])}; got {tuple(tgt.shape)}")
+    v = x.shape[-1]
+    x2 = x.reshape(-1, v).contiguous()
+    tgt2 = tgt.to(device=x.device, dtype=torch.int32).reshape(-1).contiguous()
+    lse, blank_raw, label = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) for _ in range(3))
+    if x2.shape[0] == 0:
+        return lse, blank_raw, label
+    with torch.cuda.device(x.device):
+        fn = _build.bind("rnnt_lps", "lattice_row_stats", _LATTICE_ARGTYPES)
+        err = fn(x2.data_ptr(), tgt2.data_ptr(), x2.shape[0], v, blank, int(x.dtype == torch.bfloat16),
+                 lse.data_ptr(), blank_raw.data_ptr(), label.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "lattice_row_stats")
+    launches["lattice_row_stats"] += 1
+    return lse, blank_raw, label
+
+
+def join_stats_topk(act: torch.Tensor, w: torch.Tensor, b: torch.Tensor, blank: int, k: int):
+    """``(lse, blank_logit, top-k values, indices)`` of ``act @ w + b`` per row.
+
+    act (..., D) joiner activations, w (D, V) and b (V,), all float32 or all
+    bfloat16; the product accumulates in f32 (plain FP32 multiply-adds for
+    float32 inputs, never TF32).  Returns what :func:`row_stats_topk` returns
+    for the logits, which a CUDA tensor never writes out: it runs kernel K5.
+    A CPU tensor runs :func:`join_stats_topk_plain`.
+
+    ``w`` may be the transposed view of a ``torch.nn.Linear`` weight,
+    ``linear.weight.t()``: in bfloat16 (D a multiple of 8) the kernel then
+    reads the weight where it lies and multiplies on the tensor cores.  Any
+    other layout or type is read row-major by the FP32-pipe kernel, after a
+    copy if it is not contiguous.
+    """
+    if not act.is_cuda:
+        return join_stats_topk_plain(act, w, b, blank, k)
+    _check_join(act, w, b, blank, k)
+    if w.device != act.device or b.device != act.device:
+        raise ValueError(f"join_stats_topk: w and b must be on {act.device}")
+    d, v = w.shape
+    act2 = act.reshape(-1, d).contiguous()
+    b = b.contiguous()
+    outs = _stats_outputs(act.shape[:-1], k, act.device)
+    if act2.shape[0] == 0:
+        return outs
+    lse, blank_raw, vals, idx = outs
+    bf16 = int(act.dtype == torch.bfloat16)
+    with torch.cuda.device(act.device):
+        col_major = not w.is_contiguous() and w.stride(0) == 1 and bool(
+            _build.bind("rnnt_lps", "join_stats_topk_takes_col_major", _JOIN_QUERY_ARGTYPES)(
+                d, k, bf16, w.stride(1), act2.data_ptr(), w.data_ptr()))
+        if not col_major:
+            w = w.contiguous()
+        fn = _build.bind("rnnt_lps", "join_stats_topk", _JOIN_ARGTYPES)
+        err = fn(act2.data_ptr(), w.data_ptr(), b.data_ptr(), act2.shape[0], d, v, w.stride(1) if col_major else v,
+                 int(col_major), blank, k, bf16, lse.data_ptr(), blank_raw.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "join_stats_topk")
+    launches["join_stats_topk"] += 1
+    return outs

@@ -7,18 +7,29 @@ Phases, each of which raises on failure:
 
 1. print the card (``nvidia-smi`` name and power limit) and torch version;
    turn TF32 off so the plain versions and the projection are exact float32;
-2. build the three kernels from ``audio_tpu_torch/csrc`` in parallel;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shape and at ragged small shapes, and the public spectral
-   functions on the card against the same calls on the CPU;
-4. run the main path, bench.py's chain, at full width (B=8192 streams of
-   1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
+2. build the five kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
+3. hold each of the seven kernels against its plain PyTorch version on the
+   card, at its main path's shape and at ragged small shapes, and the public
+   spectral functions on the card against the same calls on the CPU;
+4. run the first main path, bench.py's chain, at full width (B=8192 streams
+   of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
-   Every kernel's launch counter must move in that run; the paths must be
+   The launch counters of K1-K3 must move in that run; the paths must be
    valid CTC alignments of the targets; a small slice of the chain must agree
    with the plain versions on the CPU.  Then time the chain and each kernel
    with CUDA events, and break one chain step down by kernel with
-   torch.profiler (device busy and idle share).
+   torch.profiler (device busy and idle share);
+5. run the second main path, the streaming Emformer RNN-T beam search, at the
+   full width of ``emformer_rnnt_base(4097)`` with seeded random weights in
+   bf16: S=512 streams, beam 10, ``step_max_tokens`` 4, four consecutive
+   ticks of ``RNNTBeamSearch.infer_batch`` from ``init_beams`` with carried
+   state.  The counters of K5 and K7 must move; the beams must be well
+   formed.  Time the tick for both forms of the inner loop and profile one;
+6. the same search in f32 on the card against the CPU (which runs the plain
+   versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move) and
+   ``expansion="approx"`` (K8 must move) at S=32, two ticks each;
+7. the pipeline: seeded noise -> streaming feature extractor (K2 must move)
+   -> ``infer`` segment by segment (K5 must move).
 
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -27,11 +38,14 @@ Prints one JSON line of per-kernel numbers, then, last,
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,9 +54,16 @@ B, SR, T, L, V = 8192, 16000, 16000, 50, 32
 N_FFT, HOP, N_MELS = 400, 160, 80
 CUTOFF = 4000.0
 
-# H100 SXM data sheet rates (dense): device memory and FP32 outside the tensor cores
+# the streaming RNN-T path: emformer_rnnt_base(4097), bench_models.py's serving point
+RNNT_V, RNNT_BLANK, RNNT_BEAM, RNNT_SMT, RNNT_MAX_TOKENS = 4097, 4096, 10, 4, 200
+RNNT_S, RNNT_SEG_T, RNNT_D_IN, RNNT_SEG_SECONDS, RNNT_TICKS = 512, 20, 80, 0.16, 4
+RNNT_D, RNNT_H = 1024, 512  # joiner depth, predictor hidden size
+
+# H100 SXM data sheet rates (dense): device memory, FP32 outside the tensor cores, and
+# bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 
 def card_line() -> str:
@@ -68,9 +89,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
+    """The least time for the work: its bytes at the memory rate or its operations at
+    ``ops_per_s`` (the peak for their type), whichever is longer."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -189,6 +212,262 @@ def chain(wav, targets, proj, window, fb):
     return filtered, mel, emissions, paths, scores
 
 
+# ------------------------------------------------------------------ slice 2: kernels K5-K8
+def sum_tol(base: float, depth: int) -> float:
+    """Tolerance of an f32 sum of ``depth`` terms taken in another order: the JAX kernel
+    tests' bound (stated at depths up to 64), grown with the square root of the depth."""
+    return base * max(1.0, math.sqrt(depth / 64.0))
+
+
+def check_row_topk(name: str, got, ref, tol: float) -> float:
+    """K6: lse, blank and values within ``tol`` (atol + rtol), indices equal, ties included."""
+    err = 0.0
+    for part, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+        err = max(err, check_close(f"{name} {part}", g, r, tol, tol))
+    check_equal(f"{name} idx", got[3], ref[3])
+    return err
+
+
+def check_join_topk(name: str, got, act, w, b, blank: int, k: int, tol: float) -> float:
+    """K5 against the plain product.  The two sum in different orders, so an index may
+    differ where the plain values at neighbouring ranks lie within the tolerance; the
+    logit the kernel picked must still be within tolerance of the plain value at its rank.
+    """
+    import torch
+
+    x = act.float() @ w.float() + b.float()  # (N, V) plain logits
+    lse = torch.logsumexp(x[:, : blank + 1], dim=-1)
+    ref_vals, ref_idx = torch.sort(x[:, :blank], dim=-1, descending=True, stable=True)
+    ranked = ref_vals[:, : k + 1] if blank > k else torch.cat(
+        [ref_vals[:, :k], torch.full_like(ref_vals[:, :1], -math.inf)], dim=1)
+    ref_vals, ref_idx = ref_vals[:, :k], ref_idx[:, :k]
+    err = check_close(f"{name} lse", got[0], lse, tol, tol)
+    err = max(err, check_close(f"{name} blank", got[1], x[:, blank], tol, tol))
+    err = max(err, check_close(f"{name} vals", got[2], ref_vals, tol, tol))
+    picked = x.gather(1, got[3].long())
+    err = max(err, check_close(f"{name} plain logit at the kernel's index", picked, ref_vals, tol, tol))
+    limit = tol + tol * ref_vals.abs()
+    gap_up = torch.cat([torch.full_like(ref_vals[:, :1], math.inf), ref_vals[:, :-1] - ref_vals[:, 1:]], dim=1)
+    gap_down = ranked[:, :k] - ranked[:, 1 : k + 1]
+    clear = (gap_up > limit) & (gap_down > limit)
+    differ = got[3].long() != ref_idx
+    print(f"  {name} idx: {int(differ.sum())} of {differ.numel()} indices differ from the plain version, "
+          f"{int((differ & clear).sum())} of them at a rank whose neighbours are more than the tolerance away "
+          "(limit 0)")
+    if bool((differ & clear).any()):
+        raise AssertionError(f"{name}: top-k indices differ from the plain version beyond near-ties")
+    return err
+
+
+def slice2_kernel_inputs(rng, dev, n: int, d: int, v: int, hd: int, dtype):
+    """Seeded inputs of K5-K8 at one shape: activations as the joiner makes them
+    (ReLU of a sum), Xavier-scaled weights, the blank bias raised by 4.  ``w`` and
+    ``lstm["w_p2g"]`` lie row-major; ``w_linear`` and ``lstm_linear["w_p2g"]`` are the same
+    matrices as the transposed views of (out, in) tensors, as the search passes a Linear's
+    weight."""
+    import torch
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev).to(dt)
+
+    act = t(np.maximum(rng.standard_normal((n, d)) + rng.standard_normal((n, d)), 0.0))
+    w = t(rng.standard_normal((d, v)) / math.sqrt(d))
+    b = np.zeros((v,), np.float32)
+    b[-1] = 4.0
+    b = t(b + 0.1 * rng.standard_normal((v,)))
+    logits = (act.float() @ w.float() + b.float()).to(dtype)
+    tgt = torch.as_tensor(rng.integers(0, v, (n,)).astype(np.int32), device=dev)
+    lstm = dict(
+        gx=t(0.5 * rng.standard_normal((n, 4 * hd))), h=t(0.5 * rng.standard_normal((n, hd))),
+        c=t(0.5 * rng.standard_normal((n, hd))), w_p2g=t(rng.standard_normal((hd, 4 * hd)) / math.sqrt(hd)),
+        g_scale=t(1.0 + 0.1 * rng.standard_normal((4 * hd,))), g_bias=t(0.1 * rng.standard_normal((4 * hd,))),
+        c_scale=t(1.0 + 0.1 * rng.standard_normal((hd,))), c_bias=t(0.1 * rng.standard_normal((hd,))),
+    )
+    lstm_linear = dict(lstm, w_p2g=lstm["w_p2g"].t().contiguous().t())
+    return dict(act=act, w=w, w_linear=w.t().contiguous().t(), b=b, logits=logits, tgt=tgt, lstm=lstm,
+                lstm_linear=lstm_linear)
+
+
+def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtype, label: str) -> dict:
+    """Hold K5-K8 against their plain versions at one shape; returns each one's max abs error."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_lstm, cuda_rnnt_lps
+
+    bf16 = dtype == torch.bfloat16
+    inp = slice2_kernel_inputs(rng, dev, n, d, v, hd, dtype)
+    blank = v - 1
+    errs = {}
+    # K6, K8: the kernel and the plain version read the same logits; only the order of the
+    # sum of exponentials differs (JAX kernel tests: 1e-5 in f32, 1e-2 in bf16)
+    tol = 1e-2 if bf16 else 1e-5
+    x = inp["logits"]
+    if bf16:  # force exact ties inside rows: repeated values at scattered columns
+        x = x.clone()
+        x[:, 1::7] = x[:, :1]
+    got = cuda_rnnt_lps.row_stats_topk(x, blank, k)
+    torch.cuda.synchronize()
+    errs["row_stats_topk"] = check_row_topk(f"K6 row_stats_topk {label}", got,
+                                            cuda_rnnt_lps.row_stats_topk_plain(x, blank, k), tol)
+    got = cuda_rnnt_lps.lattice_row_stats(x, inp["tgt"], blank)
+    torch.cuda.synchronize()
+    ref = cuda_rnnt_lps.lattice_row_stats_plain(x, inp["tgt"], blank)
+    errs["lattice_row_stats"] = max(check_close(f"K8 lattice_row_stats {label} {part}", g, r, tol, tol)
+                                    for part, g, r in zip(("lse", "blank", "label"), got, ref))
+    # K5: JAX kernel tests 1e-5 in f32 and 2e-2 in bf16; the f32 sum over D in another order
+    # both weight layouts: row-major (the FP32 pipes) and a Linear's (bf16: the tensor cores);
+    # the error kept is the Linear layout's, which the search uses
+    tol = 2e-2 if bf16 else sum_tol(1e-5, d)
+    for layout, w in (("row-major W", inp["w"]), ("Linear W", inp["w_linear"])):
+        got = cuda_rnnt_lps.join_stats_topk(inp["act"], w, inp["b"], blank, k)
+        torch.cuda.synchronize()
+        errs["join_stats_topk"] = check_join_topk(f"K5 join_stats_topk {label}, {layout}", got, inp["act"], w,
+                                                  inp["b"], blank, k, tol)
+    # K7: JAX kernel tests 1e-5 in f32 and 2e-2 in bf16 (the outputs round to bf16)
+    tol = 2e-2 if bf16 else sum_tol(1e-5, hd)
+    ref = cuda_lstm.lstm_gate_step_plain(**inp["lstm"], eps=1e-3)
+    for layout, ls in (("row-major W", inp["lstm"]), ("Linear W", inp["lstm_linear"])):
+        got = cuda_lstm.lstm_gate_step(**ls, eps=1e-3)
+        torch.cuda.synchronize()
+        errs["lstm_gate_step"] = max(
+            check_close(f"K7 lstm_gate_step {label}, {layout} {part}", g.float(), r.float(), tol, tol)
+            for part, g, r in zip(("h", "c"), got, ref))
+    return errs
+
+
+# ------------------------------------------------------------------ slice 2: the streaming search
+def kernel_counts() -> dict:
+    """The launch counters of all seven kernels."""
+    from audio_tpu_torch.ops import cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
+
+    return {"lfilter": cuda_iir.launches, "power_spectrogram": cuda_spectrogram.launches,
+            "viterbi": cuda_viterbi.launches, "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches}
+
+
+def reset_kernel_counts() -> None:
+    from audio_tpu_torch.ops import cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
+
+    for mod in (cuda_iir, cuda_spectrogram, cuda_viterbi, cuda_lstm):
+        mod.launches = 0
+    for name in cuda_rnnt_lps.launches:
+        cuda_rnnt_lps.launches[name] = 0
+
+
+def require_launches(what: str, counts: dict, names) -> None:
+    print(f"  launches in {what}: { {n: c for n, c in counts.items() if c} }")
+    missing = [n for n in names if counts[n] < 1]
+    if missing:
+        raise AssertionError(f"{what}: kernels of the path that did not launch: {missing}")
+
+
+def make_rnnt(dev, dtype, activation: str = "relu"):
+    """emformer_rnnt_base(4097) with weights from seed 0 and the serving bench's blank bias."""
+    import torch
+
+    from audio_tpu_torch.models import emformer_rnnt_base
+
+    model = emformer_rnnt_base(RNNT_V, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.joiner.linear.bias[-1] += 4.0
+    model.joiner.activation = activation
+    return model.to(dtype)
+
+
+def rnnt_segments(dev, dtype, n_streams: int, n_ticks: int):
+    """Feature segments (S, 20, 80) a tick, from bench_models.py's seed, and their lengths."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    feats = [torch.as_tensor(rng.standard_normal((n_streams, RNNT_SEG_T, RNNT_D_IN)).astype(np.float32),
+                             device=dev).to(dtype) for _ in range(n_ticks)]
+    return feats, torch.full((n_streams,), RNNT_SEG_T, dtype=torch.int32, device=dev)
+
+
+def make_decoder(model, expansion: str = "exact"):
+    from audio_tpu_torch.models import RNNTBeamSearch
+
+    return RNNTBeamSearch(model, RNNT_BLANK, step_max_tokens=RNNT_SMT, max_tokens=RNNT_MAX_TOKENS,
+                          expansion=expansion)
+
+
+def run_ticks(dec, feats, lengths):
+    """Consecutive ticks of ``infer_batch`` from ``init_beams`` with carried state and beams."""
+    hypos, state = dec.init_beams(RNNT_BEAM, feats[0].shape[0]), None
+    for f in feats:
+        hypos, state = dec.infer_batch(f, lengths, RNNT_BEAM, state, hypos)
+    return hypos, state
+
+
+def check_beams(name: str, tokens, counts, scores, max_tokens: int = RNNT_MAX_TOKENS) -> None:
+    """Every live hypothesis of beams (S, K, ...) is well formed and each stream's beam is
+    in ranking order."""
+    import torch
+
+    counts, scores, tokens = counts.cpu(), scores.cpu(), tokens.cpu()
+    live = counts >= 0
+    if not bool(live[:, 0].all()):
+        raise AssertionError(f"{name}: a stream has no live top hypothesis")
+    if not bool((counts <= max_tokens)[live].all()):
+        raise AssertionError(f"{name}: a live count is outside [0, {max_tokens}]")
+    if not bool(torch.isfinite(scores[live]).all()) or not bool((scores[live] > -1e29).all()):
+        raise AssertionError(f"{name}: a live score is not finite")
+    below = torch.arange(tokens.shape[-1])[None, None, :] < counts[:, :, None]
+    emitted = tokens[below & live[:, :, None]]
+    if not bool(((emitted >= 0) & (emitted < RNNT_BLANK)).all()):
+        raise AssertionError(f"{name}: an emitted token is outside [0, {RNNT_BLANK})")
+    key = torch.where(live, scores / (counts + 2.0), torch.tensor(-1.0e30))
+    if not bool((key[:, :-1] >= key[:, 1:]).all()):
+        raise AssertionError(f"{name}: a beam is not ordered by its length-normalised score")
+    print(f"  {name}: {int(live.sum())} live hypotheses of {live.numel()}, counts {int(counts[live].min())}.."
+          f"{int(counts[live].max())}, top-1 scores {float(scores[:, 0].min()):.3f}..{float(scores[:, 0].max()):.3f}, "
+          "all well formed and in ranking order")
+
+
+def compare_with_cpu(name: str, model, n_streams: int, expansion: str, counter: str) -> dict:
+    """Two ticks in f32 on the card, through the kernels, against the same model on the
+    CPU, through the plain versions: top-1 tokens equal, top-1 scores within 1e-3 (the
+    JAX decoder tests' bound).  Returns the launch counts of the card's run."""
+    import torch
+
+    feats, lengths = rnnt_segments(next(model.parameters()).device, torch.float32, n_streams, 2)
+    reset_kernel_counts()
+    got, _ = run_ticks(make_decoder(model, expansion), feats, lengths)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(name, counts, [counter, "lstm_gate_step"])
+    check_beams(name, got.tokens, got.counts, got.scores)
+    ref, _ = run_ticks(make_decoder(copy.deepcopy(model).cpu(), expansion), [f.cpu() for f in feats], lengths.cpu())
+    g_counts, g_tokens, g_scores = got.counts.cpu(), got.tokens.cpu(), got.scores.cpu()
+    live = ref.counts >= 0
+    same = (g_counts == ref.counts) & (g_tokens == ref.tokens).all(dim=-1) & ((g_scores - ref.scores).abs() <= 1e-3)
+    top1_err = float((g_scores[:, 0] - ref.scores[:, 0]).abs().max())
+    print(f"  {name}: {int((same & live).sum())} of {int(live.sum())} live beams agree with the CPU run in count, "
+          f"tokens and score (1e-3); top-1 score max_abs_err {top1_err:.3e}")
+    if not bool(same[:, 0].all()):
+        raise AssertionError(f"{name}: a stream's top-1 hypothesis differs from the CPU plain run")
+    return counts
+
+
+def time_tick(dec, feat, lengths, state, hypos, reps: int = 5):
+    """Median ms of one ``infer_batch`` tick from a fixed carried state (CUDA events), after a warm-up."""
+    import torch
+
+    def tick():
+        return dec.infer_batch(feat, lengths, RNNT_BEAM, state, hypos)
+
+    tick()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        tick()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return statistics.median(runs), runs, tick
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -203,7 +482,7 @@ def main(argv=None) -> int:
     import audio_tpu_torch.functional as F
     from audio_tpu_torch._internal.windows import hann_window
     from audio_tpu_torch.functional._stft import _pad_center
-    from audio_tpu_torch.ops import _build, cuda_iir, cuda_spectrogram, cuda_viterbi
+    from audio_tpu_torch.ops import _build, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
     from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
 
     dev = torch.device("cuda", 0)
@@ -303,17 +582,24 @@ def main(argv=None) -> int:
     k3_args = k3_inputs(em_main, targets, il_main, tl_main)
     k3_err = k3_check("K3 viterbi main (8192x101, V 32, L 50)", k3_args)
 
+    # K5-K8: ragged small shapes (N off the warp and row-block sizes, V = 33 and 4097,
+    # k = 1, 3, 10, H = 64 and 96, bf16 rows with forced ties), then the main shape
+    n_main = RNNT_S * RNNT_BEAM
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for n, d, v, hd, k in ((37, 16, 33, 64, 1), (70, 48, 33, 64, 3), (45, 100, RNNT_V, 96, 10)):
+            check_slice2_kernels(rng, dev, n, d, v, hd, k, dtype, f"{tag} (N {n}, D {d}, V {v}, H {hd}, k {k})")
+        errs = check_slice2_kernels(rng, dev, n_main, RNNT_D, RNNT_V, RNNT_H, RNNT_BEAM, dtype,
+                                    f"{tag} main (N {n_main}, D {RNNT_D}, V {RNNT_V}, H {RNNT_H}, k {RNNT_BEAM})")
+    s2_err = errs  # the main shape in bf16, the type the main path runs
+
     # ---------------------------------------------------------------- phase 4
     print("phase 4: the chain at full width")
-    for mod in (cuda_iir, cuda_spectrogram, cuda_viterbi):
-        mod.launches = 0
+    reset_kernel_counts()
     filtered, mel, emissions, paths, scores = chain(wav, targets, proj, window, fb)
     torch.cuda.synchronize()
-    launches = {"lfilter": cuda_iir.launches, "power_spectrogram": cuda_spectrogram.launches,
-                "viterbi": cuda_viterbi.launches}
-    print(f"  launches in one chain step: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path did not launch: {launches}")
+    launches = kernel_counts()
+    require_launches("one chain step", launches, ["lfilter", "power_spectrogram", "viterbi"])
     n_frames = 1 + T // HOP
     if tuple(mel.shape) != (B, n_frames, N_MELS) or tuple(paths.shape) != (B, n_frames):
         raise AssertionError(f"chain shapes: mel {tuple(mel.shape)}, paths {tuple(paths.shape)}")
@@ -351,11 +637,90 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
     chain_ms = statistics.median(step_ms)
-    streams = 0.1 * B * (T / SR) / (chain_ms / 1e3)
+    chain_streams = 0.1 * B * (T / SR) / (chain_ms / 1e3)
     print(f"  chain: median {chain_ms:.3f} ms per step of {B} x 1 s (runs {[round(m, 3) for m in step_ms]}); "
-          f"{streams:.1f} streams at RTF 0.1 on {card}")
+          f"{chain_streams:.1f} streams at RTF 0.1 on {card}")
 
     breakdown = profile_chain(lambda: chain(wav, targets, proj, window, fb), chain_ms)
+    del filtered, mel, emissions, paths, scores
+
+    # ---------------------------------------------------------------- phase 5
+    print(f"phase 5: streaming RNN-T beam search at full width (S={RNNT_S}, beam {RNNT_BEAM}, "
+          f"step_max_tokens {RNNT_SMT}, bf16)")
+    model = make_rnnt(dev, torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  emformer_rnnt_base({RNNT_V}): {n_params / 1e6:.1f}M parameters from seed 0, bf16")
+    dec = make_decoder(model)
+    feats, lengths = rnnt_segments(dev, torch.bfloat16, RNNT_S, RNNT_TICKS)
+    hypos, state = dec.init_beams(RNNT_BEAM, RNNT_S), None
+    reset_kernel_counts()
+    for f in feats:
+        hypos, state = dec.infer_batch(f, lengths, RNNT_BEAM, state, hypos)
+    torch.cuda.synchronize()
+    rnnt_launches = kernel_counts()
+    require_launches(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, ["join_stats_topk", "lstm_gate_step"])
+    check_beams("infer_batch", hypos.tokens, hypos.counts, hypos.scores)
+    if tuple(hypos.tokens.shape) != (RNNT_S, RNNT_BEAM, RNNT_MAX_TOKENS) or len(state) != 20:
+        raise AssertionError(f"infer_batch shapes: tokens {tuple(hypos.tokens.shape)}, {len(state)} layer states")
+
+    ticks = {}
+    for static in (False, True):
+        dec.static_expansion = static
+        reset_kernel_counts()
+        tick_ms, tick_runs, tick = time_tick(dec, feats[0], lengths, state, hypos)
+        per_tick = {n: c / 6 for n, c in kernel_counts().items() if c}  # a warm-up and 5 timed ticks
+        streams = RNNT_S * RNNT_SEG_SECONDS * 0.1 / (tick_ms / 1e3)
+        print(f"  tick, static_expansion={static}: median {tick_ms:.3f} ms (runs {[round(m, 3) for m in tick_runs]}); "
+              f"{streams:.1f} streams at RTF 0.1; launches a tick {per_tick} on {card}")
+        ticks[static] = dict(ms=tick_ms, runs_ms=tick_runs, streams=streams, launches_per_tick=per_tick)
+        ticks[static]["profile"] = profile_chain(tick, tick_ms, reps=2)
+    dec.static_expansion = False
+    del model, dec, hypos, state, tick
+
+    # ---------------------------------------------------------------- phase 6
+    print("phase 6: the search in f32 on the card against the CPU")
+    model = make_rnnt(dev, torch.float32)
+    compare_with_cpu("ReLU joiner through K5 (S=4)", model, 4, "exact", "join_stats_topk")
+    route_launches = compare_with_cpu("expansion='approx' through K8 (S=32)", model, 32, "approx",
+                                      "lattice_row_stats")
+    model.joiner.activation = "tanh"
+    route_launches.update(row_stats_topk=compare_with_cpu("tanh joiner through K6 (S=32)", model, 32, "exact",
+                                                          "row_stats_topk")["row_stats_topk"])
+    model.joiner.activation = "relu"
+
+    # ---------------------------------------------------------------- phase 7
+    print("phase 7: the pipeline, waveform to beams")
+    from audio_tpu_torch.pipelines import EMFORMER_RNNT_BASE_LIBRISPEECH as bundle
+
+    with tempfile.TemporaryDirectory() as cache:
+        stats = os.path.join(cache, "pipeline-assets", "global_stats_rnnt_librispeech.json")
+        os.makedirs(os.path.dirname(stats))
+        with open(stats, "w") as f:
+            json.dump({"mean": [8.0] * bundle.n_mels, "invstddev": [0.25] * bundle.n_mels}, f)
+        os.environ["AUDIO_TPU_HOME"] = cache  # the bundle's asset cache: it finds the file and fetches nothing
+        extractor = bundle.get_streaming_feature_extractor()
+    pipe_dec = bundle.get_decoder(dl_kwargs={"state_dict": model.state_dict()})
+    speech = torch.as_tensor(np.random.default_rng(3).standard_normal(2 * bundle.sample_rate).astype(np.float32) * 0.1,
+                             device=dev)
+    reset_kernel_counts()
+    feats_p, n_feats = extractor(speech)
+    seg, rc = bundle.segment_length, bundle.right_context_length
+    hypo, state, n_segments = None, None, 0
+    for start in range(0, feats_p.shape[0] - seg - rc + 1, seg):
+        piece = feats_p[start : start + seg + rc]
+        hypo, state = pipe_dec.infer(piece, torch.tensor(seg + rc, device=dev), RNNT_BEAM, state, hypo)
+        n_segments += 1
+    torch.cuda.synchronize()
+    require_launches(f"the pipeline ({n_segments} segments)", kernel_counts(), ["power_spectrogram", "join_stats_topk"])
+    n_frames_p = 1 + speech.shape[0] // bundle.hop_length
+    if tuple(feats_p.shape) != (n_frames_p, bundle.n_mels) or int(n_feats[0]) != n_frames_p:
+        raise AssertionError(f"pipeline features: shape {tuple(feats_p.shape)}, length {int(n_feats[0])}")
+    if not bool(torch.isfinite(feats_p).all()):
+        raise AssertionError("pipeline features are not finite")
+    check_beams("pipeline infer", hypo.tokens[None], hypo.counts[None], hypo.scores[None], pipe_dec.max_tokens)
+    print(f"  top hypothesis after {n_segments} segments: {len(pipe_dec.hypo_tokens(hypo))} tokens, "
+          f"score {float(hypo.scores[0]):.3f}")
+    del model, pipe_dec
 
     kernels = []
     # K1
@@ -402,6 +767,44 @@ def main(argv=None) -> int:
                         replaces="audio_tpu/ops/pallas_viterbi.py:142", launches=launches["viterbi"],
                         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound[0],
                         bound_by=k3_bound[1], library_ms=None))
+    # K5-K8 at the main shape in bf16, K5's and K7's weights as the search passes them (a
+    # Linear's layout); launches from the runs of the paths that take them
+    inp = slice2_kernel_inputs(np.random.default_rng(2), dev, n_main, RNNT_D, RNNT_V, RNNT_H, torch.bfloat16)
+    ls = inp["lstm_linear"]
+    k_outputs = n_main * (4 + 4 + RNNT_BEAM * 8)  # lse, blank, k values and k indices a row
+    timed = {
+        "join_stats_topk": (
+            lambda: cuda_rnnt_lps.join_stats_topk(inp["act"], inp["w_linear"], inp["b"], RNNT_BLANK, RNNT_BEAM),
+            lambda: cuda_rnnt_lps.join_stats_topk_plain(inp["act"], inp["w_linear"], inp["b"], RNNT_BLANK,
+                                                        RNNT_BEAM),
+            # the product on the tensor cores (bf16 inputs); the reductions are small beside it
+            bound_ms(2 * (n_main * RNNT_D + RNNT_D * RNNT_V + RNNT_V) + k_outputs,
+                     2 * n_main * RNNT_D * RNNT_V, PEAK_BF16_PER_S),
+            "audio_tpu/ops/pallas_rnnt_lps.py:245", rnnt_launches["join_stats_topk"]),
+        "row_stats_topk": (
+            lambda: cuda_rnnt_lps.row_stats_topk(inp["logits"], RNNT_BLANK, RNNT_BEAM),
+            lambda: cuda_rnnt_lps.row_stats_topk_plain(inp["logits"], RNNT_BLANK, RNNT_BEAM),
+            # per element a maximum, an exponential and a sum, and a compare for the top-k
+            bound_ms(2 * n_main * RNNT_V + k_outputs, 4 * n_main * RNNT_V),
+            "audio_tpu/ops/pallas_rnnt_lps.py:150", route_launches["row_stats_topk"]),
+        "lstm_gate_step": (
+            lambda: cuda_lstm.lstm_gate_step(**ls, eps=1e-3),
+            lambda: cuda_lstm.lstm_gate_step_plain(**ls, eps=1e-3),
+            # gx, h, c read and h', c' written in bf16, W and the LayerNorm parameters once
+            bound_ms(2 * (n_main * 4 * RNNT_H + 4 * n_main * RNNT_H + RNNT_H * 4 * RNNT_H + 10 * RNNT_H),
+                     2 * n_main * RNNT_H * 4 * RNNT_H, PEAK_BF16_PER_S),
+            "audio_tpu/ops/pallas_lstm.py:75", rnnt_launches["lstm_gate_step"]),
+        "lattice_row_stats": (
+            lambda: cuda_rnnt_lps.lattice_row_stats(inp["logits"], inp["tgt"], RNNT_BLANK),
+            lambda: cuda_rnnt_lps.lattice_row_stats_plain(inp["logits"], inp["tgt"], RNNT_BLANK),
+            bound_ms(2 * n_main * RNNT_V + n_main * (4 + 12), 3 * n_main * RNNT_V),
+            "audio_tpu/ops/pallas_rnnt_lps.py:61", route_launches["lattice_row_stats"]),
+    }
+    for name, (kernel_fn, plain_fn, bound, replaces, count) in timed.items():
+        source = "lstm" if name == "lstm_gate_step" else "rnnt_lps"
+        kernels.append(dict(name=name, route="cuda", source=f"audio_tpu_torch/csrc/{source}.cu", replaces=replaces,
+                            launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
+                            plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
     for k in kernels:
         lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
         print(f"  {k['name']}: {k['ms']:.3f} ms (bound {k['bound_ms']:.3f} ms by {k['bound_by']}; plain "
@@ -411,8 +814,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "card": card, "torch": torch.__version__, "chain_ms": chain_ms,
-                       "chain_runs_ms": step_ms, "streams_rtf0.1": streams, "launches": launches,
-                       "profile": breakdown}, f, indent=1)
+                       "chain_runs_ms": step_ms, "streams_rtf0.1": chain_streams, "launches": launches,
+                       "profile": breakdown, "rnnt_launches": rnnt_launches,
+                       "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()}}, f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

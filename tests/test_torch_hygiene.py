@@ -33,7 +33,10 @@ def _imports(path: pathlib.Path):
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "audio_tpu_torch/__init__.py" in names and "chip_smoke.py" in names
-    assert len(names) >= 15
+    for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
+                "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py"):
+        assert f"audio_tpu_torch/{sub}" in names
+    assert len(names) >= 26
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -50,8 +53,9 @@ def test_forbidden_rule():
 def test_one_cuda_source_per_kernel():
     from audio_tpu_torch.ops import _build
 
-    assert sorted(p.stem for p in (PORT / "csrc").glob("*.cu")) == ["lfilter", "spectrogram", "viterbi"]
-    assert sorted(_build.SOURCES) == ["lfilter", "spectrogram", "viterbi"]
+    sources = ["lfilter", "lstm", "rnnt_lps", "spectrogram", "viterbi"]
+    assert sorted(p.stem for p in (PORT / "csrc").glob("*.cu")) == sources
+    assert sorted(_build.SOURCES) == sources
     for name in _build.SOURCES:
         text = (PORT / "csrc" / f"{name}.cu").read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
@@ -68,3 +72,69 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build()
     with pytest.raises(FileNotFoundError, match="nvcc"):
         _build.load("viterbi")
+
+
+def _bad_dtype_calls():
+    """Each new kernel wrapper's argument check, fed a dtype its kernel does not take."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_lstm, cuda_rnnt_lps
+
+    half, f32 = torch.float16, torch.float32
+    lstm = dict(gx=torch.zeros(2, 16), h=torch.zeros(2, 4), c=torch.zeros(2, 4), w_p2g=torch.zeros(4, 16),
+                g_scale=torch.ones(16), g_bias=torch.zeros(16), c_scale=torch.ones(4), c_bias=torch.zeros(4))
+    return {
+        "row_stats_topk": lambda: cuda_rnnt_lps._check_logits("row_stats_topk", torch.zeros(2, 9, dtype=half), 8, 9),
+        "lattice_row_stats": lambda: cuda_rnnt_lps._check_logits("lattice_row_stats",
+                                                                 torch.zeros(2, 9, dtype=torch.float64), 8, 9),
+        "join_stats_topk": lambda: cuda_rnnt_lps._check_join(torch.zeros(2, 4, dtype=half),
+                                                             torch.zeros(4, 9, dtype=half),
+                                                             torch.zeros(9, dtype=half), 8, 2),
+        "join_stats_topk mixed": lambda: cuda_rnnt_lps._check_join(torch.zeros(2, 4, dtype=torch.bfloat16),
+                                                                   torch.zeros(4, 9, dtype=f32),
+                                                                   torch.zeros(9, dtype=f32), 8, 2),
+        "lstm_gate_step": lambda: cuda_lstm._check(**{k: v.to(half) for k, v in lstm.items()}),
+        "lstm_gate_step mixed": lambda: cuda_lstm._check(**{**lstm, "h": lstm["h"].to(torch.bfloat16)}),
+    }
+
+
+@pytest.mark.parametrize("name", ["row_stats_topk", "lattice_row_stats", "join_stats_topk", "join_stats_topk mixed",
+                                  "lstm_gate_step", "lstm_gate_step mixed"])
+def test_kernel_wrappers_raise_on_a_wrong_dtype(name):
+    """A tensor outside a kernel's limits raises; it never takes the plain version."""
+    with pytest.raises(TypeError, match="float32 or"):
+        _bad_dtype_calls()[name]()
+
+
+def test_kernel_wrappers_raise_on_wrong_shapes():
+    import torch
+
+    from audio_tpu_torch.ops import cuda_lstm, cuda_rnnt_lps
+
+    with pytest.raises(ValueError, match="k must be"):
+        cuda_rnnt_lps._check_k("row_stats_topk", 8, 9)
+    with pytest.raises(ValueError, match="outside"):
+        cuda_rnnt_lps._check_logits("row_stats_topk", torch.zeros(2, 9), 9, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_rnnt_lps._check_logits("lattice_row_stats", torch.zeros(1, 1), 0, 60000)
+    with pytest.raises(ValueError, match="w \\(D, V\\)"):
+        cuda_rnnt_lps._check_join(torch.zeros(2, 4), torch.zeros(5, 9), torch.zeros(9), 8, 2)
+    hd = cuda_lstm.MAX_HIDDEN + 1
+    with pytest.raises(ValueError, match="hidden size"):
+        cuda_lstm._check(torch.zeros(1, 4 * hd), torch.zeros(1, hd), torch.zeros(1, hd), torch.zeros(hd, 4 * hd),
+                         torch.ones(4 * hd), torch.zeros(4 * hd), torch.ones(hd), torch.zeros(hd))
+    with pytest.raises(ValueError, match="gx must have shape"):
+        cuda_lstm._check(torch.zeros(2, 15), torch.zeros(2, 4), torch.zeros(2, 4), torch.zeros(4, 16),
+                         torch.ones(16), torch.zeros(16), torch.ones(4), torch.zeros(4))
+
+
+def test_the_port_reads_no_environment_variable_to_pick_a_path():
+    """The dispatch has no knob: only the asset cache and the compiler's home are read."""
+    import re
+
+    allowed = {"AUDIO_TPU_HOME", "CUDA_HOME"}
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        named = re.findall(r'environ(?:\.get\(|\[)\s*"([A-Za-z_]+)"', text)
+        assert len(named) == text.count("environ") and "getenv" not in text, f"{path.name} reads the environment"
+        assert set(named) <= allowed, f"{path.name} reads {sorted(set(named) - allowed)}"

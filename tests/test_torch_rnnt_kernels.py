@@ -1,0 +1,180 @@
+"""The plain versions of kernels K5-K8 against the JAX package.
+
+Each plain version (what a CPU tensor runs, and the oracle the CUDA kernel is
+held against on the card) is compared on the same numpy inputs with the JAX
+package's ``*_reference`` function and with its Pallas kernel in interpret
+mode, in f32 and bf16.
+
+Tolerances are those of ``tests/ops/test_pallas_rnnt_lps.py``: 1e-5 in f32;
+in bf16 1e-2 for K6 and K8 and 2e-2 for K5 and K7 (atol and rtol, one bound:
+|got - ref| <= tol + tol |ref|).  Top-k indices must be equal, ties included.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audio_tpu.ops import pallas_lstm as jl
+from audio_tpu.ops import pallas_rnnt_lps as jk
+
+from audio_tpu_torch.ops import cuda_lstm, cuda_rnnt_lps
+
+ORACLES = ["reference", "pallas"]
+
+
+def _pair(a: np.ndarray, bf16: bool):
+    """The same f32 numbers as a jnp array and a tensor, both rounded to bf16 if asked."""
+    j, t = jnp.asarray(a), torch.from_numpy(a)
+    return (j.astype(jnp.bfloat16), t.to(torch.bfloat16)) if bf16 else (j, t)
+
+
+def _close(got, ref, tol, name):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol, err_msg=name)
+
+
+# ------------------------------------------------------------------ K6
+@pytest.mark.parametrize("oracle", ORACLES)
+@pytest.mark.parametrize("shape,v,k,bf16,seed", [
+    ((4, 5), 33, 3, False, 0),
+    ((3, 4), 64, 6, True, 2),  # bf16 rounding makes ties within a row likely
+    ((2, 3, 5), 21, 4, False, 3),
+    ((2, 2), 17, 10, False, 4),
+])
+def test_row_stats_topk_plain(shape, v, k, bf16, seed, oracle):
+    rng = np.random.default_rng(seed)
+    xj, xt = _pair(rng.standard_normal(shape + (v,)).astype(np.float32), bf16)
+    if oracle == "pallas":
+        ref = jk.row_stats_topk(xj, v - 1, k, interpret=True)
+    else:
+        ref = jk.row_stats_topk_reference(xj, v - 1, k)
+    got = cuda_rnnt_lps.row_stats_topk(xt, v - 1, k)  # a CPU tensor takes the plain version
+    tol = 1e-2 if bf16 else 1e-5
+    for name, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+        assert g.dtype == torch.float32
+        _close(g, r, tol, name)
+    assert got[3].dtype == torch.int32
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+
+
+def test_row_stats_topk_ignores_columns_past_blank():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))
+    x[:, 31:] += 10.0  # larger than every candidate
+    got = cuda_rnnt_lps.row_stats_topk(x, 30, 4)
+    ref = cuda_rnnt_lps.row_stats_topk(x[:, :31].contiguous(), 30, 4)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_top_k_breaks_ties_by_lowest_index():
+    x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, -1.0e30, -1.0e30], [0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5]])
+    vals, idx = cuda_rnnt_lps.top_k(x, 5)
+    assert idx.tolist() == [[1, 2, 4, 3, 0], [0, 1, 2, 3, 4]]
+    assert vals[0].tolist() == [3.0, 3.0, 3.0, 2.0, 1.0]
+    # dead slots of the search all score exactly the sentinel and tie by construction
+    assert cuda_rnnt_lps.top_k(torch.full((1, 6), -1.0e30), 3)[1].tolist() == [[0, 1, 2]]
+
+
+# ------------------------------------------------------------------ K8
+@pytest.mark.parametrize("oracle", ORACLES)
+@pytest.mark.parametrize("shape,v,blank,bf16,seed", [
+    ((2, 6, 4), 33, 0, False, 0),
+    ((3, 5, 3), 17, 16, False, 0),
+    ((2, 4, 4), 64, 0, True, 0),
+    ((2, 3, 5), 21, 0, False, 3),
+    ((4, 7), 19, 0, False, 5),
+])
+def test_lattice_row_stats_plain(shape, v, blank, bf16, seed, oracle):
+    rng = np.random.default_rng(seed)
+    xj, xt = _pair(rng.standard_normal(shape + (v,)).astype(np.float32), bf16)
+    tgt = rng.integers(0, v, shape).astype(np.int32)
+    if oracle == "pallas":
+        ref = jk.lattice_row_stats(xj, jnp.asarray(tgt), blank, interpret=True)
+    else:
+        ref = jk.lattice_row_stats_reference(xj, jnp.asarray(tgt), blank)
+    got = cuda_rnnt_lps.lattice_row_stats(xt, torch.from_numpy(tgt), blank)
+    for name, g, r in zip(("lse", "blank", "label"), got, ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == shape
+        _close(g, r, 1e-2 if bf16 else 1e-5, name)
+
+
+# ------------------------------------------------------------------ K5
+@pytest.mark.parametrize("oracle", ORACLES)
+@pytest.mark.parametrize("shape,d,v,k,bf16,seed", [
+    ((6, 4), 32, 65, 3, False, 0),
+    ((4, 3), 64, 129, 5, True, 2),
+    ((3, 7), 16, 33, 4, False, 3),
+])
+def test_join_stats_topk_plain(shape, d, v, k, bf16, seed, oracle):
+    rng = np.random.default_rng(seed)
+    aj, at = _pair(rng.standard_normal(shape + (d,)).astype(np.float32), bf16)
+    wj, wt = _pair((rng.standard_normal((d, v)) * 0.2).astype(np.float32), bf16)
+    bj, bt = _pair((rng.standard_normal((v,)) * 0.1).astype(np.float32), bf16)
+    if oracle == "pallas":
+        ref = jk.join_stats_topk(aj, wj, bj, v - 1, k, interpret=True)
+    else:
+        ref = jk.join_stats_topk_reference(aj, wj, bj, v - 1, k)
+    got = cuda_rnnt_lps.join_stats_topk(at, wt, bt, v - 1, k)
+    for name, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+        _close(g, r, 2e-2 if bf16 else 1e-5, name)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+
+
+def test_join_stats_topk_plain_upcasts_before_the_product():
+    """bf16 inputs: the product is taken in f32, not rounded to bf16 (a different function)."""
+    rng = np.random.default_rng(7)
+    act = torch.from_numpy(rng.standard_normal((5, 48)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((48, 33)) * 0.2).astype(np.float32)).bfloat16()
+    b = torch.zeros(33, dtype=torch.bfloat16)
+    got = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, 32, 3)
+    exact = (act.double() @ w.double())[:, :32].topk(3).values
+    assert float((got[2].double() - exact).abs().max()) < 1e-5
+
+
+# ------------------------------------------------------------------ K7
+@pytest.mark.parametrize("oracle", ORACLES)
+@pytest.mark.parametrize("n,hdim,bf16,seed", [(48, 64, False, 0), (32, 128, True, 2), (30, 64, False, 3)])
+def test_lstm_gate_step_plain(n, hdim, bf16, seed, oracle):
+    rng = np.random.default_rng(seed)
+
+    def mk(*s, scale=0.5):
+        return rng.standard_normal(s).astype(np.float32) * scale
+
+    (gxj, gxt), (hj, ht), (cj, ct) = (_pair(mk(n, w), bf16) for w in (4 * hdim, hdim, hdim))
+    wj, wt = _pair(mk(hdim, 4 * hdim, scale=0.1), bf16)
+    ln = [1.0 + 0.1 * mk(4 * hdim), 0.1 * mk(4 * hdim), 1.0 + 0.1 * mk(hdim), 0.1 * mk(hdim)]  # stay f32
+    ln_j = [jnp.asarray(a.astype(np.float32)) for a in ln]
+    ln_t = [torch.from_numpy(a.astype(np.float32)) for a in ln]
+    if oracle == "pallas":
+        ref = jl.lstm_gate_step(gxj, hj, cj, wj, *ln_j, 1e-3, interpret=True)
+    else:
+        ref = jl.lstm_gate_step_reference(gxj, hj, cj, wj, *ln_j, 1e-3)
+    got = cuda_lstm.lstm_gate_step(gxt, ht, ct, wt, *ln_t, 1e-3)
+    for name, g, r in zip(("h", "c"), got, ref):
+        assert g.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        _close(g, r, 2e-2 if bf16 else 1e-5, name)
+
+
+def test_ln_is_the_fast_variance_layer_norm():
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((7, 40)).astype(np.float32) * 3 + 1
+    scale, bias = rng.standard_normal(40).astype(np.float32), rng.standard_normal(40).astype(np.float32)
+    ref = jl._ln(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 1e-3)
+    got = cuda_lstm._ln(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias), 1e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    # a constant row has variance max(E[x^2] - E[x]^2, 0) = 0, never negative
+    const = torch.full((1, 40), 1000.1)
+    assert bool(torch.isfinite(cuda_lstm._ln(const, torch.ones(40), torch.zeros(40), 1e-5)).all())
+
+
+def test_cpu_tensors_launch_nothing():
+    before = (dict(cuda_rnnt_lps.launches), cuda_lstm.launches)
+    x = torch.zeros(2, 9)
+    cuda_rnnt_lps.row_stats_topk(x, 8, 2)
+    cuda_rnnt_lps.lattice_row_stats(x, torch.zeros(2, dtype=torch.int32), 8)
+    cuda_rnnt_lps.join_stats_topk(torch.zeros(2, 4), torch.zeros(4, 9), torch.zeros(9), 8, 2)
+    cuda_lstm.lstm_gate_step(torch.zeros(2, 16), torch.zeros(2, 4), torch.zeros(2, 4), torch.zeros(4, 16),
+                             torch.ones(16), torch.zeros(16), torch.ones(4), torch.zeros(4), 1e-3)
+    assert (dict(cuda_rnnt_lps.launches), cuda_lstm.launches) == before
