@@ -8,8 +8,12 @@ through the plain PyTorch version beside each kernel.
 Ported so far: the streaming-alignment chain (``functional``:
 ``lowpass_biquad`` -> ``lfilter`` -> ``mel_spectrogram`` -> ``forced_align``)
 and streaming Emformer RNN-T beam search (``models``: ``Emformer``, ``RNNT``,
-``RNNTBeamSearch``; ``transforms.MelSpectrogram``; ``pipelines``), with
-``_interop`` to carry the JAX package's parameters across.  Factories make
+``RNNTBeamSearch``; ``transforms.MelSpectrogram``; ``pipelines``), and the two
+gradient paths: the Emformer RNN-T train step (``Emformer.forward`` at training
+shapes, ``functional.rnnt_loss`` / ``rnnt_loss_simple`` / ``rnnt_loss_pruned``,
+``utils.cast_floating`` for bf16 compute over f32 masters) and the gradients of
+``lfilter`` and the spectrograms; with ``_interop`` to carry the JAX package's
+parameters and gradients across.  Factories make
 their tensors on CUDA unless the caller names another device.
 """
 

@@ -8,7 +8,11 @@ the same dtype and layout.
 ``rnnt_state_dict_from_jax_params`` turns the flax parameter tree of the JAX
 package's RNN-T into the ``state_dict`` of the port's ``RNNT``, which carries
 torchaudio's names: the inverse of the JAX package's
-``import_rnnt_state_dict`` and ``import_emformer_state_dict``.
+``import_rnnt_state_dict`` and ``import_emformer_state_dict``.  A gradient tree
+in the parameters' structure goes through the same function and comes out
+under the port's names, so gradients compare name by name.
+``simple_heads_from_jax_params`` carries the two (D, V) heads of the pruned
+loss across.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params"]
+__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -63,6 +67,8 @@ def rnnt_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, tor
     emformer_layers.{i}.pos_ff.{0,1,4}``, ``predictor.lstm_layers.{i}.{x2g,
     p2g,c_norm,g_norm}``, ``joiner.linear``), in the order of the model's own
     ``state_dict``.  ``RNNT.load_state_dict(..., strict=True)`` takes the result.
+    A tree of gradients with respect to those parameters maps the same way:
+    the result then holds each port parameter's gradient under its name.
     """
     tree = params["params"] if "params" in params else params
     sd: Dict[str, torch.Tensor] = {}
@@ -98,3 +104,10 @@ def rnnt_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, tor
 
     _dense(sd, "joiner.linear", tree["joiner"]["linear"], device)
     return sd
+
+
+def simple_heads_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The pruned loss's simple heads ``{"simple_am", "simple_lm"}``, each (D, V), from the
+    recipe's training tree.  The layout is shared (``encodings @ head``), so nothing is
+    transposed; a gradient tree maps the same way."""
+    return {name: _leaf(params[name], device) for name in ("simple_am", "simple_lm")}

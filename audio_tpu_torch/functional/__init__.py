@@ -1,7 +1,7 @@
 """Stateless functional DSP layer of the PyTorch port.
 
 Exports what the port carries so far: the filters, the filterbanks, the
-spectrograms and CTC forced alignment.
+spectrograms, CTC forced alignment and the transducer losses.
 """
 
 from ._alignment import TokenSpan, forced_align, merge_tokens
@@ -22,6 +22,13 @@ from ._filtering import (
     riaa_biquad,
     treble_biquad,
 )
+from ._rnnt import (
+    get_rnnt_prune_ranges,
+    prune_target_encodings,
+    rnnt_loss,
+    rnnt_loss_pruned,
+    rnnt_loss_simple,
+)
 from ._spectral import mel_spectrogram, spectrogram
 from ._stft import stft
 
@@ -38,6 +45,7 @@ __all__ = [
     "equalizer_biquad",
     "filtfilt",
     "forced_align",
+    "get_rnnt_prune_ranges",
     "highpass_biquad",
     "lfilter",
     "linear_fbanks",
@@ -45,7 +53,11 @@ __all__ = [
     "mel_spectrogram",
     "melscale_fbanks",
     "merge_tokens",
+    "prune_target_encodings",
     "riaa_biquad",
+    "rnnt_loss",
+    "rnnt_loss_pruned",
+    "rnnt_loss_simple",
     "spectrogram",
     "stft",
     "treble_biquad",

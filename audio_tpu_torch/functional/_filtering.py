@@ -2,10 +2,12 @@
 
 Same semantics as ``audio_tpu.functional._filtering``: coefficients are
 normalized by ``a[0]``, the FIR stage runs before the all-pole recurrence,
-and the output is clamped to [-1, 1] by default.  For a float32 signal longer
-than 256 samples with at most 129 taps, ``lfilter`` runs kernel K1 on CUDA
-(``ops/cuda_iir.py``); any other CUDA input raises.  On the CPU it runs the
-plain FIR stage and recurrence, K1's plain version.
+and the output is clamped to [-1, 1] by default.  On CUDA (float32, at most
+129 taps; the kernels raise on anything else) a signal longer than 256 samples
+runs the fused kernel K1 and, under autograd, kernel K4 in its backward; a
+shorter one runs the plain FIR stage and kernel K4, the split the JAX package
+makes at that length.  On the CPU ``lfilter`` runs the plain FIR stage and
+recurrence, K1's plain version, with the same analytic backward.
 """
 
 from __future__ import annotations
@@ -14,9 +16,8 @@ import math
 
 import torch
 
-from ..ops.cuda_iir import MAX_TAPS, lfilter_fused
-from ..ops.iir import fir_causal as _fir_causal
-from ..ops.iir import iir_apply
+from ..ops.cuda_iir import iir_apply, lfilter_fused
+from ..ops.iir import fir_causal
 
 __all__ = [
     "allpass_biquad",
@@ -80,21 +81,10 @@ def lfilter(
     a_norm = (a_coeffs / a0).contiguous()
     b_norm = (b_coeffs / a0).contiguous()
 
-    if x.is_cuda:
-        if not (
-            x.dtype == torch.float32
-            and x.shape[-1] >= _FUSED_MIN_T
-            and 1 < a_norm.shape[-1] <= MAX_TAPS
-            and b_norm.shape[-1] <= MAX_TAPS
-        ):
-            raise NotImplementedError(
-                f"lfilter on CUDA runs kernel K1, which takes float32 signals of at least {_FUSED_MIN_T} "
-                f"samples and 2..{MAX_TAPS} coefficients; got {x.dtype}, T={x.shape[-1]}, "
-                f"{a_norm.shape[-1]} coefficients. Filter a CPU tensor instead."
-            )
-        output = lfilter_fused(x.contiguous(), a_norm, b_norm)
+    if x.is_cuda and (x.shape[-1] < _FUSED_MIN_T or a_norm.shape[-1] < 2):
+        output = iir_apply(fir_causal(x, b_norm).contiguous(), a_norm)
     else:
-        output = iir_apply(_fir_causal(x, b_norm), a_norm)
+        output = lfilter_fused(x.contiguous(), a_norm, b_norm)
 
     if clamp:
         output = torch.clamp(output, -1.0, 1.0)

@@ -13,11 +13,11 @@ a tensor's value on the host.
 
 Attention has one formulation: scores in f32 (scaled query times key, plus
 the shared mask and the per-stream key bias), softmax, probabilities cast to
-the value dtype, times value.  The JAX package's fused attention kernel (K9,
-``audio_tpu/ops/pallas_attention.py::emformer_attention``) has no CUDA
-counterpart yet, so on a CUDA tensor the shapes that the JAX package sends to
-it raise ``NotImplementedError``; the streaming step's shapes (a query of
-segment + right context frames) are never among them.
+the value dtype, times value.  On CUDA tensors the shapes the JAX package sends
+to its fused attention kernel (K9: Tq >= 32 and Tk >= 32, the non-streaming
+forward) run ``ops/cuda_attention.py``'s kernels, forward and backward; the
+streaming step's shapes (a query of segment + right context frames) and CPU
+tensors run the plain formulation.
 """
 
 from __future__ import annotations
@@ -30,16 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda_attention import emformer_attention, emformer_attention_plain, fused_attention_supported
+
 __all__ = ["Emformer"]
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def _k9_shapes(b: int, h: int, tq: int, tk: int, dh: int) -> bool:
-    """Shapes the JAX package routes to its fused attention kernel K9 on an accelerator."""
-    tile = tq * tk * 4 * 2
-    qkvo = (2 * tq + 2 * tk) * dh * 4
-    return tq >= 32 and tk >= 32 and dh % 8 == 0 and (tile + qkvo) < 8 * 1024 * 1024
 
 
 def _uniform_(param: torch.Tensor, bound: float, generator: Optional[torch.Generator]) -> None:
@@ -134,20 +129,15 @@ class _EmformerAttention(nn.Module):
         tk = key.shape[0]
         h = self.num_heads
         dh = self.input_dim // h
-        if query.is_cuda and _k9_shapes(b, h, tq, tk, dh):
-            raise NotImplementedError(
-                f"Emformer attention at Tq={tq}, Tk={tk} (batch {b}, {h} heads of {dh}) is the work of kernel K9 "
-                "(audio_tpu/ops/pallas_attention.py::emformer_attention), which the port does not have on CUDA "
-                "yet; run the non-streaming forward on CPU tensors. The streaming infer step is not affected."
-            )
-        q = (query * dh**-0.5).reshape(tq, b, h, dh)
-        k = key.reshape(tk, b, h, dh)
-        v = value.reshape(tk, b, h, dh)
-        weights = torch.einsum("qbhd,kbhd->bhqk", q.float(), k.float())
-        weights = weights + mask2d.float()[None, None] + key_bias.float()[:, None, None, :]
-        probs = torch.softmax(weights, dim=-1)
-        attn = torch.einsum("bhqk,kbhd->qbhd", probs.to(v.dtype), v)
-        return attn.reshape(tq, b, self.input_dim)
+        # (T, B, D) -> (B, H, T, dh) views: the kernels read the strides, nothing is copied
+        q = (query * dh**-0.5).reshape(tq, b, h, dh).permute(1, 2, 0, 3)
+        k = key.reshape(tk, b, h, dh).permute(1, 2, 0, 3)
+        v = value.reshape(tk, b, h, dh).permute(1, 2, 0, 3)
+        if fused_attention_supported(b, h, tq, tk, dh):
+            attn = emformer_attention(q, k, v, mask2d, key_bias)  # kernel K9 on CUDA tensors
+        else:
+            attn = emformer_attention_plain(q, k, v, mask2d, key_bias)
+        return attn.permute(2, 0, 1, 3).reshape(tq, b, self.input_dim)
 
     def _forward_impl(self, utterance, lengths, right_context, summary, mems, attention_mask_bias,
                       key_extra_valid=None, left_context_key=None, left_context_val=None):

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 __all__ = ["SOURCES", "bind", "build", "check_launch", "load", "nvcc_path"]
 
-SOURCES = ("lfilter", "lstm", "rnnt_lps", "spectrogram", "viterbi")
+SOURCES = ("attention", "iir", "lfilter", "lstm", "rnnt_lps", "spectrogram", "viterbi")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "audio_tpu_torch"

@@ -5,7 +5,9 @@ CUDA C++ in ``csrc/spectrogram.cu``, replacing the TPU kernel
 ``power_spectrogram`` launches it for a CUDA tensor and runs
 ``power_spectrogram_plain``, the plain PyTorch version (frames, rfft, power),
 for a CPU tensor.  Output is time-major (B, n_frames, bins).  ``launches``
-counts the kernel's launches.
+counts the kernel's launches.  Under autograd the kernel's backward recomputes
+through the plain version, as the JAX package's ``_power_spec_kernel_tm`` does:
+the JAX package has no backward kernel here either.
 """
 
 from __future__ import annotations
@@ -127,17 +129,16 @@ def power_spectrogram(
     tensor runs kernel K2 in exact float32; a CPU tensor runs
     :func:`power_spectrogram_plain`.
     """
-    global launches
     if fb is not None and power != 2.0:
         raise ValueError("mel fusion requires power=2.0")
     if not waveform.is_cuda:
         return power_spectrogram_plain(waveform, window, n_fft, hop_length, power, fb)
-    inputs = (waveform, window) if fb is None else (waveform, window, fb)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "the spectrogram kernel's gradient arrives with the training slice of the port; "
-            "call it under torch.no_grad() or on CPU tensors"
-        )
+    return _PowerSpectrogramFn.apply(waveform, window, fb, n_fft, hop_length, power)
+
+
+def _power_spectrogram_kernel(waveform, window, n_fft: int, hop_length: int, power: float, fb) -> torch.Tensor:
+    """One launch of K2 on CUDA tensors."""
+    global launches
     if not spectrogram_supported(n_fft, hop_length, power):
         raise ValueError(f"spectrogram kernel does not take n_fft={n_fft}, hop={hop_length}, power={power}")
     if waveform.dim() != 2 or waveform.dtype != torch.float32 or not waveform.is_contiguous():
@@ -168,3 +169,24 @@ def power_spectrogram(
     _build.check_launch(err, "power_spectrogram")
     launches += 1
     return out
+
+
+class _PowerSpectrogramFn(torch.autograd.Function):
+    """K2 forward; the backward differentiates the plain version on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, waveform, window, fb, n_fft, hop_length, power):
+        ctx.save_for_backward(waveform, window, fb)
+        ctx.config = (n_fft, hop_length, power)
+        return _power_spectrogram_kernel(waveform, window, n_fft, hop_length, power, fb)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[:3])]
+            out = power_spectrogram_plain(inputs[0], inputs[1], *ctx.config, fb=inputs[2])
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if t is not None and t.requires_grad else None for t in inputs) + (None,) * 3

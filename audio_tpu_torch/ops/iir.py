@@ -10,9 +10,11 @@ Same contract as ``audio_tpu.ops.iir``:
   response, after folding the incoming state into the first ``order`` inputs.
   Only the block-to-block carry is sequential.
 
-``iir_apply`` is the forward of the JAX package's ``iir_apply``; autograd runs
-through the plain torch ops.  These engines run on the CPU in the port:
-``lfilter`` on CUDA goes through kernel K1 (``cuda_iir``).
+``iir_plain`` chooses between them as the JAX package's ``iir_apply`` does off
+the accelerator, and is kernel K4's plain version.  These engines run on the
+CPU in the port: on CUDA ``lfilter`` goes through kernel K1 and the all-pole
+recurrence through kernel K4 (``cuda_iir``, which also holds ``iir_apply`` and
+``lfilter_fused`` with their analytic gradients).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fir_causal", "iir_scan", "iir_blocked", "iir_apply", "allpole_impulse_response"]
+__all__ = ["fir_causal", "iir_scan", "iir_blocked", "iir_plain", "allpole_impulse_response"]
 
 # Default block length of the blocked formulation.
 _DEFAULT_BLOCK = 128
@@ -111,14 +113,18 @@ def iir_blocked(
     return y[..., :t]
 
 
-def iir_apply(x: torch.Tensor, a_norm: torch.Tensor, block_size: int = _DEFAULT_BLOCK) -> torch.Tensor:
-    """All-pole filter with normalized denominator a_norm (C, order+1), a_norm[:,0]=1.
+def iir_plain(x: torch.Tensor, a_tail: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K4: the all-pole recurrence with zero initial state.
 
-    x: (B, C, T) -> y: (B, C, T).
+    x (B, C, T), a_tail (C, order) = [a1..aN] -> y (B, C, T).  With ``reverse``
+    the recurrence runs from the last sample to the first,
+    y[t] = x[t] - sum_k a[k] y[t+k]: the filter applied to the flipped signal,
+    flipped back.
     """
-    a_tail = a_norm[:, 1:]
     if a_tail.shape[-1] == 0:
         return x
+    if reverse:
+        return torch.flip(iir_plain(torch.flip(x, (-1,)), a_tail), (-1,))
     if x.shape[-1] <= _SCAN_CUTOFF:
         return iir_scan(x, a_tail)
-    return iir_blocked(x, a_tail, block_size=block_size)
+    return iir_blocked(x, a_tail)

@@ -7,10 +7,12 @@ Phases, each of which raises on failure:
 
 1. print the card (``nvidia-smi`` name and power limit) and torch version;
    turn TF32 off so the plain versions and the projection are exact float32;
-2. build the five kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
-3. hold each of the seven kernels against its plain PyTorch version on the
-   card, at its main path's shape and at ragged small shapes, and the public
-   spectral functions on the card against the same calls on the CPU;
+2. build the seven kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
+3. hold each of the ten kernel entries against its plain PyTorch version on the
+   card, at its main path's shape and at ragged small shapes (K9 forward and
+   backward in f32 and bf16, a fully masked row included; K4 in both time
+   directions), and the public spectral functions on the card against the
+   same calls on the CPU;
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
@@ -29,7 +31,19 @@ Phases, each of which raises on failure:
    versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move) and
    ``expansion="approx"`` (K8 must move) at S=32, two ticks each;
 7. the pipeline: seeded noise -> streaming feature extractor (K2 must move)
-   -> ``infer`` segment by segment (K5 must move).
+   -> ``infer`` segment by segment (K5 must move);
+8. the third main path, the Emformer RNN-T train step of
+   ``examples/asr/emformer_rnnt/train_torch.py`` at full width
+   (``emformer_rnnt_base(4097)``, features (B, 516, 80), 64 targets, bf16
+   compute with f32 masters, dropout on, AdamW): the full-lattice loss at
+   B=32 and the pruned loss (band 16) at B=64.  K9 must launch once a layer
+   forward and once backward and K8 at least once; the loss must be finite and
+   fall.  Time the step, read its peak memory, profile one.  Then the loss and
+   its gradients in f32 at B=2 on the card against the CPU;
+9. the fourth main path, lfilter's gradient: the gradients of
+   mean(log1p(mel_spectrogram(lfilter(x, a, b)))) with respect to x, a and b at
+   B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K4 backward must move),
+   against the CPU at B=4.
 
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -59,8 +73,15 @@ RNNT_V, RNNT_BLANK, RNNT_BEAM, RNNT_SMT, RNNT_MAX_TOKENS = 4097, 4096, 10, 4, 20
 RNNT_S, RNNT_SEG_T, RNNT_D_IN, RNNT_SEG_SECONDS, RNNT_TICKS = 512, 20, 80, 0.16, 4
 RNNT_D, RNNT_H = 1024, 512  # joiner depth, predictor hidden size
 
+# the train step: bench_models.py's shapes (5.12 s of features, 64 targets, V = 4097)
+TRAIN_T, TRAIN_RC, TRAIN_U = 512, 4, 64
+TRAIN_B_FULL, TRAIN_B_PRUNED, TRAIN_BAND = 32, 64, 16
+TRAIN_HEADS, TRAIN_DH = 8, 64  # the encoder's attention: K9 runs at (B, 8, 160, 160, 64)
+TRAIN_TQ = TRAIN_T // 4 + (TRAIN_T // 16) * (TRAIN_RC // 4)  # 128 frames + 32 right-context frames
+
 # H100 SXM data sheet rates (dense): device memory, FP32 outside the tensor cores, and
 # bf16 on the tensor cores
+SPIN_CYCLES = 100_000_000  # about 50 ms of the card's clock: see cuda_ms
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
@@ -75,18 +96,41 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after a warm-up.
+
+    The device first spins for some tens of milliseconds, during which the host queues the
+    calls; the clock starts when the spin ends.  So a call made of several small launches
+    (a backward behind the autograd engine) is timed at the device's pace even when the
+    host is slower than the device, as on a machine whose cores are shared.  The spin is
+    torch's own test helper; a torch without it times the calls at the pace the host sends them.
+    """
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin = getattr(torch.cuda, "_sleep", None)
+    if spin is not None:
+        spin(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernel_rows(prof, reps: int) -> list:
+    """(name, device ms a call, launches a call) of every kernel a profile saw, longest first;
+    ranges that only annotate the timeline (the optimizer's step) are not kernels."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        ((e.key, e.device_time_total / 1e3 / reps, e.count / reps) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+         and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")),
+        key=lambda r: -r[1],
+    )
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
@@ -176,18 +220,13 @@ def make_inputs(dev):
 def profile_chain(step, step_ms: float, reps: int = 3) -> dict:
     """Device time by kernel over ``reps`` chain steps (torch.profiler), and the busy share."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    rows = sorted(
-        ((e.key, e.device_time_total / 1e3 / reps, e.count / reps) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
-        key=lambda r: -r[1],
-    )
+    rows = device_kernel_rows(prof, reps)
     busy = sum(r[1] for r in rows)
     print(f"  profile: device busy {busy:.3f} ms per step against a {step_ms:.3f} ms step without the profiler "
           f"(idle share {1 - busy / step_ms:.3f}); by kernel:")
@@ -335,22 +374,170 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
     return errs
 
 
+# ------------------------------------------------------------------ slice 3: kernels K9 and K4
+def attention_inputs(rng, dev, b: int, h: int, tq: int, tk: int, dh: int, dtype, masked_row: bool = False):
+    """Seeded q (pre-scaled), k, v in the model's layout, (T, B, H * dh) seen as (B, H, T, dh);
+    a banded 0 / -1e8 mask; key padding on two batch entries; the cotangent of the output."""
+    import torch
+
+    def t(shape, scale=1.0):
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=dev).to(dtype)
+        return x.reshape(shape[0], b, h, dh).permute(1, 2, 0, 3)
+
+    # past dh = 64 the cotangent shrinks so that dO V^T, which the backward rounds to the
+    # inputs' type inside dS, keeps the scale it has at the depth the tolerances were stated for
+    q, k, v = t((tq, b, h * dh), dh ** -0.5), t((tk, b, h * dh)), t((tk, b, h * dh))
+    w = t((tq, b, h * dh), min(1.0, (64 / dh) ** 0.5))
+    rows, cols = np.arange(tq)[:, None], np.arange(tk)[None, :]
+    mask = np.where(np.abs(rows * tk // tq - cols) <= max(tk // 4, 8), 0.0, -1e8).astype(np.float32)
+    if masked_row:
+        mask[tq // 2] = -1e8
+    kb = np.zeros((b, tk), np.float32)
+    kb[0, -3:] = -1e8
+    kb[b - 1, -1:] = -1e8
+    return q, k, v, torch.as_tensor(mask, device=dev), torch.as_tensor(kb, device=dev), w
+
+
+def check_attention(rng, dev, shape, dtype, label: str, masked_row: bool = False) -> dict:
+    """K9 forward and backward against the plain version and its autograd gradient.
+    Tolerances of the JAX kernel's tests: f32 1e-5 forward, 2e-5 + 2e-4 |ref| gradients;
+    bf16 0.05 (both products round their inputs to bf16 on either side)."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_attention
+
+    bf16 = dtype == torch.bfloat16
+    q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, dtype, masked_row)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        got = cuda_attention.emformer_attention(*leaves, mask, kb)
+        got_grads = torch.autograd.grad(got, leaves, w)
+        torch.cuda.synchronize()
+        ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = cuda_attention.emformer_attention_plain(*ref_leaves, mask, kb)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, w)
+    fwd_tol, (g_atol, g_rtol) = (0.05, (0.05, 0.05)) if bf16 else (1e-5, (2e-5, 2e-4))
+    fwd = check_close(f"K9 forward {label}", got.detach().float(), ref.detach().float(), fwd_tol, fwd_tol)
+    bwd = max(check_close(f"K9 backward {label} d{name}", g.float(), r.float(), g_atol, g_rtol)
+              for name, g, r in zip("qkv", got_grads, ref_grads))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def check_iir(rng, dev, b: int, c: int, t: int, order: int, label: str) -> float:
+    """K4 in both directions against its plain version, at K1's tolerance (the sequential
+    recurrence against the blocked Toeplitz product)."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_iir
+
+    a, _ = stable_coeffs(rng, c, order)
+    a_tail = torch.as_tensor(a[:, 1:].copy(), device=dev)
+    x = torch.as_tensor(rng.standard_normal((b, c, t)).astype(np.float32) * 0.1, device=dev)
+    err = 0.0
+    for reverse in (False, True):
+        got = cuda_iir.iir_allpole(x, a_tail, reverse=reverse)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"K4 iir {label}{', reversed' if reverse else ''}", got,
+                                   cuda_iir.iir_plain(x, a_tail, reverse=reverse), 2e-4, 1e-4))
+    return err
+
+
+def check_lattice_stats(rng, dev, card: str, shape, label: str) -> float:
+    """K8 as the transducer losses call it: a seeded 4-D bf16 lattice (B, T', rows, V), the blank
+    raised as the joiner's, and each row's label from an int32 tensor of the lattice's leading
+    shape (the full loss expands the padded targets over T', the pruned loss gathers them into
+    its band).  The plain version runs a batch block at a time, so no f32 copy of the lattice
+    is made.  Tolerance of the JAX kernel's bf16 tests, 1e-2.  Also the kernel's time there."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    b, t, rows, v = shape
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).mul_(2.0)
+    x[..., RNNT_BLANK] += 4.0
+    x = x.to(torch.bfloat16)
+    if rows == TRAIN_U + 1:  # as ops/rnnt.py builds it: the targets, padded by the unused row U, over T'
+        targets = torch.as_tensor(rng.integers(0, v, (b, TRAIN_U)).astype(np.int32), device=dev)
+        tgt = torch.nn.functional.pad(targets, (0, 1))[:, None, :].expand(b, t, rows)
+    else:  # as ops/rnnt_pruned.py builds it: one label a band slot
+        tgt = torch.as_tensor(rng.integers(0, v, (b, t, rows)).astype(np.int64), device=dev)
+    got = cuda_rnnt_lps.lattice_row_stats(x, tgt, RNNT_BLANK)
+    torch.cuda.synchronize()
+    block = 4
+    ref = [torch.cat(part) for part in zip(*(cuda_rnnt_lps.lattice_row_stats_plain(x[i : i + block], tgt[i : i + block],
+                                                                                    RNNT_BLANK)
+                                             for i in range(0, b, block)))]
+    err = max(check_close(f"K8 lattice_row_stats {label} {part}", g, r, 1e-2, 1e-2)
+              for part, g, r in zip(("lse", "blank", "label"), got, ref))
+    n = b * t * rows
+    ms = cuda_ms(lambda: cuda_rnnt_lps.lattice_row_stats(x, tgt, RNNT_BLANK), 5)
+    bound = bound_ms(2 * n * v + n * (4 + 12), 3 * n * v)
+    print(f"  K8 lattice_row_stats {label}: {ms:.3f} ms (bound {bound[0]:.3f} ms by {bound[1]}) on {card}")
+    return err
+
+
+def time_attention(rng, dev, shape, errs: dict, launches: dict) -> list:
+    """The kernel table's two K9 entries at ``shape`` in bf16: each direction's time alone,
+    the plain version's, the bound, and the library call's."""
+    import torch
+    import torch.nn.functional as nnF
+
+    from audio_tpu_torch.ops import cuda_attention
+
+    b, h, tq, tk, dh = shape
+    q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, torch.bfloat16)
+    combined = (mask[None, None] + kb[:, None, None, :]).to(torch.bfloat16)  # (B, 1, Tq, Tk)
+
+    def directions(fn):
+        """(forward ms, backward ms) of ``fn(q, k, v)``, the backward through a kept graph."""
+        fwd = cuda_ms(lambda: fn(q, k, v), 20)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves)
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, w, retain_graph=True), 20)
+        return fwd, bwd
+
+    kernel = directions(lambda q_, k_, v_: cuda_attention.emformer_attention(q_, k_, v_, mask, kb))
+    plain = directions(lambda q_, k_, v_: cuda_attention.emformer_attention_plain(q_, k_, v_, mask, kb))
+    library = directions(lambda q_, k_, v_: nnF.scaled_dot_product_attention(q_, k_, v_, attn_mask=combined,
+                                                                             scale=1.0))
+    unit = b * h * tq * tk * dh
+    tensor = 2 * b * h * tq * dh  # bytes of one bf16 (B, H, T, dh) tensor, Tq = Tk here
+    stats = 2 * 4 * b * h * tq  # the saved f32 row maximum and log row sum
+    masks = 4 * (tq * tk + b * tk)
+    bounds = (bound_ms(4 * tensor + stats + masks, 4 * unit, PEAK_BF16_PER_S),  # q, k, v read, o written
+              bound_ms(8 * tensor + stats + masks, 10 * unit, PEAK_BF16_PER_S))  # + o, dO read, dq, dk, dv written
+    rows = []
+    for i, (name, replaces) in enumerate((("emformer_attention_fwd", "audio_tpu/ops/pallas_attention.py:151"),
+                                          ("emformer_attention_bwd", "audio_tpu/ops/pallas_attention.py:177"))):
+        rows.append(dict(name=name, route="cuda", source="audio_tpu_torch/csrc/attention.cu", replaces=replaces,
+                         launches=launches[name], max_abs_err=errs["fwd" if i == 0 else "bwd"], ms=kernel[i],
+                         plain_ms=plain[i], bound_ms=bounds[i][0], bound_by=bounds[i][1], library_ms=library[i]))
+    return rows
+
+
 # ------------------------------------------------------------------ slice 2: the streaming search
 def kernel_counts() -> dict:
-    """The launch counters of all seven kernels."""
-    from audio_tpu_torch.ops import cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
+    """The launch counters of all ten kernel entries."""
+    from audio_tpu_torch.ops import (cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
+                                     cuda_viterbi)
 
-    return {"lfilter": cuda_iir.launches, "power_spectrogram": cuda_spectrogram.launches,
-            "viterbi": cuda_viterbi.launches, "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches}
+    return {"lfilter": cuda_iir.launches, "iir": cuda_iir.iir_launches,
+            "power_spectrogram": cuda_spectrogram.launches, "viterbi": cuda_viterbi.launches,
+            "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches, **cuda_attention.launches}
 
 
 def reset_kernel_counts() -> None:
-    from audio_tpu_torch.ops import cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
+    from audio_tpu_torch.ops import (cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
+                                     cuda_viterbi)
 
     for mod in (cuda_iir, cuda_spectrogram, cuda_viterbi, cuda_lstm):
         mod.launches = 0
-    for name in cuda_rnnt_lps.launches:
-        cuda_rnnt_lps.launches[name] = 0
+    cuda_iir.iir_launches = 0
+    for counters in (cuda_rnnt_lps.launches, cuda_attention.launches):
+        for name in counters:
+            counters[name] = 0
 
 
 def require_launches(what: str, counts: dict, names) -> None:
@@ -468,6 +655,267 @@ def time_tick(dec, feat, lengths, state, hypos, reps: int = 5):
     return statistics.median(runs), runs, tick
 
 
+# ------------------------------------------------------------------ slice 3: the two gradient paths
+def load_train_recipe():
+    """The train step's module, examples/asr/emformer_rnnt/train_torch.py, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "asr", "emformer_rnnt",
+                        "train_torch.py")
+    spec = importlib.util.spec_from_file_location("emformer_rnnt_train_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def timed_steps(step, warmup: int, reps: int):
+    """Median ms of ``step()`` over ``reps`` runs (CUDA events) after ``warmup`` runs; also the
+    runs and every returned value."""
+    import torch
+
+    values = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        values.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return statistics.median(runs), runs, values
+
+
+def run_train_path(recipe, model, dev, card: str, loss: str, batch: int) -> dict:
+    """Path A at full width in bf16 with f32 masters, dropout on: the first step with the
+    launch counters read around it, a second warm-up, five timed steps, one profiled step."""
+    import torch
+
+    name = f"train step, {loss} loss, B={batch}, bf16"
+    torch.manual_seed(3)  # dropout draws from the card's default generator
+    heads = None
+    if loss == "pruned":
+        heads = recipe.init_simple_heads(RNNT_D, RNNT_V, dev, torch.Generator().manual_seed(1))
+    step = recipe.make_train_step(model.train(), loss, TRAIN_BAND, torch.bfloat16, heads=heads)
+    data = recipe.synthetic_batch(np.random.default_rng(2), batch, TRAIN_T, TRAIN_RC, TRAIN_U, RNNT_V, dev)
+
+    def one():
+        with torch.enable_grad():
+            return step(*data)
+
+    enc, enc_lengths = model.transcriber(data[0], data[1])
+    if enc.shape[1] != TRAIN_T // 4 or int(enc_lengths.max()) != enc.shape[1]:
+        raise AssertionError(f"{name}: the encoder gives {enc.shape[1]} frames, lengths up to {int(enc_lengths.max())}; "
+                             f"the kernels were held at {TRAIN_T // 4}")
+    del enc
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one {name}", counts, ["emformer_attention_fwd", "emformer_attention_bwd",
+                                              "lattice_row_stats"])
+    n_layers = len(model.transcriber.transformer.emformer_layers)
+    if counts["emformer_attention_fwd"] != n_layers or counts["emformer_attention_bwd"] != n_layers:
+        raise AssertionError(f"{name}: K9 launched {counts['emformer_attention_fwd']} forward and "
+                             f"{counts['emformer_attention_bwd']} backward for {n_layers} layers")
+    grads = [p.grad for p in step.params.values()]
+    if any(g is None or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{name}: a master parameter has no finite float32 gradient")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, runs, losses = timed_steps(one, 1, 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(first)] + [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{name}: losses {losses} are not finite and falling")
+    tokens = batch * TRAIN_U / (step_ms / 1e3)
+    print(f"  {name}: median {step_ms:.3f} ms (runs {[round(m, 3) for m in runs]}); {tokens:.1f} target tokens/s; "
+          f"peak memory {peak_gb:.3f} GB; losses {[round(v, 3) for v in losses]}; launches a step "
+          f"{ {n: c for n, c in counts.items() if c} } on {card}")
+    profile = profile_chain(one, step_ms, reps=1)
+    return dict(ms=step_ms, runs_ms=runs, tokens_per_s=tokens, peak_gb=peak_gb, losses=losses, launches=counts,
+                profile=profile)
+
+
+def compare_train_with_cpu(recipe, model, dev, loss: str) -> None:
+    """The loss and its gradients in f32 at B=2, dropout off, on the card through the kernels
+    against the same model on the CPU through the plain versions: loss within 1e-4
+    (relative), the gradient norm of each top-level module within 1e-3 (relative).
+
+    The pruned loss picks its band a frame by an argmax over window sums of posteriors,
+    which random weights leave nearly flat: rounding moves some frames' bands, and the
+    loss then differs by what the moved band excludes, not by rounding.  So for the loss
+    and the norms the CPU run takes the bands the card chose, and the two sides score the
+    same lattice cells.  The card's choice is held on its own: its simple-loss posteriors
+    against the CPU's (1e-3), its ``get_rnnt_prune_ranges`` against the CPU's on the same
+    posteriors rounded so that their sums are exact (equal), and every band's start must lie
+    between the lowest and the highest that the CPU's posteriors allow when window sums within
+    1e-3 of a frame's best count as tied."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+
+    choose_ranges, card_side = F.get_rnnt_prune_ranges, []
+
+    def start_bounds(post, logit_lengths, target_lengths, s, tol):
+        """The lowest and the highest band start a frame that ``get_rnnt_prune_ranges`` may give
+        when window sums within ``tol`` of a frame's best count as tied: its steps after the
+        choice of the window (the cap, start 0, non-decreasing, steps of at most s - 1, the
+        climb to the last target) never lower a start when a choice rises, so the two
+        extreme choices bound every other.  Sums in float64."""
+        t_max, u1 = post.shape[1:]
+        csum = torch.nn.functional.pad(torch.cumsum(post.double(), dim=-1), (1, 0))
+        w = max(u1 - s + 1, 1)
+        win = csum[:, :, torch.clamp(torch.arange(w) + s, max=u1)] - csum[:, :, :w]
+        tied = win >= win.max(dim=-1, keepdim=True).values - tol
+        cap = torch.clamp(target_lengths.long() + 1 - s, min=0)[:, None]
+        t_idx = torch.arange(t_max)[None, :]
+        climb = torch.clamp(cap - torch.clamp(logit_lengths.long()[:, None] - 1 - t_idx, min=0) * (s - 1), min=0)
+
+        def finish(raw):
+            raw = torch.minimum(raw, cap)
+            raw[:, 0] = 0
+            start = torch.cummax(raw, dim=1).values
+            start = torch.cummin(start - t_idx * (s - 1), dim=1).values + t_idx * (s - 1)
+            return torch.maximum(start, climb)
+
+        return (finish(torch.where(tied, torch.arange(w), w).min(dim=-1).values),
+                finish(torch.where(tied, torch.arange(w), -1).max(dim=-1).values))
+
+    def record(post, logit_lengths, target_lengths, s):
+        card_side.append((post, choose_ranges(post, logit_lengths, target_lengths, s)))
+        return card_side[-1][1]
+
+    def replay(post, logit_lengths, target_lengths, s):
+        card_post, given = (t.cpu() for t in card_side[0])
+        own = choose_ranges(post, logit_lengths, target_lengths, s)
+        check_close("pruned loss: the card's simple-loss posteriors vs the CPU's", card_post, post, 1e-3, 1e-3)
+        # rounded to 2^-10 the posteriors' f32 sums are exact in any order, so the two sides see the
+        # same window sums, exact ties included, and must choose the same integers
+        exact = torch.round(post * 1024) / 1024
+        check_equal("pruned loss: get_rnnt_prune_ranges on the card vs the CPU, both on the CPU's posteriors "
+                    "rounded to 2^-10",
+                    choose_ranges(exact.to(dev), logit_lengths.to(dev), target_lengths.to(dev), s).cpu(),
+                    choose_ranges(exact, logit_lengths, target_lengths, s))
+        live = torch.arange(post.shape[1])[None, :] < logit_lengths[:, None]
+        lo, hi = start_bounds(post, logit_lengths, target_lengths, s, 1e-3)
+        start, consecutive = given[:, :, 0].long(), (given - given[:, :, :1] == torch.arange(s)).all(dim=-1)
+        outside = ((start < lo) | (start > hi) | ~consecutive) & live
+        moved = (own != given).any(dim=-1) & live
+        print(f"  prune ranges: {int(outside.sum())} of {int(live.sum())} frames' bands on the card lie outside what the "
+              f"CPU's posteriors allow with window sums within 1e-3 counted as ties (limit 0; {int(((hi > lo) & live).sum())}"
+              f" frames have such a tie); {int(moved.sum())} frames' bands differ from the CPU's own choice; the card's "
+              "bands are used on both sides for the loss")
+        if bool(outside.any()):
+            raise AssertionError("pruned loss: the card chose a band that no near-tie of the CPU's window sums explains")
+        return given
+
+    def loss_and_norms(mdl, device):
+        heads = None
+        if loss == "pruned":
+            heads = recipe.init_simple_heads(RNNT_D, RNNT_V, device, torch.Generator().manual_seed(1))
+        step = recipe.make_train_step(mdl.eval(), loss, TRAIN_BAND, None, heads=heads)
+        data = recipe.synthetic_batch(np.random.default_rng(2), 2, TRAIN_T, TRAIN_RC, TRAIN_U, RNNT_V, device)
+        step.optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            value = step.loss(step.params, *data)
+            value.backward()
+        norms = {}
+        for pname, p in step.params.items():
+            group = ".".join(pname.split(".")[:2]) if pname.startswith("model.") else pname
+            norms[group] = norms.get(group, 0.0) + float(p.grad.double().pow(2).sum())
+        step.optimizer.zero_grad(set_to_none=True)
+        return float(value), {g: math.sqrt(v) for g, v in norms.items()}
+
+    reset_kernel_counts()
+    try:
+        F.get_rnnt_prune_ranges = record
+        got, got_norms = loss_and_norms(model, dev)
+        torch.cuda.synchronize()
+        require_launches(f"the f32 {loss}-loss step at B=2", kernel_counts(),
+                         ["emformer_attention_fwd", "emformer_attention_bwd", "lattice_row_stats"])
+        F.get_rnnt_prune_ranges = replay
+        ref, ref_norms = loss_and_norms(copy.deepcopy(model).cpu(), torch.device("cpu"))
+    finally:
+        F.get_rnnt_prune_ranges = choose_ranges
+    diffs = {g: abs(got_norms[g] - ref_norms[g]) / ref_norms[g] for g in ref_norms}
+    worst = max(diffs.values())
+    print(f"  f32 {loss}-loss step at B=2, card vs CPU: loss {got:.6f} vs {ref:.6f} (relative "
+          f"{abs(got - ref) / abs(ref):.3e}, limit 1e-4); gradient norms "
+          f"{ {g: round(v, 6) for g, v in got_norms.items()} }, relative differences "
+          f"{ {g: float(f'{v:.3e}') for g, v in diffs.items()} } (limit 1e-3)")
+    if not abs(got - ref) <= 1e-4 * abs(ref) or not worst <= 1e-3:
+        raise AssertionError(f"the f32 {loss}-loss step on the card disagrees with the CPU")
+
+
+def filter_grad_step(x, a, b, fb, window):
+    """Path B: mean(log1p(mel_spectrogram(lfilter(x, a, b, clamp=False)))) and its gradients."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (x, a, b)]
+    with torch.enable_grad():
+        y = F.lfilter(leaves[0], leaves[1], leaves[2], clamp=False)
+        mel = F.mel_spectrogram(y, fb=fb, window=window, n_fft=N_FFT, hop_length=HOP, win_length=N_FFT, power=2.0,
+                                normalized=False, time_major=True)
+        loss = torch.log1p(mel).mean()
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), *grads)
+
+
+def check_short_filter(rng, dev) -> None:
+    """A signal of 200 samples, below the fused kernel's length: on the card ``lfilter`` runs the
+    plain FIR stage and K4 forward and backward; output and gradients against the CPU (1e-4)."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+
+    a_np, b_np = stable_coeffs(rng, 1, 3)
+    x = torch.as_tensor(rng.standard_normal((4, 200)).astype(np.float32) * 0.1)
+    w = torch.as_tensor(rng.standard_normal((4, 200)).astype(np.float32))
+
+    def run(device):
+        leaves = [torch.as_tensor(v, device=device).requires_grad_() for v in (x, a_np[0], b_np[0])]
+        with torch.enable_grad():
+            y = F.lfilter(*leaves, clamp=False)
+            return (y.detach(), *torch.autograd.grad((y * w.to(device)).sum(), leaves))
+
+    reset_kernel_counts()
+    got = run(dev)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if counts["iir"] != 2 or counts["lfilter"] != 0:
+        raise AssertionError(f"short lfilter: expected K4 forward and backward, launches {counts}")
+    for part, g, r in zip(("y", "dx", "da", "db"), got, run(torch.device("cpu"))):
+        check_close(f"lfilter of 200 samples through K4: {part} vs CPU", g.cpu(), r, 1e-4 * float(r.abs().max()), 1e-4)
+
+
+def run_filter_grad(rng, dev, card: str, wav, fb, window, order: int, reps: int) -> dict:
+    """Path B at full width for one filter order: counters around one step, the step's
+    gradients at B=4 against the CPU (1e-4 of each gradient's peak), the step's time."""
+    import torch
+
+    a_np, b_np = stable_coeffs(rng, 1, order)
+    a, b = torch.as_tensor(a_np[0], device=dev), torch.as_tensor(b_np[0], device=dev)
+    name = f"lfilter gradient, order {order}, B={wav.shape[0]}"
+    reset_kernel_counts()
+    out = filter_grad_step(wav, a, b, fb, window)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one step of the {name}", counts, ["lfilter", "power_spectrogram", "iir"])
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise AssertionError(f"{name}: non-finite loss or gradient")
+    got = filter_grad_step(wav[:4], a, b, fb, window)
+    ref = filter_grad_step(wav[:4].cpu(), a.cpu(), b.cpu(), fb.cpu(), window.cpu())
+    for part, g, r in zip(("loss", "dx", "da", "db"), got, ref):
+        check_close(f"{name}: {part} at B=4 vs CPU", g.cpu(), r, 1e-4 * float(r.abs().max()), 1e-4)
+    del out, got, ref
+    step_ms, runs, _ = timed_steps(lambda: filter_grad_step(wav, a, b, fb, window), 1, reps)
+    print(f"  {name}: median {step_ms:.3f} ms forward + backward (runs {[round(m, 3) for m in runs]}); launches "
+          f"a step { {n: c for n, c in counts.items() if c} } on {card}")
+    return dict(ms=step_ms, runs_ms=runs, launches=counts, a=a, b=b)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -482,7 +930,9 @@ def main(argv=None) -> int:
     import audio_tpu_torch.functional as F
     from audio_tpu_torch._internal.windows import hann_window
     from audio_tpu_torch.functional._stft import _pad_center
-    from audio_tpu_torch.ops import _build, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram, cuda_viterbi
+    from audio_tpu_torch.models import emformer_rnnt_base
+    from audio_tpu_torch.ops import (_build, cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
+                                     cuda_viterbi)
     from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
 
     dev = torch.device("cuda", 0)
@@ -592,6 +1042,35 @@ def main(argv=None) -> int:
         errs = check_slice2_kernels(rng, dev, n_main, RNNT_D, RNNT_V, RNNT_H, RNNT_BEAM, dtype,
                                     f"{tag} main (N {n_main}, D {RNNT_D}, V {RNNT_V}, H {RNNT_H}, k {RNNT_BEAM})")
     s2_err = errs  # the main shape in bf16, the type the main path runs
+    # K8 at the train step's shapes: the full loss's lattice and the pruned loss's band
+    t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
+    for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
+                         ((TRAIN_B_PRUNED, t_out, TRAIN_BAND, RNNT_V), "pruned band")):
+        s2_err["lattice_row_stats"] = max(s2_err["lattice_row_stats"],
+                                          check_lattice_stats(rng, dev, card, shape, f"bf16 {label} {shape}"))
+    torch.cuda.empty_cache()
+
+    # K9: ragged shapes (Tq, Tk off the tiles; dh = 8, 24, 128), heads deeper than the 128
+    # columns on chip (dh = 136, 264, 1024: two, three and eight chunks), a fully masked row,
+    # a large tile inside the gate, then the train steps' shapes (the pruned loss's batch, then
+    # the full loss's); bf16 last, the type they run
+    k9_main = (TRAIN_B_FULL, TRAIN_HEADS, TRAIN_TQ, TRAIN_TQ, TRAIN_DH)
+    k9_pruned = (TRAIN_B_PRUNED, TRAIN_HEADS, TRAIN_TQ, TRAIN_TQ, TRAIN_DH)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for shape, masked_row in (((2, 2, 32, 32, 8), False), ((3, 4, 33, 47, 24), False),
+                                  ((2, 2, 129, 161, 64), False), ((2, 2, 100, 70, 128), False),
+                                  ((2, 2, 100, 70, 136), False), ((1, 3, 65, 33, 264), True),
+                                  ((1, 2, 40, 72, 1024), False),
+                                  ((2, 8, 160, 160, 64), True), ((2, 8, 640, 640, 64), False)):
+            check_attention(rng, dev, shape, dtype, f"{tag} {shape}{', a fully masked row' if masked_row else ''}",
+                            masked_row)
+        check_attention(rng, dev, k9_pruned, dtype, f"{tag} main, pruned step {k9_pruned}")
+        k9_err = check_attention(rng, dev, k9_main, dtype, f"{tag} main {k9_main}")
+    # K4: orders 1, 8, 12 and 128 at small ragged shapes, then the gradient path's shape
+    for b_, c_, t_, order in ((45, 3, 1007, 1), (33, 2, 300, 8), (17, 1, 5000, 12), (5, 2, 700, 128)):
+        check_iir(rng, dev, b_, c_, t_, order, f"order {order} ({b_}x{c_}x{t_})")
+    k4_err = check_iir(rng, dev, B, 1, T, 2, f"main, order 2 ({B}x1x{T})")
 
     # ---------------------------------------------------------------- phase 4
     print("phase 4: the chain at full width")
@@ -722,6 +1201,31 @@ def main(argv=None) -> int:
           f"score {float(hypo.scores[0]):.3f}")
     del model, pipe_dec
 
+    # ---------------------------------------------------------------- phase 8
+    print(f"phase 8: Emformer RNN-T train step at full width (T={TRAIN_T}+{TRAIN_RC} frames, U={TRAIN_U}, "
+          "bf16 compute, f32 masters, dropout on)")
+    recipe = load_train_recipe()
+    model = emformer_rnnt_base(RNNT_V, device=dev, generator=torch.Generator().manual_seed(0))
+    train = {
+        "full": run_train_path(recipe, model, dev, card, "full", TRAIN_B_FULL),
+        "pruned": run_train_path(recipe, model, dev, card, "pruned", TRAIN_B_PRUNED),
+    }
+    # the comparison takes the seeded weights, not the ones the steps above left: its inputs,
+    # and so its margins, are then the same in every run
+    model = emformer_rnnt_base(RNNT_V, device=dev, generator=torch.Generator().manual_seed(0))
+    for loss in ("full", "pruned"):
+        compare_train_with_cpu(recipe, model, dev, loss)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- phase 9
+    print(f"phase 9: lfilter's gradient at full width (B={B} x {T} samples)")
+    check_short_filter(rng, dev)
+    filter_grad = {order: run_filter_grad(rng, dev, card, wav, fb, window, order, 5 if order == 2 else 2)
+                   for order in (2, 8, 12)}
+    fg = filter_grad[2]
+    fg["profile"] = profile_chain(lambda: filter_grad_step(wav, fg["a"], fg["b"], fb, window), fg["ms"], reps=1)
+
     kernels = []
     # K1
     k1_ms = cuda_ms(lambda: cuda_iir.lfilter_fused(x1, a_lp, b_lp), 20)
@@ -805,6 +1309,19 @@ def main(argv=None) -> int:
         kernels.append(dict(name=name, route="cuda", source=f"audio_tpu_torch/csrc/{source}.cu", replaces=replaces,
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+    # K4 as the gradient path runs it: the order-2 recurrence backwards in time
+    a_tail = (fg["a"][1:] / fg["a"][0]).reshape(1, -1).contiguous()
+    k4_ms = cuda_ms(lambda: cuda_iir.iir_allpole(x1, a_tail, reverse=True), 20)
+    k4_plain = cuda_ms(lambda: cuda_iir.iir_plain(x1, a_tail, reverse=True), 3)
+    k4_bound = bound_ms(2 * x1.numel() * 4, 2 * x1.numel() * a_tail.shape[1])
+    kernels.append(dict(name="iir", route="cuda", source="audio_tpu_torch/csrc/iir.cu",
+                        replaces="audio_tpu/ops/pallas_iir.py:161", launches=fg["launches"]["iir"],
+                        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound[0], bound_by=k4_bound[1],
+                        library_ms=None))
+    # K9 at the train step's shape in bf16; each direction alone (the backward through a kept
+    # graph); the library call is scaled_dot_product_attention with the combined additive mask
+    kernels += time_attention(np.random.default_rng(4), dev, k9_main, k9_err,
+                              train["full"]["launches"])
     for k in kernels:
         lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
         print(f"  {k['name']}: {k['ms']:.3f} ms (bound {k['bound_ms']:.3f} ms by {k['bound_by']}; plain "
@@ -816,7 +1333,10 @@ def main(argv=None) -> int:
             json.dump({**result, "card": card, "torch": torch.__version__, "chain_ms": chain_ms,
                        "chain_runs_ms": step_ms, "streams_rtf0.1": chain_streams, "launches": launches,
                        "profile": breakdown, "rnnt_launches": rnnt_launches,
-                       "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()}}, f, indent=1)
+                       "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()},
+                       "train_step": train,
+                       "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
+                                       for o, r in filter_grad.items()}}, f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -129,11 +129,15 @@ def test_k9_gate_is_the_jax_packages():
     from audio_tpu.ops.pallas_attention import fused_attention_supported
 
     for b, h, tq, tk, dh in ((512, 8, 5, 35, 64), (4, 8, 32, 32, 64), (4, 8, 200, 400, 64), (2, 4, 64, 64, 12),
-                             (1, 1, 1500, 1500, 64)):
+                             (1, 1, 1500, 1500, 64), (2, 2, 64, 64, 136), (1, 2, 40, 40, 1024),
+                             (1, 1, 32, 32, 16384)):
         jax_gate = tq >= 32 and tk >= 32 and fused_attention_supported(b, h, tq, tk, dh)
-        assert port_emformer._k9_shapes(b, h, tq, tk, dh) == jax_gate
+        assert port_emformer.fused_attention_supported(b, h, tq, tk, dh) == jax_gate
     # the streaming step of emformer_rnnt_base: 5 query frames, never K9's
-    assert not port_emformer._k9_shapes(512, 8, 5, 35, 64)
+    assert not port_emformer.fused_attention_supported(512, 8, 5, 35, 64)
+    # a head deeper than the 128 columns the CUDA kernel holds on chip is still the kernel's
+    assert fused_attention_supported(2, 2, 64, 64, 136)
+    assert port_emformer.fused_attention_supported(2, 2, 64, 64, 136)
 
 
 def test_generator_makes_the_same_model_twice():
