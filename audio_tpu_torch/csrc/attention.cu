@@ -18,12 +18,43 @@
 // The mask is the finite -1e8 of the model, so a fully masked row is uniform, never
 // NaN.  The mask and the key bias are added to the f32 scores in that order.
 //
-// Bound on the H100 by bytes at the Emformer's training shape ((32, 8, 160, 160, 64):
-// 21 MB of q, k, v, o against 1.7 GFLOP), and in practice by latency: the products
-// are small.  The (Tq, Tk) scores never reach device memory.  The TPU kernel keeps a
-// whole (H, Tq, Tk) tile in VMEM and loops a batch block a grid step; here a block
-// owns one (batch, head, tile of rows) and sweeps the other sequence axis in tiles
-// through shared memory, so Tq x Tk is not limited by what an SM holds:
+// Bound on the H100 by bytes at the Emformer's training shape ((32, 8, 160, 160, 64) bf16):
+// 21 MB of q, k, v, o (and dO, dq, dk, dv) against 1.7 GFLOP forward, 0.006 ms forward and
+// 0.013 ms backward at 3.35 TB/s; in practice by latency, since each (batch, head) is small.
+// The (Tq, Tk) scores never reach device memory.  The TPU kernel keeps a whole (H, Tq, Tk)
+// tile in VMEM and loops a batch block a grid step.  Two routes here, chosen by the wrapper
+// from the type and the shape alone (ops/cuda_attention.py: kernel_route):
+//
+// Route "wgmma" (bf16, dh <= 128, Tk <= 192 at dh <= 64 or 128 above): Hopper's
+// warpgroup products, every operand copied by TMA (tensor maps over the strided layout,
+// 128-byte swizzle), every accumulator in registers.
+//   * forward, one launch: a block is one warpgroup and owns (64 query rows, head, batch).
+//     Q and all keys arrive on one mbarrier, V on another, so the scores and the softmax
+//     run while V is in flight.  S = Q K^T is computed once into registers (up to three
+//     64-key accumulators); as all keys are on chip the row maximum is final before any
+//     exponential, so there is no second sweep and no rescaling, and the rounding is the
+//     reference's: exp(S - m) cast to bf16, times V, divided by l last.  P feeds P V
+//     straight from registers as wgmma's A operand.  m and log l are saved apart.
+//   * backward, one launch: a block owns (head, batch); warpgroup w owns 64 keys and keeps
+//     their dK and dV in registers over the whole sweep.  (Q, dO, O) tiles of 64 rows come
+//     through a ring of two TMA slots, the mask block a warpgroup reads by cp.async.  Per tile
+//     each warpgroup computes S^T = K_w Q^T and dP^T = V_w dO^T once (delta = rowsum(dO O)
+//     of the tile from the slot meanwhile), forms
+//     P^T and dS^T in registers and adds P^T dO to dV and dS^T Q to dK with them as A
+//     operands.  dS^T also goes to shared memory (bf16, two buffers); after a block barrier
+//     warpgroup (tile mod W) computes dQ = dS K over all keys and writes it.  No atomics:
+//     every sum has one order, so every run gives the same bits.
+//   What held PR 3's kernels back, and what this route does about it: two sweeps over the
+//   keys (one sweep; S computed once); wmma through shared-memory accumulators (wgmma,
+//   accumulators and P, dS in registers); block-wide barriers between load, product and
+//   softmax (TMA with mbarriers: copies overlap the products and the softmax; one barrier a
+//   query tile in the backward); three backward launches with S and dO V^T computed twice
+//   and delta a launch of its own (one launch, each computed once, delta fused).  A 64-row
+//   query tile at Tq = 160 still leaves its last tile half empty: wgmma's M is 64.
+//
+// Route "tiled" (f32, heads deeper than 128, more keys): PR 3's kernels, which sweep
+// the other sequence axis in tiles through shared memory, so Tq x Tk is not limited by
+// what an SM holds:
 //   * forward: a block owns a tile of query rows.  Pass 1 sweeps the key tiles for the
 //     row maximum and the sum of exponentials; pass 2 sweeps them again, forms
 //     exp(S - m) with the final maximum (the reference's rounding, no rescaling of a
@@ -33,17 +64,18 @@
 //     accumulated on chip in f32 and written once.  P and dS take the place of the raw
 //     products they are made from in shared memory, which lets two blocks share an SM.
 //   * backward, dQ: a second kernel whose block owns a tile of query rows and sweeps
-//     the key tiles.  No atomics anywhere: every output has the same bits every run.
+//     the key tiles.  No atomics anywhere.
 // Products: bf16 inputs multiply on the tensor cores (wmma m16n16k16, f32
 // accumulation) with 64 x 64 tiles; f32 inputs multiply on the FP32 pipes (never
 // TF32) with 32 x 32 tiles.  Tensors are indexed through (batch, head, time) strides
 // with the head dimension contiguous, so the model's (T, B, H * dh) layout is read
-// and written where it lies.  Tq and Tk need not be multiples of the tile; the head
-// dimension is a multiple of 8 and is zero-padded to 16 on chip.  Up to 128 of it lie
-// on chip at once.  A deeper head goes a chunk of 128 at a time: the scores are summed
-// over the chunks, each time from tiles read anew, and a block owns one chunk of its
-// output's columns beside its tile of rows.  With one chunk nothing is read twice.
+// and written where it lies (both routes).  Tq and Tk need not be multiples of the tile;
+// the head dimension is a multiple of 8 and is zero-padded to 16 on chip.  Up to 128 of
+// it lie on chip at once.  A deeper head goes a chunk of 128 at a time: the scores are
+// summed over the chunks, each time from tiles read anew, and a block owns one chunk of
+// its output's columns beside its tile of rows.  With one chunk nothing is read twice.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -602,6 +634,664 @@ cudaError_t backward(const Params& p, int batch, int heads, cudaStream_t stream)
   return launch(attention_bwd_dq_kernel<T>, grid_of(p, p.tq, Tile<T>::kM, heads, batch), dq_smem<T>(p.dc), stream, p);
 }
 
+// ================================================================== route "wgmma": bf16 on Hopper
+//
+// Every product is wgmma m64n64k16 (bf16 in, f32 accumulated in registers).  Operands come by
+// TMA into 128-byte-swizzled tiles: a tile is 64 rows of one 64-column chunk of the head
+// dimension (128 bytes a row, 8 KB, 1024-byte aligned).  Columns past dh and rows past T
+// arrive as zeros.
+constexpr int kRows = 64;                      // rows of a wgmma tile, of a query tile, of a key tile
+constexpr int kRowBytes = 128;                 // a row of a tile: one swizzle span
+constexpr int kTileBytes = kRows * kRowBytes;  // 8 KB
+constexpr int kStepBytes = 16 * kRowBytes;     // 16 rows: one step of K in a tile whose rows run along K
+
+// Where a tensor map put the time, head and batch axes: its dimensions 1-3, ordered by stride.
+struct Axes {
+  int t, h, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ int axis_coord(int dim, const Axes& ax, int t, int h, int b) {
+  return ax.t == dim ? t : (ax.h == dim ? h : b);
+}
+
+// The box of ``map`` at column ``col`` and time step ``t`` of (b, h) into shared memory ``dst``;
+// its bytes are counted on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, const Axes& ax, int col, int t, int h,
+                                         int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(axis_coord(1, ax, t, h, b)), "r"(axis_coord(2, ax, t, h, b)),
+      "r"(axis_coord(3, ax, t, h, b)), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The wgmma descriptor of a swizzled tile at shared address ``addr``.  Both byte offsets are
+// 1024, the stride between groups of 8 rows: a 64 x 16 operand never needs the other one (the
+// 16 K values of a row-per-K-step tile lie in one 128-byte row; the 64 M or N values of a
+// row-per-K tile likewise).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Word of element (query ql, key kl) of a warpgroup's 64 x 64 f32 mask block in shared memory:
+// rows of 64 keys, the key's bits 3-4 flipped by bits 1-2 of ql, so that the softmax's reads
+// (8 keys by 4 queries two apart a warp) and the copy's writes (32 keys a warp) hit 32 banks.
+__device__ __forceinline__ int mask_word(int ql, int kl) { return ql * kRows + (kl ^ (((ql >> 1) & 3) << 3)); }
+
+// Byte offset of element (row, col) of a swizzled tile region whose rows are 128 bytes.
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+  return row * kRowBytes + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Ties registers to this point of the program: an accumulator is not read before the wait that
+// completes it, and an A fragment is kept until its product is done.
+__device__ __forceinline__ void hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define WG_D32                                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OUT32(d)                                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),     \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),      \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, f32) += A B over 16 of K, A and B from shared memory.  kTransA / kTransB: 0 when
+// the operand's rows run along M (A) or N (B) with K along the row, 1 when its rows run along K.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_OUT32(d)
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 64, f32) += A B over 16 of K, A from registers (the accumulator layout of a previous
+// product, packed to bf16 pairs), B from shared memory.
+template <int kTransB>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTransB));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][32]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[n][i] = 0.f;
+}
+
+// The A fragment of K step kk (accumulator columns 16 kk .. 16 kk + 15) from an accumulator.
+__device__ __forceinline__ void fragment(uint32_t (&a)[4], const float (&d)[32], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Writes a 64 x (64 DC) f32 accumulator as bf16 to rows row0 .. of a (b, h) slice through its
+// time stride, rows below ``rows`` and columns below ``cols``.  Thread (warp, lane) holds rows
+// 16 warp + lane / 4 (+ 8) and column pairs 8 g + 2 (lane % 4) of every group g of 8.
+template <int DC>
+__device__ __forceinline__ void store_rows(bf16* base, i64 st, int row0, int rows, int cols, float (&d)[DC][32]) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + warp * 16 + (lane >> 2) + 8 * half;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = c * 64 + g * 8 + 2 * (lane & 3);
+        if (col < cols)
+          *reinterpret_cast<uint32_t*>(base + r * st + col) =
+              pack_bf16(d[c][4 * g + 2 * half], d[c][4 * g + 2 * half + 1]);
+      }
+  }
+}
+
+// ------------------------------------------------------------------ wgmma forward
+struct FwdArgs {
+  View o;
+  const float* mask;  // (Tq, Tk)
+  const float* kb;    // (B, Tk)
+  float* row_max;     // (B, H, Tq)
+  float* log_sum;     // (B, H, Tq)
+  int tq, tk, dh;
+  Axes aq, ak, av;
+};
+
+// A block is one warpgroup and owns (query tile, head, batch); all NK x 64 keys lie on chip, so the
+// row maximum is final before any exponential and the keys are swept once.
+template <int NK, int DC>
+__global__ void __launch_bounds__(128) attention_fwd_wgmma(const __grid_constant__ CUtensorMap mq,
+                                                           const __grid_constant__ CUtensorMap mk,
+                                                           const __grid_constant__ CUtensorMap mv, const FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align1024(smem_raw);             // DC tiles: the query rows
+  unsigned char* sk = sq + DC * kTileBytes;            // DC regions of NK tiles: the keys
+  unsigned char* sv = sk + DC * NK * kTileBytes;       // likewise the values
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + DC * NK * kTileBytes);
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // Q and K on one barrier, V on another: the scores and the softmax overlap V's copy
+    mbar_expect_tx(&bars[0], DC * (1 + NK) * kTileBytes);
+    mbar_expect_tx(&bars[1], DC * NK * kTileBytes);
+    for (int c = 0; c < DC; ++c) {
+      tma_load(sq + c * kTileBytes, &mq, a.aq, c * 64, q0, h, b, &bars[0]);
+      tma_load(sk + c * NK * kTileBytes, &mk, a.ak, c * 64, 0, h, b, &bars[0]);
+    }
+    for (int c = 0; c < DC; ++c) tma_load(sv + c * NK * kTileBytes, &mv, a.av, c * 64, 0, h, b, &bars[1]);
+  }
+
+  // S = Q K^T: NK accumulators of 64 keys each, over the head dimension 16 at a time
+  float s[NK][32];
+  zero(s);
+  const int steps = (a.dh + 15) / 16;
+  mbar_wait(&bars[0], 0);
+#pragma unroll
+  for (int j = 0; j < NK; ++j) hold(s[j]);
+  wg_fence();
+  for (int kk = 0; kk < steps; ++kk) {
+    const uint32_t qa = smem_u32(sq + (kk >> 2) * kTileBytes) + (kk & 3) * 32;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+      mma_ss<0, 0>(s[j], desc(qa), desc(smem_u32(sk + ((kk >> 2) * NK + j) * kTileBytes) + (kk & 3) * 32));
+  }
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int j = 0; j < NK; ++j) hold(s[j]);
+
+  // the softmax: + mask + key bias in f32, the final row maximum m, exp(S - m), l = its row sum
+  const float* kb_row = a.kb + static_cast<i64>(b) * a.tk;
+  const int cq = 2 * (lane & 3);
+  float m_row[2], l_row[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = q0 + warp * 16 + (lane >> 2) + 8 * half;
+    const float* mrow = a.mask + static_cast<i64>(min(qi, a.tq - 1)) * a.tk;  // a row past Tq is never written
+    float best = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = j * 64 + g * 8 + cq + e, kc = min(kj, a.tk - 1);  // loads without a branch
+          const float bias = mrow[kc], key_bias = kb_row[kc];
+          float& x = s[j][4 * g + 2 * half + e];
+          x = kj < a.tk ? (x + bias) + key_bias : -INFINITY;
+          best = fmaxf(best, x);
+        }
+    best = fmaxf(best, __shfl_xor_sync(kFull, best, 1));
+    best = fmaxf(best, __shfl_xor_sync(kFull, best, 2));  // finite: key 0 exists
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[j][4 * g + 2 * half + e];
+          x = expf(x - best);
+          sum += x;
+        }
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    m_row[half] = best;
+    l_row[half] = sum;
+  }
+
+  // O = cast(exp(S - m)) V, the probabilities straight from registers as wgmma's A operand
+  uint32_t p[NK][4][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fragment(p[j][kk], s[j], kk);
+  float o[DC][32];
+  zero(o);
+  mbar_wait(&bars[1], 0);
+#pragma unroll
+  for (int c = 0; c < DC; ++c) hold(o[c]);
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hold(p[j][kk]);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        mma_rs<1>(o[c], p[j][kk], desc(smem_u32(sv + (c * NK + j) * kTileBytes) + kk * kStepBytes));
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int c = 0; c < DC; ++c) hold(o[c]);
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hold(p[j][kk]);
+
+  // divided by l last; the statistics the backward recomputes P from
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = q0 + warp * 16 + (lane >> 2) + 8 * half;
+    bf16* orow = static_cast<bf16*>(a.o.p) + b * a.o.sb + h * a.o.sh + static_cast<i64>(qi) * a.o.st;
+    if (qi < a.tq) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int col = c * 64 + g * 8 + cq;
+          if (col < a.dh)
+            *reinterpret_cast<uint32_t*>(orow + col) =
+                pack_bf16(o[c][4 * g + 2 * half] / l_row[half], o[c][4 * g + 2 * half + 1] / l_row[half]);
+        }
+      if ((lane & 3) == 0) {
+        const i64 at = (static_cast<i64>(b) * gridDim.y + h) * a.tq + qi;
+        a.row_max[at] = m_row[half];
+        a.log_sum[at] = logf(l_row[half]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ wgmma backward
+struct BwdArgs {
+  View dq, dk, dv;
+  const float* mask;     // (Tq, Tk)
+  const float* kb;       // (B, Tk)
+  const float* row_max;  // (B, H, Tq)
+  const float* log_sum;  // (B, H, Tq)
+  int tq, tk, dh;
+  Axes aq, ak, av, ao, ado;
+};
+
+// One block a (head, batch); warpgroup w owns keys [64 w, 64 w + 64) and holds their dK and dV
+// in registers.  The query tiles stream through a ring of two slots (Q, dO and O of 64 rows).
+// For each, every warpgroup computes S^T = K_w Q_i^T and dP^T = V_w dO_i^T once, and meanwhile
+// delta = rowsum(dO O) of the tile's rows from the slot; turns them into P^T and dS^T in
+// registers, and adds P^T dO_i to dV and dS^T Q_i to dK with P^T and dS^T as A operands.  dS^T
+// also goes to shared memory (bf16, two buffers); after a barrier, warpgroup i mod W computes
+// dQ_i = dS_i K over all keys and writes it.  The mask entries and row statistics a
+// warpgroup's softmax reads come by cp.async into its own shared block while the products run
+// (4 bytes an element: a mask row of Tk floats need not be the multiple of 16 bytes a tensor
+// map needs); read from global memory inside the softmax they were the first version's
+// largest cost, the loads waiting on each other for want of registers to keep them in flight.
+template <int W, int DC>
+__global__ void __launch_bounds__(W * 128, 1)
+    attention_bwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                        const __grid_constant__ CUtensorMap mdo, const BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = align1024(smem_raw);         // DC regions of W tiles: the keys
+  unsigned char* sv = sk + DC * W * kTileBytes;    // the values
+  unsigned char* sq = sv + DC * W * kTileBytes;    // 2 slots of DC tiles: a query tile
+  unsigned char* sdo = sq + 2 * DC * kTileBytes;   // 2 slots of DC tiles: its rows of dO
+  unsigned char* so = sdo + 2 * DC * kTileBytes;   // 2 slots of DC tiles: its rows of O
+  unsigned char* sds = so + 2 * DC * kTileBytes;   // 2 buffers of W tiles: dS^T of a query tile
+  // each warpgroup's copy of what the current tile's softmax reads: its 64 x 64 block of the
+  // mask, and m, log l and delta of the tile's 64 rows
+  float* s_mask = reinterpret_cast<float*>(sds + 2 * W * kTileBytes);
+  float* s_m = s_mask + W * kRows * kRows;
+  float* s_logl = s_m + W * kRows;
+  float* s_delta = s_logl + W * kRows;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_delta + W * kRows);  // K and V; the two slots
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, wgi = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int nq = (a.tq + kRows - 1) / kRows;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_query_tile = [&](int i) {
+    uint64_t* bar = &bars[1 + (i & 1)];
+    mbar_expect_tx(bar, 3 * DC * kTileBytes);
+    for (int c = 0; c < DC; ++c) {
+      const int at = ((i & 1) * DC + c) * kTileBytes;
+      tma_load(sq + at, &mq, a.aq, c * 64, i * kRows, h, b, bar);
+      tma_load(sdo + at, &mdo, a.ado, c * 64, i * kRows, h, b, bar);
+      tma_load(so + at, &mo, a.ao, c * 64, i * kRows, h, b, bar);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * DC * W * kTileBytes);
+    for (int c = 0; c < DC; ++c) {
+      tma_load(sk + c * W * kTileBytes, &mk, a.ak, c * 64, 0, h, b, &bars[0]);
+      tma_load(sv + c * W * kTileBytes, &mv, a.av, c * 64, 0, h, b, &bars[0]);
+    }
+    for (int i = 0; i < 2 && i < nq; ++i) load_query_tile(i);
+  }
+
+  const uint32_t k_base = smem_u32(sk), v_base = smem_u32(sv), q_base = smem_u32(sq), do_base = smem_u32(sdo);
+  const uint32_t w_off = wgi * kTileBytes;  // this warpgroup's 64 keys in a region of K or V
+  const int steps = (a.dh + 15) / 16;
+  const int cq = 2 * (lane & 3);
+  const i64 stats = (static_cast<i64>(b) * gridDim.x + h) * a.tq;
+  float* mask_block = s_mask + wgi * kRows * kRows;
+  float* row_m = s_m + wgi * kRows;
+  float* row_logl = s_logl + wgi * kRows;
+  float* delta = s_delta + wgi * kRows;
+  const int key0 = warp * 16 + (lane >> 2);  // this thread's keys of the warpgroup's 64: key0, key0 + 8
+  const float* kb_row = a.kb + static_cast<i64>(b) * a.tk;
+  const float kbv[2] = {kb_row[min(wgi * kRows + key0, a.tk - 1)],
+                        kb_row[min(wgi * kRows + key0 + 8, a.tk - 1)]};
+  float dk[DC][32], dv[DC][32];
+  zero(dk);
+  zero(dv);
+  mbar_wait(&bars[0], 0);
+  for (int i = 0; i < nq; ++i) {
+    const int slot = i & 1;
+    mbar_wait(&bars[1 + slot], (i >> 1) & 1);
+    // this warpgroup's mask block and the rows' m and log l, copied while the products run; a
+    // row past Tq or a key past Tk reads a clamped index, and its value is never used
+    {
+      const int kl = t & 63, key = min(wgi * kRows + kl, a.tk - 1);
+      for (int ql = t >> 6; ql < kRows; ql += 2) {
+        const i64 row = min(i * kRows + ql, a.tq - 1);
+        cp_async4(mask_block + mask_word(ql, kl), a.mask + row * a.tk + key);
+      }
+      const int qi = min(i * kRows + kl, a.tq - 1);
+      cp_async4((t < kRows ? row_m : row_logl) + kl, (t < kRows ? a.row_max : a.log_sum) + stats + qi);
+      cp_async_commit();
+    }
+
+    // S^T = K_w Q_i^T and dP^T = V_w dO_i^T: rows are this warpgroup's keys, columns the tile's
+    // queries
+    float st[32], dpt[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+    hold(st);
+    hold(dpt);
+    wg_fence();
+    for (int kk = 0; kk < steps; ++kk) {
+      const uint32_t kv_off = (kk >> 2) * W * kTileBytes + w_off + (kk & 3) * 32;
+      const uint32_t q_off = (slot * DC + (kk >> 2)) * kTileBytes + (kk & 3) * 32;
+      mma_ss<0, 0>(st, desc(k_base + kv_off), desc(q_base + q_off));
+      mma_ss<0, 0>(dpt, desc(v_base + kv_off), desc(do_base + q_off));
+    }
+    wg_commit();
+
+    // meanwhile delta of the tile's 64 rows (0 past Tq), two threads a row, 16 bytes at a time
+    {
+      const int row = t >> 1;
+      float sum = 0.f;
+      for (int ch = t & 1; ch < a.dh / 8; ch += 2) {
+        const uint32_t off = (slot * DC + (ch >> 3)) * kTileBytes + swizzled(row, (ch & 7) * 8);
+        const uint4 x = *reinterpret_cast<const uint4*>(sdo + off);
+        const uint4 y = *reinterpret_cast<const uint4*>(so + off);
+        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xs[e]), yf = __bfloat1622float2(ys[e]);
+          sum = fmaf(xf.y, yf.y, fmaf(xf.x, yf.x, sum));
+        }
+      }
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      if ((t & 1) == 0) delta[row] = sum;
+      cp_async_wait_all();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");  // this warpgroup's threads only
+    }
+    wg_wait_all();
+    hold(st);
+    hold(dpt);
+    // P^T = exp((S + mask + key bias - m) - log l), dS^T = P^T (dP^T - delta); 0 past Tq or Tk
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kl = key0 + 8 * half, key = wgi * kRows + kl;
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = g * 8 + cq + e, qi = i * kRows + ql, at = 4 * g + 2 * half + e;
+          const float bias = mask_block[mask_word(ql, kl)];
+          const float pr = key < a.tk && qi < a.tq
+                               ? expf((((st[at] + bias) + kbv[half]) - row_m[ql]) - row_logl[ql])
+                               : 0.f;
+          st[at] = pr;
+          dpt[at] = pr * (dpt[at] - delta[ql]);
+        }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fragment(pa[kk], st, kk);
+      fragment(dsa[kk], dpt, kk);
+    }
+
+    // dS^T to this tile's buffer, swizzled as TMA would have written it, for dQ
+    unsigned char* stage = sds + slot * W * kTileBytes;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = wgi * kRows + warp * 16 + (lane >> 2) + 8 * (r & 1);
+        *reinterpret_cast<uint32_t*>(stage + swizzled(row, (2 * kk + (r >> 1)) * 8 + cq)) = dsa[kk][r];
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+    // dV += P^T dO_i and dK += dS^T Q_i, the A operands from registers
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      hold(dv[c]);
+      hold(dk[c]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hold(pa[kk]);
+      hold(dsa[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const uint32_t off = (slot * DC + c) * kTileBytes + kk * kStepBytes;
+        mma_rs<1>(dv[c], pa[kk], desc(do_base + off));
+        mma_rs<1>(dk[c], dsa[kk], desc(q_base + off));
+      }
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      hold(dv[c]);
+      hold(dk[c]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hold(pa[kk]);
+      hold(dsa[kk]);
+    }
+    __syncthreads();  // dS^T of the tile is whole; its slot of Q, dO and O is free
+
+    if (tid == 0 && i + 2 < nq) load_query_tile(i + 2);
+    if (wgi == i % W) {  // dQ_i = dS_i K over all the keys
+      float dq[DC][32];
+      zero(dq);
+      const uint32_t ds_base = smem_u32(stage);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) hold(dq[c]);
+      wg_fence();
+      for (int kk = 0; kk < 4 * W; ++kk)
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          mma_ss<1, 1>(dq[c], desc(ds_base + kk * kStepBytes), desc(k_base + c * W * kTileBytes + kk * kStepBytes));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) hold(dq[c]);
+      store_rows<DC>(static_cast<bf16*>(a.dq.p) + b * a.dq.sb + h * a.dq.sh, a.dq.st, i * kRows, a.tq, a.dh, dq);
+    }
+  }
+
+  store_rows<DC>(static_cast<bf16*>(a.dk.p) + b * a.dk.sb + h * a.dk.sh, a.dk.st, wgi * kRows, a.tk, a.dh, dk);
+  store_rows<DC>(static_cast<bf16*>(a.dv.p) + b * a.dv.sb + h * a.dv.sh, a.dv.st, wgi * kRows, a.tk, a.dh, dv);
+}
+
+// ------------------------------------------------------------------ wgmma launches
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime, so the library needs no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// The tensor map of a (B, H, T, dh) bf16 operand with strides (sb, sh, st): dimension 0 the head's
+// columns in boxes of 64 (one swizzle span; columns past dh read as zero), then time, head and
+// batch in the order of their strides, the box ``rows`` time steps of one (b, h).
+cudaError_t make_map(CUtensorMap* map, Axes* axes, const void* ptr, int batch, int heads, int t, int dh,
+                     const i64* strides, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  int device = 0;  // the encoder is a driver call: make the runtime's context of the device current here
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  i64 stride[3] = {strides[2], strides[1], strides[0]};
+  cuuint64_t size[3] = {static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  int which[3] = {0, 1, 2};  // time, head, batch
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[which[j]] < stride[which[j - 1]]; --j) {
+      const int w = which[j];
+      which[j] = which[j - 1];
+      which[j - 1] = w;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), 0, 0, 0};
+  cuuint64_t bytes[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int k = 0; k < 3; ++k) {
+    dims[k + 1] = size[which[k]];
+    bytes[k] = static_cast<cuuint64_t>(stride[which[k]]) * sizeof(bf16);
+    if (which[k] == 0) {
+      axes->t = k + 1;
+      box[k + 1] = rows;
+    } else if (which[k] == 1) {
+      axes->h = k + 1;
+    } else {
+      axes->b = k + 1;
+    }
+  }
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The shapes this route takes; the Python wrapper's ``kernel_route`` states the same rule.
+int wgmma_key_tiles(int tq, int tk, int dh) {
+  const int limit = dh <= 64 ? 192 : 128;
+  if (dh <= 0 || dh % 8 != 0 || dh > 128 || tq <= 0 || tk <= 0 || tk > limit) return 0;
+  return (tk + kRows - 1) / kRows;
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+template <int NK, int DC>
+cudaError_t forward_wgmma(const CUtensorMap* maps, const FwdArgs& a, int batch, int heads, cudaStream_t stream) {
+  const size_t smem = 1024 + static_cast<size_t>(DC) * (1 + 2 * NK) * kTileBytes + 2 * sizeof(uint64_t);
+  cudaError_t err = set_smem(attention_fwd_wgmma<NK, DC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.tq + kRows - 1) / kRows, heads, batch);
+  attention_fwd_wgmma<NK, DC><<<grid, 128, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  return cudaGetLastError();
+}
+
+template <int W, int DC>
+cudaError_t backward_wgmma(const CUtensorMap* maps, const BwdArgs& a, int batch, int heads, cudaStream_t stream) {
+  const size_t smem = 1024 + static_cast<size_t>(DC) * (2 * W + 6) * kTileBytes + 2 * W * kTileBytes +
+                      W * (kRows * kRows + 3 * kRows) * sizeof(float) + 3 * sizeof(uint64_t);
+  cudaError_t err = set_smem(attention_bwd_wgmma<W, DC>, smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_wgmma<W, DC><<<dim3(heads, batch), W * 128, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                             maps[4], a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o: (B, H, Tq, dh); k, v: (B, H, Tk, dh), all float32 or all bfloat16 (``is_bf16``),
@@ -658,3 +1348,74 @@ extern "C" int emformer_attention_bwd(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? backward<bf16>(p, batch, heads, s) : backward<float>(p, batch, heads, s));
 }
+
+// The wgmma route (bf16 only; shapes of ``wgmma_key_tiles``): the forward above, one launch.
+// Arguments as emformer_attention_fwd.
+extern "C" int emformer_attention_fwd_wgmma(const void* q, const void* k, const void* v, const float* mask,
+                                            const float* kb, void* o, float* stats, int batch, int heads, int tq,
+                                            int tk, int dh, const long long* strides, void* stream) {
+  const int nk = wgmma_key_tiles(tq, tk, dh);
+  if (!shape_ok(batch, heads, tq, tk, dh) || nk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  FwdArgs a{};
+  cudaError_t err = make_map(&maps[0], &a.aq, q, batch, heads, tq, dh, strides, kRows);
+  if (err == cudaSuccess) err = make_map(&maps[1], &a.ak, k, batch, heads, tk, dh, strides + 3, nk * kRows);
+  if (err == cudaSuccess) err = make_map(&maps[2], &a.av, v, batch, heads, tk, dh, strides + 6, nk * kRows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.o = view_of(o, strides + 9);
+  a.mask = mask;
+  a.kb = kb;
+  a.row_max = stats;
+  a.log_sum = stats + static_cast<i64>(batch) * heads * tq;
+  a.tq = tq;
+  a.tk = tk;
+  a.dh = dh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool two = dh > 64;
+  if (nk == 3) {
+    err = forward_wgmma<3, 1>(maps, a, batch, heads, s);  // three key tiles only at dh <= 64
+  } else if (nk == 2) {
+    err = two ? forward_wgmma<2, 2>(maps, a, batch, heads, s) : forward_wgmma<2, 1>(maps, a, batch, heads, s);
+  } else {
+    err = two ? forward_wgmma<1, 2>(maps, a, batch, heads, s) : forward_wgmma<1, 1>(maps, a, batch, heads, s);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward of the call above, one launch; no scratch.  Arguments as emformer_attention_bwd.
+extern "C" int emformer_attention_bwd_wgmma(const void* q, const void* k, const void* v, const float* mask,
+                                            const float* kb, const void* o, const float* stats, const void* d_o,
+                                            void* dq, void* dk, void* dv, int batch, int heads, int tq, int tk,
+                                            int dh, const long long* strides, void* stream) {
+  const int nk = wgmma_key_tiles(tq, tk, dh);
+  if (!shape_ok(batch, heads, tq, tk, dh) || nk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[5];
+  BwdArgs a{};
+  cudaError_t err = make_map(&maps[0], &a.aq, q, batch, heads, tq, dh, strides, kRows);
+  if (err == cudaSuccess) err = make_map(&maps[1], &a.ak, k, batch, heads, tk, dh, strides + 3, nk * kRows);
+  if (err == cudaSuccess) err = make_map(&maps[2], &a.av, v, batch, heads, tk, dh, strides + 6, nk * kRows);
+  if (err == cudaSuccess) err = make_map(&maps[3], &a.ao, o, batch, heads, tq, dh, strides + 9, kRows);
+  if (err == cudaSuccess) err = make_map(&maps[4], &a.ado, d_o, batch, heads, tq, dh, strides + 12, kRows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  a.dq = view_of(dq, strides + 15);
+  a.dk = view_of(dk, strides + 18);
+  a.dv = view_of(dv, strides + 21);
+  a.mask = mask;
+  a.kb = kb;
+  a.row_max = stats;
+  a.log_sum = stats + static_cast<i64>(batch) * heads * tq;
+  a.tq = tq;
+  a.tk = tk;
+  a.dh = dh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool two = dh > 64;
+  if (nk == 3) {
+    err = backward_wgmma<3, 1>(maps, a, batch, heads, s);
+  } else if (nk == 2) {
+    err = two ? backward_wgmma<2, 2>(maps, a, batch, heads, s) : backward_wgmma<2, 1>(maps, a, batch, heads, s);
+  } else {
+    err = two ? backward_wgmma<1, 2>(maps, a, batch, heads, s) : backward_wgmma<1, 1>(maps, a, batch, heads, s);
+  }
+  return static_cast<int>(err);
+}
+

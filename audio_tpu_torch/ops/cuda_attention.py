@@ -13,12 +13,16 @@ kept apart here so that a fully masked row, whose maximum is the mask's -1e8,
 keeps its uniform probabilities in the backward.  The (Tq, Tk) scores never
 reach device memory.
 
-``emformer_attention`` runs :class:`EmformerAttentionFn` (both kernels) for
-CUDA tensors and ``emformer_attention_plain``, the plain PyTorch version whose
-gradient is autograd's, for CPU tensors.  The kernels read q, k, v through
-their strides, so the model's (T, B, H * dh) tensors are passed as permuted
-views and no transposed copy is made; outputs and gradients are allocated in
-that layout too.  ``launches`` counts the launches of each direction.
+``emformer_attention`` runs :class:`EmformerAttentionFn` (both directions)
+for CUDA tensors and ``emformer_attention_plain``, the plain PyTorch version
+whose gradient is autograd's, for CPU tensors.  Two routes of kernels, chosen
+by :func:`kernel_route` from the type and the shape alone: ``"wgmma"``
+(bfloat16 on Hopper's warpgroup products, operands copied by TMA) and
+``"tiled"`` (float32, deep heads and more keys).  The kernels read q, k,
+v through their strides, so the model's (T, B, H * dh) tensors are passed as
+permuted views and no transposed copy is made; outputs and gradients are
+allocated in that layout too.  ``launches`` counts the calls of each
+direction, ``route_launches`` the calls of each route and direction.
 """
 
 from __future__ import annotations
@@ -34,15 +38,21 @@ __all__ = [
     "emformer_attention",
     "emformer_attention_plain",
     "fused_attention_supported",
+    "kernel_route",
     "launches",
+    "route_launches",
 ]
 
 launches = {"emformer_attention_fwd": 0, "emformer_attention_bwd": 0}
+route_launches = {"wgmma_fwd": 0, "wgmma_bwd": 0, "tiled_fwd": 0, "tiled_bwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _FWD_ARGTYPES = [_P] * 7 + [_I] * 5 + [_STRIDES, _I, _P]
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 5 + [_STRIDES, _I, _P]
+_WGMMA_FWD_ARGTYPES = [_P] * 7 + [_I] * 5 + [_STRIDES, _P]
+_WGMMA_BWD_ARGTYPES = [_P] * 11 + [_I] * 5 + [_STRIDES, _P]
+_TMA_STRIDE_BYTES = 1 << 40  # a tensor map's strides lie below this
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -55,6 +65,21 @@ def fused_attention_supported(b: int, h: int, tq: int, tk: int, dh: int) -> bool
     return tq >= 32 and tk >= 32 and dh % 8 == 0 and (tile + qkvo) < 8 * 1024 * 1024
 
 
+def kernel_route(dtype: torch.dtype, tq: int, tk: int, dh: int) -> str:
+    """The kernels that run a shape inside :func:`fused_attention_supported`.
+
+    ``"wgmma"`` for bfloat16 with dh <= 128 and Tk <= 192 where dh <= 64 or Tk <= 128
+    where dh <= 128: all of a (batch, head)'s keys lie on chip, and each warpgroup of the
+    backward holds the dK and dV of its 64 keys in registers; the query rows stream, so
+    Tq has no limit of its own.  ``"tiled"`` for everything else, float32 included (wgmma
+    has no full-float32 product).
+    """
+    key_limit = 192 if dh <= 64 else 128
+    if dtype == torch.bfloat16 and dh <= 128 and tk <= key_limit:
+        return "wgmma"
+    return "tiled"
+
+
 def emformer_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask_bias: torch.Tensor,
                              key_bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K9: scores and softmax in f32, probabilities cast to
@@ -65,13 +90,16 @@ def emformer_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
-def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+def _kernel_view(t: torch.Tensor, tma: bool = False) -> torch.Tensor:
     """``t`` as the kernels read it: last axis contiguous, every other stride and the
-    base a multiple of 16 bytes.  Anything else is copied."""
+    base a multiple of 16 bytes; for a tensor map (``tma``) also every other stride
+    above 0 and below 2**40 bytes.  Anything else is copied."""
     vec = 16 // t.element_size()
-    if t.stride(-1) == 1 and all(s % vec == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
-        return t
-    return t.contiguous()
+    outer = t.stride()[:-1]
+    ok = t.stride(-1) == 1 and all(s % vec == 0 for s in outer) and t.data_ptr() % 16 == 0
+    if tma:
+        ok = ok and all(0 < s * t.element_size() < _TMA_STRIDE_BYTES for s in outer)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _time_major_empty(b: int, h: int, t: int, dh: int, like: torch.Tensor) -> torch.Tensor:
@@ -106,25 +134,34 @@ def _check(q, k, v, mask_bias, key_bias) -> None:
 
 class EmformerAttentionFn(torch.autograd.Function):
     """K9 on CUDA tensors: the forward kernel, and the backward kernels from the saved
-    output, row maximum and log row sum.  The two mask factors get no gradient."""
+    output, row maximum and log row sum, both on the route :func:`kernel_route` names.
+    The two mask factors get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_bias, key_bias):
         _check(q, k, v, mask_bias, key_bias)
         b, h, tq, dh = q.shape
         tk = k.shape[2]
-        q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+        route = kernel_route(q.dtype, tq, tk, dh)
+        tma = route == "wgmma"
+        q, k, v = (_kernel_view(t, tma) for t in (q, k, v))
         mask_bias = mask_bias.float().contiguous()
         key_bias = key_bias.float().contiguous()
         out = _time_major_empty(b, h, tq, dh, q)
         stats = torch.empty((2, b, h, tq), dtype=torch.float32, device=q.device)  # row maximum, log row sum
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+                stats.data_ptr(), b, h, tq, tk, dh, _strides(q, k, v, out))
         with torch.cuda.device(q.device):
-            fn = _build.bind("attention", "emformer_attention_fwd", _FWD_ARGTYPES)
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), key_bias.data_ptr(),
-                     out.data_ptr(), stats.data_ptr(), b, h, tq, tk, dh, _strides(q, k, v, out),
-                     int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(err, "emformer_attention forward")
+            stream = torch.cuda.current_stream().cuda_stream
+            if tma:
+                err = _build.bind("attention", "emformer_attention_fwd_wgmma", _WGMMA_FWD_ARGTYPES)(*args, stream)
+            else:
+                fn = _build.bind("attention", "emformer_attention_fwd", _FWD_ARGTYPES)
+                err = fn(*args, int(q.dtype == torch.bfloat16), stream)
+        _build.check_launch(err, f"emformer_attention forward ({route})")
         launches["emformer_attention_fwd"] += 1
+        route_launches[f"{route}_fwd"] += 1
+        ctx.route = route
         ctx.save_for_backward(q, k, v, mask_bias, key_bias, out, stats)
         return out
 
@@ -133,19 +170,27 @@ class EmformerAttentionFn(torch.autograd.Function):
         q, k, v, mask_bias, key_bias, out, stats = ctx.saved_tensors
         b, h, tq, dh = q.shape
         tk = k.shape[2]
-        grad_out = _kernel_view(grad_out.to(v.dtype))
+        tma = ctx.route == "wgmma"
+        grad_out = _kernel_view(grad_out.to(v.dtype), tma)
         dq = _time_major_empty(b, h, tq, dh, q)
         dk = _time_major_empty(b, h, tk, dh, k)
         dv = _time_major_empty(b, h, tk, dh, v)
-        delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)  # the kernels' rowsum(dO * O)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+                stats.data_ptr(), grad_out.data_ptr())
+        tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh,
+                _strides(q, k, v, out, grad_out, dq, dk, dv))
         with torch.cuda.device(q.device):
-            fn = _build.bind("attention", "emformer_attention_bwd", _BWD_ARGTYPES)
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), key_bias.data_ptr(),
-                     out.data_ptr(), stats.data_ptr(), grad_out.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dh, _strides(q, k, v, out, grad_out, dq, dk, dv),
-                     int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(err, "emformer_attention backward")
+            stream = torch.cuda.current_stream().cuda_stream
+            if tma:  # delta is taken inside the one launch
+                err = _build.bind("attention", "emformer_attention_bwd_wgmma", _WGMMA_BWD_ARGTYPES)(*head, *tail,
+                                                                                                      stream)
+            else:
+                delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)  # the kernels' rowsum(dO * O)
+                fn = _build.bind("attention", "emformer_attention_bwd", _BWD_ARGTYPES)
+                err = fn(*head, delta.data_ptr(), *tail, int(q.dtype == torch.bfloat16), stream)
+        _build.check_launch(err, f"emformer_attention backward ({ctx.route})")
         launches["emformer_attention_bwd"] += 1
+        route_launches[f"{ctx.route}_bwd"] += 1
         return dq, dk, dv, None, None
 
 

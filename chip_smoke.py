@@ -10,9 +10,10 @@ Phases, each of which raises on failure:
 2. build the seven kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
 3. hold each of the ten kernel entries against its plain PyTorch version on the
    card, at its main path's shape and at ragged small shapes (K9 forward and
-   backward in f32 and bf16, a fully masked row included; K4 in both time
-   directions), and the public spectral functions on the card against the
-   same calls on the CPU;
+   backward in f32 and bf16 on both of its routes, bf16 at the edges of the
+   wgmma route, a fully masked row included, and bitwise equal over two runs;
+   K4 in both time directions), and the public spectral functions on the card
+   against the same calls on the CPU;
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
@@ -37,7 +38,7 @@ Phases, each of which raises on failure:
    (``emformer_rnnt_base(4097)``, features (B, 516, 80), 64 targets, bf16
    compute with f32 masters, dropout on, AdamW): the full-lattice loss at
    B=32 and the pruned loss (band 16) at B=64.  K9 must launch once a layer
-   forward and once backward and K8 at least once; the loss must be finite and
+   forward and once backward, on its wgmma route, and K8 at least once; the loss must be finite and
    fall.  Time the step, read its peak memory, profile one.  Then the loss and
    its gradients in f32 at B=2 on the card against the CPU;
 9. the fourth main path, lfilter's gradient: the gradients of
@@ -407,6 +408,7 @@ def check_attention(rng, dev, shape, dtype, label: str, masked_row: bool = False
     from audio_tpu_torch.ops import cuda_attention
 
     bf16 = dtype == torch.bfloat16
+    label = f"{label} [{cuda_attention.kernel_route(dtype, *shape[2:])} route]"
     q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, dtype, masked_row)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -421,6 +423,27 @@ def check_attention(rng, dev, shape, dtype, label: str, masked_row: bool = False
     bwd = max(check_close(f"K9 backward {label} d{name}", g.float(), r.float(), g_atol, g_rtol)
               for name, g, r in zip("qkv", got_grads, ref_grads))
     return {"fwd": fwd, "bwd": bwd}
+
+
+def check_attention_bits(rng, dev, shape, label: str) -> None:
+    """K9 forward and backward twice on the same bf16 inputs: O, dQ, dK and dV must be the same bits
+    (no floating-point atomics, a fixed order of every sum)."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_attention
+
+    q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = cuda_attention.emformer_attention(*leaves, mask, kb)
+            runs.append((out.detach(), *torch.autograd.grad(out, leaves, w)))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    print(f"  K9 bits {label}: O, dQ, dK, dV equal over two runs: {same}")
+    if not all(same):
+        raise AssertionError(f"K9 {label}: two runs gave different bits {same}")
 
 
 def check_iir(rng, dev, b: int, c: int, t: int, order: int, label: str) -> float:
@@ -535,7 +558,7 @@ def reset_kernel_counts() -> None:
     for mod in (cuda_iir, cuda_spectrogram, cuda_viterbi, cuda_lstm):
         mod.launches = 0
     cuda_iir.iir_launches = 0
-    for counters in (cuda_rnnt_lps.launches, cuda_attention.launches):
+    for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches):
         for name in counters:
             counters[name] = 0
 
@@ -718,6 +741,12 @@ def run_train_path(recipe, model, dev, card: str, loss: str, batch: int) -> dict
     if counts["emformer_attention_fwd"] != n_layers or counts["emformer_attention_bwd"] != n_layers:
         raise AssertionError(f"{name}: K9 launched {counts['emformer_attention_fwd']} forward and "
                              f"{counts['emformer_attention_bwd']} backward for {n_layers} layers")
+    from audio_tpu_torch.ops import cuda_attention
+
+    routes = dict(cuda_attention.route_launches)
+    print(f"  K9 routes in one {name}: {routes}")
+    if routes["wgmma_fwd"] != n_layers or routes["wgmma_bwd"] != n_layers:
+        raise AssertionError(f"{name}: K9 ran {routes}, not the wgmma route once a layer each way")
     grads = [p.grad for p in step.params.values()]
     if any(g is None or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError(f"{name}: a master parameter has no finite float32 gradient")
@@ -1053,9 +1082,19 @@ def main(argv=None) -> int:
     # K9: ragged shapes (Tq, Tk off the tiles; dh = 8, 24, 128), heads deeper than the 128
     # columns on chip (dh = 136, 264, 1024: two, three and eight chunks), a fully masked row,
     # a large tile inside the gate, then the train steps' shapes (the pruned loss's batch, then
-    # the full loss's); bf16 last, the type they run
+    # the full loss's); bf16 last, the type they run.  bf16 takes the wgmma route where
+    # kernel_route says so and the tiled route elsewhere; f32 always the tiled route
     k9_main = (TRAIN_B_FULL, TRAIN_HEADS, TRAIN_TQ, TRAIN_TQ, TRAIN_DH)
     k9_pruned = (TRAIN_B_PRUNED, TRAIN_HEADS, TRAIN_TQ, TRAIN_TQ, TRAIN_DH)
+    # bf16 at the edges of the wgmma route's limits (Tk 192 or 128, dh 128; Tq past four tiles of
+    # the backward's ring): both sides
+    edges = (32, 64, 65, 192, 256, 257)
+    pairs = [(t, t) for t in edges] + [(32, 257), (257, 32), (65, 192), (192, 65), (256, 64), (64, 256)]
+    for dh_ in (8, 64, 128):
+        for tq_, tk_ in pairs:
+            check_attention(rng, dev, (1, 2, tq_, tk_, dh_), torch.bfloat16, f"bf16 edge {(1, 2, tq_, tk_, dh_)}")
+    check_attention(rng, dev, k9_main, torch.bfloat16, f"bf16 main {k9_main}, a fully masked row", True)
+    check_attention_bits(rng, dev, k9_main, f"bf16 main {k9_main}")
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for shape, masked_row in (((2, 2, 32, 32, 8), False), ((3, 4, 33, 47, 24), False),
@@ -1067,6 +1106,10 @@ def main(argv=None) -> int:
                             masked_row)
         check_attention(rng, dev, k9_pruned, dtype, f"{tag} main, pruned step {k9_pruned}")
         k9_err = check_attention(rng, dev, k9_main, dtype, f"{tag} main {k9_main}")
+    k9_routes = dict(cuda_attention.route_launches)
+    print(f"  K9 launches by route in phase 3: {k9_routes}")
+    if min(k9_routes.values()) < 1:
+        raise AssertionError(f"K9: a route was never held against the plain version: {k9_routes}")
     # K4: orders 1, 8, 12 and 128 at small ragged shapes, then the gradient path's shape
     for b_, c_, t_, order in ((45, 3, 1007, 1), (33, 2, 300, 8), (17, 1, 5000, 12), (5, 2, 700, 128)):
         check_iir(rng, dev, b_, c_, t_, order, f"order {order} ({b_}x{c_}x{t_})")

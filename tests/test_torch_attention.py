@@ -19,6 +19,7 @@ from audio_tpu.models.emformer import Emformer as JaxEmformer
 from audio_tpu.models.emformer import import_emformer_state_dict
 from audio_tpu.ops.pallas_attention import emformer_attention as jax_attention
 from audio_tpu.ops.pallas_attention import emformer_attention_reference
+from audio_tpu.ops.pallas_attention import fused_attention_supported as jax_gate
 
 from audio_tpu_torch.models import Emformer
 from audio_tpu_torch.ops import cuda_attention
@@ -144,6 +145,63 @@ def test_kernel_view_keeps_the_models_layout_and_copies_what_it_cannot_read():
     assert tuple(out.shape) == (3, 4, 12, 16) and out.permute(2, 0, 1, 3).is_contiguous()
     strides = cuda_attention._strides(key, out)
     assert list(strides) == [2 * 64, 16, 3 * 2 * 64, 4 * 16, 16, 3 * 4 * 16]
+
+
+# (Tq, Tk, dh) -> the route of bfloat16; float32 always takes "tiled"
+ROUTES = {
+    (160, 160, 64): "wgmma",  # the train step's shape
+    (32, 32, 8): "wgmma",
+    (256, 192, 64): "wgmma",  # every limit at once
+    (1024, 160, 64): "wgmma",  # the query rows stream: Tq has no limit
+    (160, 193, 64): "tiled",  # Tk past 192 at dh <= 64
+    (160, 128, 72): "wgmma",
+    (160, 129, 72): "tiled",  # Tk past 128 at dh > 64
+    (64, 64, 128): "wgmma",
+    (64, 64, 136): "tiled",  # a head deeper than 128
+    (640, 640, 64): "tiled",
+}
+
+
+@pytest.mark.parametrize("tq,tk,dh", list(ROUTES))
+def test_kernel_route_by_shape_and_type(tq, tk, dh):
+    assert cuda_attention.kernel_route(torch.bfloat16, tq, tk, dh) == ROUTES[(tq, tk, dh)]
+    assert cuda_attention.kernel_route(torch.float32, tq, tk, dh) == "tiled"
+
+
+def test_route_counters_stay_on_the_cpu():
+    before = dict(cuda_attention.route_launches)
+    q, k, v, mask, kb, _ = _case("square")
+    cuda_attention.emformer_attention(*(t.to(torch.bfloat16) for t in _t(q, k, v)), *_t(mask, kb))
+    assert cuda_attention.route_launches == before
+    assert set(before) == {"wgmma_fwd", "wgmma_bwd", "tiled_fwd", "tiled_bwd"}
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh", [(b, h, tq, tk, dh) for b, h in ((1, 1), (32, 8), (64, 8))
+                                           for tq, tk in ((1, 1), (31, 64), (32, 32), (160, 160), (640, 640),
+                                                          (1024, 1000), (2048, 1024))
+                                           for dh in (5, 8, 64, 136)])
+def test_gate_is_the_jax_gate_with_the_models_floor(b, h, tq, tk, dh):
+    want = jax_gate(b, h, tq, tk, dh) and tq >= 32 and tk >= 32
+    assert cuda_attention.fused_attention_supported(b, h, tq, tk, dh) == want
+
+
+def test_kernel_view_for_a_tensor_map_copies_what_tma_cannot_read():
+    x = torch.zeros(12, 3, 2 * 64, dtype=torch.bfloat16)  # the model's layout: kept on both routes
+    key = x[:, :, 64:].reshape(12, 3, 4, 16).permute(1, 2, 0, 3)
+    assert cuda_attention._kernel_view(key, tma=True).data_ptr() == key.data_ptr()
+    broadcast = torch.zeros(1, 2, 9, 16, dtype=torch.bfloat16).expand(3, 2, 9, 16)  # a zero stride
+    assert cuda_attention._kernel_view(broadcast).data_ptr() == broadcast.data_ptr()
+    copied = cuda_attention._kernel_view(broadcast, tma=True)
+    assert copied.stride() == (2 * 9 * 16, 9 * 16, 16, 1) and torch.equal(copied, broadcast)
+    far = torch.zeros(2, 9, 16, dtype=torch.bfloat16).as_strided((1, 2, 9, 16), (1 << 40, 9 * 16, 16, 1))
+    assert cuda_attention._kernel_view(far).data_ptr() == far.data_ptr()  # the tiled kernels index it
+    assert cuda_attention._kernel_view(far, tma=True).stride()[0] == 2 * 9 * 16  # past a tensor map's 2**40 bytes
+    odd = torch.zeros(2, 2, 9, 17, dtype=torch.bfloat16)[..., 1:]  # rows off a 16-byte boundary
+    assert cuda_attention._kernel_view(odd, tma=True).is_contiguous()
+    shifted = torch.zeros(2 * 9 * 16 + 1, dtype=torch.bfloat16)[1:].view(1, 2, 9, 16)  # contiguous, base off 16 bytes
+    assert shifted.data_ptr() % 16 != 0
+    assert cuda_attention._kernel_view(shifted).data_ptr() % 16 == 0
+    assert cuda_attention._kernel_view(shifted, tma=True).data_ptr() % 16 == 0
 
 
 CFG = dict(input_dim=32, num_heads=4, ffn_dim=64, num_layers=2, segment_length=4, dropout=0.0, activation="gelu",
