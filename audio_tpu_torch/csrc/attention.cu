@@ -84,6 +84,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -650,28 +652,6 @@ struct Axes {
   int t, h, b;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 __device__ __forceinline__ int axis_coord(int dim, const Axes& ax, int t, int h, int b) {
   return ax.t == dim ? t : (ax.h == dim ? h : b);
 }
@@ -686,15 +666,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, cons
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(axis_coord(1, ax, t, h, b)), "r"(axis_coord(2, ax, t, h, b)),
       "r"(axis_coord(3, ax, t, h, b)), "r"(smem_u32(bar))
       : "memory");
-}
-
-// The wgmma descriptor of a swizzled tile at shared address ``addr``.  Both byte offsets are
-// 1024, the stride between groups of 8 rows: a 64 x 16 operand never needs the other one (the
-// 16 K values of a row-per-K-step tile lie in one 128-byte row; the 64 M or N values of a
-// row-per-K tile likewise).
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -717,10 +688,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 
 // Ties registers to this point of the program: an accumulator is not read before the wait that
 // completes it, and an A fragment is kept until its product is done.
@@ -779,11 +746,6 @@ __device__ __forceinline__ void fragment(uint32_t (&a)[4], const float (&d)[32],
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
 }
 
 // Writes a 64 x (64 DC) f32 accumulator as bf16 to rows row0 .. of a (b, h) slice through its
@@ -1200,23 +1162,6 @@ __global__ void __launch_bounds__(W * 128, 1)
 }
 
 // ------------------------------------------------------------------ wgmma launches
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime, so the library needs no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
 // The tensor map of a (B, H, T, dh) bf16 operand with strides (sb, sh, st): dimension 0 the head's
 // columns in boxes of 64 (one swizzle span; columns past dh read as zero), then time, head and
 // batch in the order of their strides, the box ``rows`` time steps of one (b, h).
@@ -1224,9 +1169,7 @@ cudaError_t make_map(CUtensorMap* map, Axes* axes, const void* ptr, int batch, i
                      const i64* strides, int rows) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  int device = 0;  // the encoder is a driver call: make the runtime's context of the device current here
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaSetDevice(device);
+  const cudaError_t err = make_device_current();
   if (err != cudaSuccess) return err;
   i64 stride[3] = {strides[2], strides[1], strides[0]};
   cuuint64_t size[3] = {static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};

@@ -14,24 +14,39 @@
 // while taking the maximum, sums the exponentials, and then runs k rounds of
 // (best pair, mask it out) over the copy; a lane only ever touches the columns
 // congruent to its index, so the rounds need no barrier.
-// K5 by operations (43 GFLOP at N = 5120, D = 1024, V = 4097).  A block owns 64 rows
-// and sweeps the columns in tiles of 128, folding each logits tile, which lives only
-// in shared memory, into a running maximum, a running sum of exponentials and a
-// sorted k-best list a row.  A value enters the list only ahead of the current k-th
-// as a (value, index) pair, so ties keep the lowest index.  Each row block re-reads W
-// from L2.  Two product paths:
-//   * bf16 (when the block's act rows fit shared memory): the tensor cores (wmma
-//     m16n16k16, f32 accumulation).  W is read as a torch Linear holds it, (V, D):
-//     each output column's depth is contiguous, which is the operand layout the
-//     tensor cores load without repacking, and 16-byte asynchronous copies apply.
-//     The block's 64 x D act rows stay resident; W streams through three stages of
-//     128 x 32 tiles, two tiles in flight while one multiplies; four lanes a row
-//     fold the logits tile;
-//   * f32, or bf16 outside those limits, with W row-major (D, V): the FP32 pipes
-//     (f32 inputs must never take TF32, which moves near-tied indices), 4 x 8
-//     outputs a thread, one thread a row folds.
-// The row block's height (only 80 blocks at N = 5120 for 132 SMs) and wgmma with TMA
-// are the dials left for a later version.
+// K5 by operations (43 GFLOP at N = 5120, D = 1024, V = 4097: 0.043 ms at the bf16 peak).
+// Three routes, chosen by the wrapper from the type, the shape and W's layout
+// (ops/cuda_rnnt_lps.py: join_route):
+//   * "wgmma" (bf16, W as a torch Linear holds it, (V, D): each output column's depth
+//     contiguous, D a multiple of 8, k <= 32): Hopper's warpgroup products.  A block owns
+//     128 rows and a run of 128-column tiles.  One producer warp copies (act rows, W tile)
+//     pairs of 64 depths by TMA (128-byte swizzle; V's ragged edge and rows past N arrive as
+//     zeros) into a ring of four stages on mbarriers; two consumer warpgroups multiply their
+//     64 rows each on wgmma m64n128k16 into f32 registers and fold each finished tile from
+//     the accumulators' layout, with no shared-memory logits tile: + bias, a running maximum
+//     and rescaled sum of exponentials a thread and row, x[blank] where the thread's column
+//     is the blank, and the row's k-best list in shared memory.  A column is a candidate only
+//     if it ranks before the list's k-th (value, index) pair, so after the first tiles almost
+//     nothing is; the four threads of a row pick their candidates best first (a tree over a
+//     thread's columns, then shuffles) while they rank before the k-th pair of the list and
+//     the picks so far, and one thread merges the picks into the list.  The four threads
+//     combine their sums by shuffles at the end.  To fill the card (40 row blocks at N = 5120 for 132
+//     SMs) the columns are split over up to 8 blocks a row block, as many as the SMs allow;
+//     each writes its partial maximum, sum, blank and list, and the row block's last block
+//     (an atomic counter it resets) merges them, the sums in split order: one launch, and
+//     every run gives the same bits.  The act rows stream with W (16 KB a stage each), as 128 resident
+//     rows would take more shared memory than an SM has;
+//   * "wmma" (bf16 with W in a Linear's layout outside the first route, k <= 256 and the act
+//     rows within shared memory): the tensor cores by wmma m16n16k16.  A block owns 64 rows
+//     and sweeps the columns in tiles of 128, folding each logits tile, which lives only in
+//     shared memory, into a running maximum, a running sum of exponentials and a sorted
+//     k-best list a row.  The block's 64 x D act rows stay resident; W streams through three
+//     stages of 128 x 32 tiles by 16-byte asynchronous copies; four lanes a row fold;
+//   * "simt" (f32, or bf16 with W row-major (D, V)): the FP32 pipes (f32 inputs must never
+//     take TF32, which moves near-tied indices), 4 x 8 outputs a thread, one thread a row
+//     folds the tile.
+// On every route a value enters the list only ahead of the current k-th as a (value, index)
+// pair, so ties keep the lowest index.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -40,6 +55,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -460,6 +477,416 @@ __global__ void __launch_bounds__(kJoinThreads)
   }
 }
 
+// ---------------------------------------------------------------------------- K5, route "wgmma"
+constexpr int kWRows = 128;                          // rows a block: consumer warpgroup g owns rows 64 g ..
+constexpr int kWCols = 128;                          // columns a tile: wgmma's N
+constexpr int kWDepth = 64;                          // depth a stage: one 128-byte swizzle span of bf16
+constexpr int kWStages = 4;                          // ring of stages
+constexpr int kWActBytes = kWRows * kWDepth * 2;     // 16 KB: the block's act rows at one depth step
+constexpr int kWTileBytes = kWCols * kWDepth * 2;    // 16 KB: a W tile at one depth step
+constexpr int kWStageBytes = kWActBytes + kWTileBytes;
+constexpr int kWConsumers = 256;                     // two warpgroups
+constexpr int kWThreads = kWConsumers + 32;          // and the producer warp
+constexpr int kWMaxK = 32;                           // k-best lists of up to 32 pairs
+constexpr int kWMaxSplits = 8;                       // blocks a row block's columns split over
+
+struct JoinArgs {
+  const __nv_bfloat16* bias;  // (v,)
+  long long n;
+  int d, blank, k, col_tiles, splits;
+  float* lse;
+  float* blank_out;
+  float* vals;
+  int* idx;
+  float* part;    // (splits, n, 3 + 2k) when splits > 1: max, sum of exponentials, blank, k values, k indices
+  int* counters;  // (row blocks,): zero before a launch, and left zero by it
+};
+
+#define WG_D64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_OUT64(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128, f32) += A B over 16 of K; A (64 x 16) and B (128 x 16) from shared memory, both
+// with their rows along M or N and K along the row (TMA's 128-byte swizzle).
+__device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT64(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Ties the accumulator to this point of the program: it is not read before the wait that completes it.
+__device__ __forceinline__ void hold(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A barrier of the two consumer warpgroups alone (the producer warp has left).
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// One level of a tournament over W pairs, in place: pair i's right entry wins only if greater.
+template <int W>
+__device__ __forceinline__ void tree_level(float (&v)[32], int (&slot)[32]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const bool right = v[2 * i + 1] > v[2 * i];
+    v[i] = right ? v[2 * i + 1] : v[2 * i];
+    slot[i] = right ? slot[2 * i + 1] : slot[2 * i];
+  }
+}
+
+// Block (split, row block): rows [128 y, 128 y + 128) and the column tiles [t0, t1) of its split.
+// The producer warp's one thread copies (act rows, W tile) pairs of one depth step by TMA into a
+// ring of four stages; each consumer warpgroup multiplies its 64 rows by the tile on wgmma into
+// 64 x 128 f32 accumulators, and after a tile's last depth step folds them from registers: the
+// bias, a running maximum and sum of exponentials a row and thread, x[blank], and the k-best list
+// of the row in shared memory, into which the row's four threads move their candidates (columns
+// ranking before the row's k-th (value, index) pair) best first.  At the end the four threads of
+// a row combine their sums by shuffles.  With one split the block writes the outputs; with
+// several it writes its partial statistics, and the row block's last block (an atomic counter,
+// reset by that block) merges them: the sums in split order, the other splits' k-best lists into
+// its own, so the bits do not depend on which block is last.
+__global__ void __launch_bounds__(kWThreads, 1)
+    join_stats_topk_wgmma_kernel(const __grid_constant__ CUtensorMap map_act, const __grid_constant__ CUtensorMap map_w,
+                                 const JoinArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* topv = reinterpret_cast<float*>(ring + kWStages * kWStageBytes);  // [k][kWRows], descending
+  int* topi = reinterpret_cast<int*>(topv + a.k * kWRows);                  // [k][kWRows], their columns
+  float* pickv = reinterpret_cast<float*>(topi + a.k * kWRows);             // [k][kWRows]: a tile's picks
+  int* picki = reinterpret_cast<int*>(pickv + a.k * kWRows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(picki + a.k * kWRows);
+  uint64_t* empty = full + kWStages;
+  int* last = reinterpret_cast<int*>(empty + kWStages);
+
+  const int split = blockIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.y) * kWRows;
+  const int t0 = split * a.col_tiles / a.splits, t1 = (split + 1) * a.col_tiles / a.splits;
+  const int steps = (a.d + kWDepth - 1) / kWDepth;
+  const int n_cols = a.blank + 1;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < a.k * kWRows; e += kWThreads) {
+    topv[e] = -INFINITY;
+    topi[e] = INT_MAX;
+  }
+  __syncthreads();
+
+  if (tid >= kWConsumers) {  // the producer warp: one thread keeps the ring full
+    if (tid == kWConsumers) {
+      const int iters = (t1 - t0) * steps;
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % kWStages;
+        if (it >= kWStages) mbar_wait(&empty[s], (it / kWStages - 1) & 1);
+        unsigned char* stage = ring + s * kWStageBytes;
+        mbar_expect_tx(&full[s], kWStageBytes);
+        const int k0 = (it % steps) * kWDepth, col0 = (t0 + it / steps) * kWCols;
+        tma_load_2d(stage, &map_act, k0, static_cast<int>(row0), &full[s]);
+        tma_load_2d(stage + kWActBytes, &map_w, k0, col0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // thread (warpgroup g, warp w, lane l) holds rows 64 g + 16 w + l / 4 (+ 8) and, of every group
+  // of 8 columns, columns 2 (l % 4) and 2 (l % 4) + 1
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, q = lane & 3;
+  const int r_local = wg * 64 + warp * 16 + (lane >> 2);
+  const unsigned quad = 0xFu << (lane & ~3);
+  float run_m[2] = {-INFINITY, -INFINITY}, run_s[2] = {0.f, 0.f}, blank_x[2] = {0.f, 0.f};
+  float acc[64];
+
+  for (int tile = t0; tile < t1; ++tile) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int it0 = (tile - t0) * steps;
+    for (int ks = 0; ks < steps; ++ks) {
+      const int it = it0 + ks, s = it % kWStages;
+      mbar_wait(&full[s], (it / kWStages) & 1);
+      const uint32_t a_addr = smem_u32(ring + s * kWStageBytes) + wg * (kWActBytes / 2);
+      const uint32_t b_addr = smem_u32(ring + s * kWStageBytes + kWActBytes);
+      hold(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWDepth / 16; ++kk) mma_n128(acc, desc(a_addr + kk * 32), desc(b_addr + kk * 32));
+      wg_commit();
+      if (ks > 0) {  // the previous step's products are done: its stage may be refilled
+        wg_wait<1>();
+        mbar_arrive(&empty[(it - 1) % kWStages]);
+      }
+    }
+    wg_wait<0>();
+    hold(acc);
+    mbar_arrive(&empty[(it0 + steps - 1) % kWStages]);
+
+    // + bias; columns past the blank (and past V: TMA's zeros) out of every statistic
+    const int col0 = tile * kWCols;
+    float tile_max[2];
+#pragma unroll
+    for (int g = 0; g < kWCols / 8; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + g * 8 + 2 * q + e;
+        const float bv = col < n_cols ? __bfloat162float(a.bias[col]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& x = acc[4 * g + 2 * h + e];
+          x = col < n_cols ? x + bv : -INFINITY;
+          if (col == a.blank) blank_x[h] = x;
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int g = 0; g < kWCols / 8; ++g) tm = fmaxf(tm, fmaxf(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]));
+      tile_max[h] = tm;
+      if (tm > -INFINITY) {  // the thread has columns in this tile
+        const float nm = fmaxf(run_m[h], tm);
+        float sum = 0.f;
+#pragma unroll
+        for (int g = 0; g < kWCols / 8; ++g) sum += expf(acc[4 * g + 2 * h] - nm) + expf(acc[4 * g + 2 * h + 1] - nm);
+        run_s[h] = run_s[h] * expf(run_m[h] - nm) + sum;
+        run_m[h] = nm;
+      }
+    }
+
+    // the top-k: a candidate is a column below the blank that ranks before the row's k-th pair.
+    // The quad picks its candidates best first (a tree over each thread's 32 columns, then
+    // shuffles) into a buffer while they rank before the k-th pair of the list and the picks
+    // so far; then one thread merges the picks into the list.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_local + 8 * h;
+      float kth_v = topv[(a.k - 1) * kWRows + r];
+      int kth_i = topi[(a.k - 1) * kWRows + r];
+      unsigned cand = 0;  // bit 2 g + e: column g 8 + 2 q + e of the tile
+      if (!(tile_max[h] < kth_v)) {  // else none of the thread's columns can rank before the k-th
+#pragma unroll
+        for (int i = 0; i < kWCols / 4; ++i) {
+          const int col = col0 + (i >> 1) * 8 + 2 * q + (i & 1);
+          if (col < a.blank && ranks_before(acc[4 * (i >> 1) + 2 * h + (i & 1)], col, kth_v, kth_i)) cand |= 1u << i;
+        }
+      }
+      if (__ballot_sync(kFull, cand != 0) == 0) continue;
+      int picks = 0;
+      while (true) {
+        // the thread's best candidate: its columns rise with the slot, so in each pair of the
+        // tree the right one wins only if it is greater (ties keep the lower column)
+        float v[kWCols / 4];
+        int slot[kWCols / 4];
+#pragma unroll
+        for (int i = 0; i < kWCols / 4; ++i) {
+          v[i] = (cand >> i) & 1u ? acc[4 * (i >> 1) + 2 * h + (i & 1)] : -INFINITY;
+          slot[i] = i;
+        }
+        tree_level<16>(v, slot);
+        tree_level<8>(v, slot);
+        tree_level<4>(v, slot);
+        tree_level<2>(v, slot);
+        tree_level<1>(v, slot);
+        float bv = v[0];
+        int bi = bv == -INFINITY ? INT_MAX : col0 + (slot[0] >> 1) * 8 + 2 * q + (slot[0] & 1);
+        const int own = bi;
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float ov = __shfl_xor_sync(quad, bv, o);
+          const int oi = __shfl_xor_sync(quad, bi, o);
+          if (ranks_before(ov, oi, bv, bi)) {
+            bv = ov;
+            bi = oi;
+          }
+        }
+        if (bi == INT_MAX || !ranks_before(bv, bi, kth_v, kth_i)) break;  // the same for the quad
+        if (own == bi) cand &= ~(1u << slot[0]);
+        if (q == 0) {
+          pickv[picks * kWRows + r] = bv;
+          picki[picks * kWRows + r] = bi;
+        }
+        ++picks;
+        // the k-th pair of the list and the picks: the worse of the list's (k - picks)-th and this pick
+        if (picks < a.k && ranks_before(bv, bi, topv[(a.k - 1 - picks) * kWRows + r],
+                                        topi[(a.k - 1 - picks) * kWRows + r])) {
+          kth_v = topv[(a.k - 1 - picks) * kWRows + r];
+          kth_i = topi[(a.k - 1 - picks) * kWRows + r];
+        } else {
+          kth_v = bv;
+          kth_i = bi;
+        }
+      }
+      // every pick ranks among the k best, so the list keeps its first k - picks pairs: merge
+      // from the back, in place
+      if (q == 0 && picks > 0) {
+        int il = a.k - 1 - picks, ip = picks - 1;
+        for (int j = a.k - 1; j >= 0 && ip >= 0; --j) {
+          const bool from_list = il >= 0 && !ranks_before(topv[il * kWRows + r], topi[il * kWRows + r],
+                                                          pickv[ip * kWRows + r], picki[ip * kWRows + r]);
+          if (from_list) {
+            topv[j * kWRows + r] = topv[il * kWRows + r];
+            topi[j * kWRows + r] = topi[il * kWRows + r];
+            --il;
+          } else {
+            topv[j * kWRows + r] = pickv[ip * kWRows + r];
+            topi[j * kWRows + r] = picki[ip * kWRows + r];
+            --ip;
+          }
+        }
+      }
+      __syncwarp(quad);
+    }
+  }
+
+  // the four threads of a row combine their maxima and sums
+  float m_row[2], s_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = fmaxf(run_m[h], __shfl_xor_sync(kFull, run_m[h], 1));
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
+    float sum = run_m[h] == -INFINITY ? 0.f : run_s[h] * expf(run_m[h] - m);
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    m_row[h] = m;
+    s_row[h] = sum;
+  }
+  const bool owns_blank = a.blank >= t0 * kWCols && a.blank < t1 * kWCols && ((a.blank & 7) >> 1) == q;
+
+  if (a.splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_local + 8 * h;
+      const long long row = row0 + r;
+      if (row >= a.n) continue;
+      if (q == 0) a.lse[row] = m_row[h] + logf(s_row[h]);
+      if (owns_blank) a.blank_out[row] = blank_x[h];
+      for (int j = q; j < a.k; j += 4) {
+        a.vals[row * a.k + j] = topv[j * kWRows + r];
+        a.idx[row * a.k + j] = topi[j * kWRows + r];
+      }
+    }
+    return;
+  }
+
+  const int stride = 3 + 2 * a.k;
+  const long long split_stride = a.n * stride;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r_local + 8 * h;
+    const long long row = row0 + r;
+    if (row >= a.n) continue;
+    float* pr = a.part + split * split_stride + row * stride;
+    if (q == 0) {
+      pr[0] = m_row[h];
+      pr[1] = s_row[h];
+    }
+    if (owns_blank) pr[2] = blank_x[h];
+    for (int j = q; j < a.k; j += 4) {
+      pr[3 + j] = topv[j * kWRows + r];
+      pr[3 + a.k + j] = __int_as_float(topi[j * kWRows + r]);
+    }
+  }
+  __threadfence();
+  consumers_sync();
+  if (tid == 0) *last = atomicAdd(&a.counters[blockIdx.y], 1) == a.splits - 1;
+  consumers_sync();
+  if (!*last) return;
+  __threadfence();
+
+  // the row block's last block merges the splits, one thread a row
+  if (tid < kWRows && row0 + tid < a.n) {
+    const long long row = row0 + tid;
+    const float* pr = a.part + row * stride;
+    float m = -INFINITY;
+    for (int s = 0; s < a.splits; ++s) m = fmaxf(m, __ldcg(pr + s * split_stride));
+    float sum = 0.f;
+    for (int s = 0; s < a.splits; ++s) {
+      const float ms = __ldcg(pr + s * split_stride);
+      sum += ms == -INFINITY ? 0.f : __ldcg(pr + s * split_stride + 1) * expf(ms - m);
+    }
+    a.lse[row] = m + logf(sum);
+    int blank_split = 0;
+    for (int s = 0; s < a.splits; ++s)
+      if (a.blank >= s * a.col_tiles / a.splits * kWCols) blank_split = s;
+    a.blank_out[row] = __ldcg(pr + blank_split * split_stride + 2);
+    // the block's own list is in shared memory; every other split's list is merged into it, in
+    // split order: a forward count of what each gives to the k best, then a merge from the back
+    const int r = tid;
+    for (int s = 0; s < a.splits; ++s) {
+      if (s == split) continue;
+      const float* ps = pr + s * split_stride + 3;
+      for (int j = 0; j < a.k; ++j) {
+        pickv[j * kWRows + r] = __ldcg(ps + j);
+        picki[j * kWRows + r] = __float_as_int(__ldcg(ps + a.k + j));
+      }
+      int il = 0, ip = 0;
+      for (int j = 0; j < a.k; ++j) {
+        if (ranks_before(pickv[ip * kWRows + r], picki[ip * kWRows + r], topv[il * kWRows + r], topi[il * kWRows + r]))
+          ++ip;
+        else
+          ++il;
+      }
+      --il;
+      --ip;
+      for (int j = a.k - 1; j >= 0 && ip >= 0; --j) {
+        const bool from_list = il >= 0 && !ranks_before(topv[il * kWRows + r], topi[il * kWRows + r],
+                                                        pickv[ip * kWRows + r], picki[ip * kWRows + r]);
+        if (from_list) {
+          topv[j * kWRows + r] = topv[il * kWRows + r];
+          topi[j * kWRows + r] = topi[il * kWRows + r];
+          --il;
+        } else {
+          topv[j * kWRows + r] = pickv[ip * kWRows + r];
+          topi[j * kWRows + r] = picki[ip * kWRows + r];
+          --ip;
+        }
+      }
+    }
+    for (int j = 0; j < a.k; ++j) {
+      a.vals[row * a.k + j] = topv[j * kWRows + r];
+      a.idx[row * a.k + j] = topi[j * kWRows + r];
+    }
+  }
+  if (tid == 0) a.counters[blockIdx.y] = 0;
+}
+
+// The tensor map of a bf16 matrix of ``outer`` rows of ``inner`` elements, ``row_bytes`` apart:
+// boxes of 64 columns (one swizzle span) by ``box_rows`` rows, past either edge read as zero.
+cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, int inner, long long outer, long long row_bytes,
+                        int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t err = make_device_current();
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWDepth), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+size_t join_wgmma_smem(int k) {
+  return 1024 + static_cast<size_t>(kWStages) * kWStageBytes + static_cast<size_t>(k) * kWRows * 16 +
+         2 * kWStages * sizeof(uint64_t) + 16;
+}
+
+
 constexpr size_t kMaxSmem = 232448;  // shared memory a block can opt in to on sm_90
 
 template <typename K>
@@ -591,8 +1018,31 @@ extern "C" int join_stats_topk(const void* act, const void* w, const void* bias,
               : launch_join_stats_topk<float>(act, w, bias, n, d, v, blank, k, lse, blank_out, vals, idx, s);
 }
 
-// Whether the tensor-core kernel takes these arguments (see join_stats_topk).
-extern "C" int join_stats_topk_takes_col_major(int d, int k, int bf16, long long ldw, const void* act,
-                                               const void* w) {
-  return join_stats_topk_tensor_cores(d, k, bf16, ldw, act, w) ? 1 : 0;
+// Route "wgmma".  act: (n, d) bf16, rows contiguous; w: a torch Linear's (v, d) bf16 weight with
+// row stride ldw; bias: (v,) bf16; d and ldw multiples of 8, act and w 16-byte aligned; 1 <= k <= 32,
+// k <= blank < v.  The column tiles of 128 up to the blank are split over ``splits`` blocks a row
+// block (1 <= splits <= 8, at most the tiles); with more than one, part holds (splits, n, 3 + 2k)
+// floats and counters (ceil(n / 128),) int32 zeros, which the launch leaves zero.
+// lse, blank_out: (n,); vals, idx: (n, k).
+extern "C" int join_stats_topk_wgmma(const void* act, const void* w, const void* bias, long long n, int d,
+                                     long long ldw, int blank, int k, int splits, float* part, int* counters,
+                                     float* lse, float* blank_out, float* vals, int* idx, void* stream) {
+  if (n <= 0) return 0;
+  const int col_tiles = (blank + 1 + kWCols - 1) / kWCols;
+  if (k < 1 || k > kWMaxK || k > blank || d < 8 || d % 8 != 0 || ldw % 8 != 0 || ldw < d || splits < 1 ||
+      splits > kWMaxSplits || splits > col_tiles || (splits > 1 && (part == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(act) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[2];
+  cudaError_t err = make_map_2d(&maps[0], act, d, n, 2LL * d, kWRows);
+  if (err == cudaSuccess) err = make_map_2d(&maps[1], w, d, blank + 1, 2LL * ldw, kWCols);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = join_wgmma_smem(k);
+  err = opt_in(join_stats_topk_wgmma_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  JoinArgs a{static_cast<const __nv_bfloat16*>(bias), n, d, blank, k, col_tiles, splits, lse, blank_out, vals, idx,
+             part, counters};
+  const dim3 grid(splits, static_cast<unsigned>((n + kWRows - 1) / kWRows));
+  join_stats_topk_wgmma_kernel<<<grid, kWThreads, smem, static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1], a);
+  return static_cast<int>(cudaGetLastError());
 }

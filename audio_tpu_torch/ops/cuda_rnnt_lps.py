@@ -12,7 +12,11 @@ CUDA C++ in ``csrc/rnnt_lps.cu``, replacing the TPU kernels of
 
 Each wrapper launches its kernel for a CUDA tensor (float32 or bfloat16,
 anything else raises) and runs its plain PyTorch version, ``*_plain``, for a
-CPU tensor.  ``launches`` counts each kernel's launches by name.
+CPU tensor.  ``launches`` counts each kernel's launches by name.  K5 has three
+routes, chosen by :func:`join_route` from the type, the shape and the weight's
+layout: ``"wgmma"`` (bfloat16 on Hopper's warpgroup products, operands by
+TMA, the columns split over :func:`join_column_splits` blocks a row block),
+``"wmma"`` and ``"simt"``; ``join_route_launches`` counts each route's launches.
 
 Top-k everywhere is ``jax.lax.top_k``'s: descending, ties to the lowest
 index.  ``torch.topk`` promises no order among equal values, so the plain
@@ -22,6 +26,7 @@ versions use :func:`top_k`, a stable descending sort.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -29,6 +34,10 @@ import torch
 from . import _build
 
 __all__ = [
+    "join_column_splits",
+    "join_route",
+    "join_route_launches",
+    "join_split_tiles",
     "join_stats_topk",
     "join_stats_topk_plain",
     "lattice_row_stats",
@@ -40,12 +49,18 @@ __all__ = [
 ]
 
 launches = {"join_stats_topk": 0, "row_stats_topk": 0, "lattice_row_stats": 0}
+join_route_launches = {"wgmma": 0, "wmma": 0, "simt": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW_ARGTYPES = [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _LATTICE_ARGTYPES = [_P, _P, _LL, _I, _I, _I, _P, _P, _P, _P]
 _JOIN_ARGTYPES = [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_JOIN_QUERY_ARGTYPES = [_I, _I, _I, _LL, _P, _P]
+_JOIN_WGMMA_ARGTYPES = [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
+# csrc/rnnt_lps.cu's K5 routes: the wgmma route's rows a block, columns a tile, largest k and
+# most column splits; the wmma route's tile sizes, which set the shared memory it needs
+_WG_ROWS, _WG_COLS, _WG_MAX_K, _WG_MAX_SPLITS = 128, 128, 32, 8
+_WMMA_ROWS, _WMMA_COLS, _WMMA_DEPTH, _WMMA_STAGES = 64, 128, 32, 3
+_MAX_SMEM = 232448
 # shared memory a block can opt in to on sm_90: a row kernel keeps one f32 row a warp
 _MAX_ROW_COLS = 232448 // 4
 
@@ -174,14 +189,75 @@ def lattice_row_stats(x: torch.Tensor, tgt: torch.Tensor, blank: int):
     return lse, blank_raw, label
 
 
+def join_route(dtype: torch.dtype, d: int, k: int, linear_layout: bool) -> str:
+    """The K5 route for act (..., d) and w (d, V) of ``dtype``, top-k ``k``.
+
+    ``linear_layout``: w is the transposed view of a ``torch.nn.Linear``
+    weight, as the search passes it.  ``"wgmma"`` for bfloat16 in that layout
+    with d a multiple of 8 and k <= 32; ``"wmma"`` for the other bfloat16 cases
+    in that layout whose 64 act rows fit shared memory; ``"simt"`` (the FP32
+    pipes, W row-major) for the rest, float32 always: it must never take TF32.
+    """
+    if dtype != torch.bfloat16 or not linear_layout or d % 8 != 0:
+        return "simt"
+    if k <= _WG_MAX_K:
+        return "wgmma"
+    depth = -(-d // _WMMA_DEPTH) * _WMMA_DEPTH
+    smem = (2 * (_WMMA_ROWS * (depth + 8) + _WMMA_STAGES * _WMMA_COLS * (_WMMA_DEPTH + 8))
+            + 4 * (_WMMA_ROWS * (_WMMA_COLS + 4) + _WMMA_COLS + 2 * k * _WMMA_ROWS))
+    return "wmma" if smem <= _MAX_SMEM else "simt"
+
+
+def join_column_splits(n: int, n_cols: int, sm_count: int) -> int:
+    """Blocks a row block of the wgmma route splits its column tiles over: as many as
+    leave one block an SM for every row block, at most 8 and at most the tiles."""
+    row_blocks = -(-n // _WG_ROWS)
+    tiles = -(-n_cols // _WG_COLS)
+    return max(1, min(_WG_MAX_SPLITS, tiles, sm_count // row_blocks))
+
+
+def join_split_tiles(n_cols: int, splits: int):
+    """The column-tile ranges [t0, t1) of each split, in split order (csrc/rnnt_lps.cu)."""
+    tiles = -(-n_cols // _WG_COLS)
+    return [(s * tiles // splits, (s + 1) * tiles // splits) for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (device, stream) -> int32 counters the wgmma route's row blocks count their splits on; each
+# launch leaves them zero
+_counters: dict = {}
+
+
+def _split_counters(device: torch.device, stream: int, row_blocks: int) -> torch.Tensor:
+    key = (device, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < row_blocks:
+        c = torch.zeros(max(row_blocks, 64), dtype=torch.int32, device=device)
+        _counters[key] = c
+    return c
+
+
+def _linear_layout(w: torch.Tensor) -> bool:
+    """w (d, V) is a view of a (V, d) tensor with rows along V, as ``linear.weight.t()``."""
+    return w.dim() == 2 and w.shape[0] > 1 and w.stride(0) == 1 and w.stride(1) >= w.shape[0]
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride() if s != 1)
+
+
 def join_stats_topk(act: torch.Tensor, w: torch.Tensor, b: torch.Tensor, blank: int, k: int):
     """``(lse, blank_logit, top-k values, indices)`` of ``act @ w + b`` per row.
 
     act (..., D) joiner activations, w (D, V) and b (V,), all float32 or all
     bfloat16; the product accumulates in f32 (plain FP32 multiply-adds for
     float32 inputs, never TF32).  Returns what :func:`row_stats_topk` returns
-    for the logits, which a CUDA tensor never writes out: it runs kernel K5.
-    A CPU tensor runs :func:`join_stats_topk_plain`.
+    for the logits, which a CUDA tensor never writes out: it runs kernel K5 on
+    :func:`join_route`'s route.  A CPU tensor runs :func:`join_stats_topk_plain`.
 
     ``w`` may be the transposed view of a ``torch.nn.Linear`` weight,
     ``linear.weight.t()``: in bfloat16 (D a multiple of 8) the kernel then
@@ -194,24 +270,48 @@ def join_stats_topk(act: torch.Tensor, w: torch.Tensor, b: torch.Tensor, blank: 
     _check_join(act, w, b, blank, k)
     if w.device != act.device or b.device != act.device:
         raise ValueError(f"join_stats_topk: w and b must be on {act.device}")
+    d = w.shape[0]
+    route = join_route(act.dtype, d, k, _linear_layout(w))
+    outs = _stats_outputs(act.shape[:-1], k, act.device)
+    if act.reshape(-1, d).shape[0] == 0:
+        return outs
+    _join_launch(route, act, w, b, blank, k, outs)
+    return outs
+
+
+def _join_launch(route: str, act, w, b, blank: int, k: int, outs) -> None:
+    """One launch of K5 on ``route`` into ``outs``; the wgmma and wmma routes take w in a
+    Linear's layout (copied there if it is not aligned), the simt route row-major."""
     d, v = w.shape
     act2 = act.reshape(-1, d).contiguous()
     b = b.contiguous()
-    outs = _stats_outputs(act.shape[:-1], k, act.device)
-    if act2.shape[0] == 0:
-        return outs
     lse, blank_raw, vals, idx = outs
-    bf16 = int(act.dtype == torch.bfloat16)
+    n = act2.shape[0]
+    tail = (lse.data_ptr(), blank_raw.data_ptr(), vals.data_ptr(), idx.data_ptr())
+    if route == "simt":
+        w = w.contiguous()
+    else:
+        if not (_linear_layout(w) and _aligned(w)):
+            w = w.t().contiguous().t()
+        if not _aligned(act2):
+            act2 = act2.clone()
     with torch.cuda.device(act.device):
-        col_major = not w.is_contiguous() and w.stride(0) == 1 and bool(
-            _build.bind("rnnt_lps", "join_stats_topk_takes_col_major", _JOIN_QUERY_ARGTYPES)(
-                d, k, bf16, w.stride(1), act2.data_ptr(), w.data_ptr()))
-        if not col_major:
-            w = w.contiguous()
-        fn = _build.bind("rnnt_lps", "join_stats_topk", _JOIN_ARGTYPES)
-        err = fn(act2.data_ptr(), w.data_ptr(), b.data_ptr(), act2.shape[0], d, v, w.stride(1) if col_major else v,
-                 int(col_major), blank, k, bf16, lse.data_ptr(), blank_raw.data_ptr(), vals.data_ptr(),
-                 idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "join_stats_topk")
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            splits = join_column_splits(n, blank + 1, _sm_count(act.device))
+            part = counters = None
+            if splits > 1:
+                part = torch.empty((splits, n, 3 + 2 * k), dtype=torch.float32, device=act.device)
+                counters = _split_counters(act.device, stream, -(-n // _WG_ROWS))
+            fn = _build.bind("rnnt_lps", "join_stats_topk_wgmma", _JOIN_WGMMA_ARGTYPES)
+            err = fn(act2.data_ptr(), w.data_ptr(), b.data_ptr(), n, d, w.stride(1), blank, k, splits,
+                     0 if part is None else part.data_ptr(), 0 if counters is None else counters.data_ptr(),
+                     *tail, stream)
+        else:
+            col_major = route == "wmma"
+            fn = _build.bind("rnnt_lps", "join_stats_topk", _JOIN_ARGTYPES)
+            err = fn(act2.data_ptr(), w.data_ptr(), b.data_ptr(), n, d, v, w.stride(1) if col_major else v,
+                     int(col_major), blank, k, int(act.dtype == torch.bfloat16), *tail, stream)
+    _build.check_launch(err, f"join_stats_topk ({route})")
     launches["join_stats_topk"] += 1
-    return outs
+    join_route_launches[route] += 1

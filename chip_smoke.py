@@ -9,7 +9,14 @@ Phases, each of which raises on failure:
    turn TF32 off so the plain versions and the projection are exact float32;
 2. build the seven kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
 3. hold each of the ten kernel entries against its plain PyTorch version on the
-   card, at its main path's shape and at ragged small shapes (K9 forward and
+   card, at its main path's shape and at ragged small shapes (K2 on both of its
+   routes: mel, power and magnitude at n_fft 400, 512, 1024 and 2048 on "fft"
+   and at 398 on "dft", the main shape on both, bitwise equal over two runs;
+   K5 on its "wgmma" route at N 1, 40, 63, 65, 5120 and 5121, V 33 to 4097,
+   the blank inside V and at V - 1, k 1, 10 and 32, rows of exact ties won by
+   the lowest indices across column splits, and bitwise equal over two runs;
+   K5 on its "wmma" route at the ragged bf16 shapes, the main shape, and k 33,
+   100 and 256 through the wrapper; K9 forward and
    backward in f32 and bf16 on both of its routes, bf16 at the edges of the
    wgmma route, a fully masked row included, and bitwise equal over two runs;
    K4 in both time directions), and the public spectral functions on the card
@@ -17,7 +24,8 @@ Phases, each of which raises on failure:
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
-   The launch counters of K1-K3 must move in that run; the paths must be
+   The launch counters of K1-K3 must move in that run, K2 only on its "fft"
+   route; the paths must be
    valid CTC alignments of the targets; a small slice of the chain must agree
    with the plain versions on the CPU.  Then time the chain and each kernel
    with CUDA events, and break one chain step down by kernel with
@@ -26,8 +34,9 @@ Phases, each of which raises on failure:
    full width of ``emformer_rnnt_base(4097)`` with seeded random weights in
    bf16: S=512 streams, beam 10, ``step_max_tokens`` 4, four consecutive
    ticks of ``RNNTBeamSearch.infer_batch`` from ``init_beams`` with carried
-   state.  The counters of K5 and K7 must move; the beams must be well
-   formed.  Time the tick for both forms of the inner loop and profile one;
+   state.  The counters of K5 and K7 must move, K5 only on its "wgmma" route;
+   the beams must be well formed.  Time the tick for both forms of the inner
+   loop and profile one;
 6. the same search in f32 on the card against the CPU (which runs the plain
    versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move) and
    ``expansion="approx"`` (K8 must move) at S=32, two ticks each;
@@ -43,9 +52,13 @@ Phases, each of which raises on failure:
    its gradients in f32 at B=2 on the card against the CPU;
 9. the fourth main path, lfilter's gradient: the gradients of
    mean(log1p(mel_spectrogram(lfilter(x, a, b)))) with respect to x, a and b at
-   B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K4 backward must move),
-   against the CPU at B=4.
+   B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K2 only on "fft", K4
+   backward must move), against the CPU at B=4.
 
+Then it times every kernel (``cuda_ms``) beside its bound, its plain version
+and its library call; for K2 and K5 also the route each replaced ("dft",
+"wmma"), for K2 the power spectra without the mel product and, for K5, the
+product alone (``torch.nn.functional.linear``).
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -359,10 +372,15 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
     # the error kept is the Linear layout's, which the search uses
     tol = 2e-2 if bf16 else sum_tol(1e-5, d)
     for layout, w in (("row-major W", inp["w"]), ("Linear W", inp["w_linear"])):
+        route = cuda_rnnt_lps.join_route(dtype, d, k, layout == "Linear W")
         got = cuda_rnnt_lps.join_stats_topk(inp["act"], w, inp["b"], blank, k)
         torch.cuda.synchronize()
-        errs["join_stats_topk"] = check_join_topk(f"K5 join_stats_topk {label}, {layout}", got, inp["act"], w,
-                                                  inp["b"], blank, k, tol)
+        errs["join_stats_topk"] = check_join_topk(f"K5 join_stats_topk {label}, {layout} [{route}]", got,
+                                                  inp["act"], w, inp["b"], blank, k, tol)
+    if bf16 and d % 8 == 0:
+        # the wmma route, which the wgmma route took these shapes from, on the same inputs
+        check_join_route("wmma", f"K5 join_stats_topk {label}, Linear W", inp["act"], inp["w_linear"], inp["b"],
+                         blank, k)
     # K7: JAX kernel tests 1e-5 in f32 and 2e-2 in bf16 (the outputs round to bf16)
     tol = 2e-2 if bf16 else sum_tol(1e-5, hd)
     ref = cuda_lstm.lstm_gate_step_plain(**inp["lstm"], eps=1e-3)
@@ -373,6 +391,95 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
             check_close(f"K7 lstm_gate_step {label}, {layout} {part}", g.float(), r.float(), tol, tol)
             for part, g, r in zip(("h", "c"), got, ref))
     return errs
+
+
+def check_join_route(route: str, label: str, act, w, b, blank: int, k: int) -> float:
+    """One launch of K5 on ``route`` against the plain product (check_join_topk, bf16: 2e-2);
+    the route's launch counter must move by one."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    outs = cuda_rnnt_lps._stats_outputs(act.shape[:-1], k, act.device)
+    before = cuda_rnnt_lps.join_route_launches[route]
+    cuda_rnnt_lps._join_launch(route, act, w, b, blank, k, outs)
+    torch.cuda.synchronize()
+    if cuda_rnnt_lps.join_route_launches[route] != before + 1:
+        raise AssertionError(f"{label}: the {route} route's counter did not move")
+    return check_join_topk(f"{label} [{route}]", outs, act, w, b, blank, k, 2e-2)
+
+
+def check_join_wmma(rng, dev) -> None:
+    """K5 on its "wmma" route, which join_route gives bf16 with W in a Linear's layout and k past
+    the wgmma route's 32, through the public wrapper at k 33, 100 and 256 (the kernel's limit),
+    N off the 64-row block, the blank at V - 1 and inside V, D 64 and 1024; tolerances of
+    check_join_topk (bf16: 2e-2)."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    for n, d, v, blank, k in ((70, RNNT_D, RNNT_V, RNNT_BLANK, 33), (1, 512, 1000, 500, 100),
+                              (130, 64, 300, 299, 256)):
+        inp = slice2_kernel_inputs(rng, dev, n, d, v, 8, torch.bfloat16)
+        act, w, b = inp["act"], inp["w_linear"], inp["b"]
+        route = cuda_rnnt_lps.join_route(act.dtype, d, k, True)
+        before = cuda_rnnt_lps.join_route_launches["wmma"]
+        got = cuda_rnnt_lps.join_stats_topk(act, w, b, blank, k)
+        torch.cuda.synchronize()
+        if route != "wmma" or cuda_rnnt_lps.join_route_launches["wmma"] != before + 1:
+            raise AssertionError(f"K5 (N {n}, D {d}, V {v}, k {k}) did not run on the wmma route ({route})")
+        check_join_topk(f"K5 join_stats_topk [wmma] (N {n}, D {d}, V {v}, blank {blank}, k {k})", got, act, w, b,
+                        blank, k, 2e-2)
+
+
+def check_join_wgmma(rng, dev) -> float:
+    """K5 on its "wgmma" route (bf16, W in a Linear's layout) against the plain product: N around
+    the 128-row block and the column split (1, 40, 63, 65, 5120, 5121), V 33 to 4097, the blank at
+    V - 1 and inside V, k 1, 10 and 32 (the route's limit).  Tolerances of check_join_topk (JAX
+    kernel tests, bf16: 2e-2).  Row 0 of N 1 and of the main shape holds exact ties (a zero
+    activation row, so its logits are the bias, raised by 1 at every 401st column, so that the
+    k winners lie in several column splits: 8 at N 1, 3 at the main shape): its indices must be
+    the plain version's, the lowest tied columns first.  The main shape also runs on the wmma
+    route, which it replaced.  Two runs of the main shape: the same bits.  Returns the main
+    shape's max abs error."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    main = (RNNT_S * RNNT_BEAM, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM)
+    err = 0.0
+    for n, d, v, blank, k in ((1, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM), (40, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM),
+                              (63, RNNT_D, 33, 32, 1), (65, RNNT_D, RNNT_V, 4000, RNNT_BEAM),
+                              (70, 64, 300, 299, 32), (40, RNNT_D, RNNT_V, 2000, 1),
+                              (5121, RNNT_D, RNNT_V, RNNT_BLANK, 1), main):
+        inp = slice2_kernel_inputs(rng, dev, n, d, v, 8, torch.bfloat16)
+        act, w, b = inp["act"], inp["w_linear"], inp["b"]
+        ties = n == 1 or (n, d, v, blank, k) == main
+        if ties:
+            act[0] = 0
+            b[:blank:401] = b.max() + 1
+        route = cuda_rnnt_lps.join_route(act.dtype, d, k, True)
+        before = cuda_rnnt_lps.join_route_launches["wgmma"]
+        got = cuda_rnnt_lps.join_stats_topk(act, w, b, blank, k)
+        torch.cuda.synchronize()
+        if route != "wgmma" or cuda_rnnt_lps.join_route_launches["wgmma"] != before + 1:
+            raise AssertionError(f"K5 (N {n}, D {d}, V {v}, k {k}) did not run on the wgmma route ({route})")
+        label = f"K5 join_stats_topk [wgmma] (N {n}, D {d}, V {v}, blank {blank}, k {k})"
+        e = check_join_topk(label, got, act, w, b, blank, k, 2e-2)
+        if ties:
+            ref = cuda_rnnt_lps.join_stats_topk_plain(act[:1], w, b, blank, k)
+            check_equal(f"{label}: row 0 of exact ties, indices", got[3][:1].cpu(), ref[3].cpu())
+        if (n, d, v, blank, k) == main:
+            err = e
+            check_join_route("wmma", f"K5 join_stats_topk (N {n}, D {d}, V {v}, blank {blank}, k {k})", act, w, b,
+                             blank, k)
+            again = cuda_rnnt_lps.join_stats_topk(act, w, b, blank, k)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(got, again)]
+            print(f"  K5 bits (N {n}): lse, blank, values, indices equal over two runs: {same}")
+            if not all(same):
+                raise AssertionError(f"K5: two runs gave different bits {same}")
+    return err
 
 
 # ------------------------------------------------------------------ slice 3: kernels K9 and K4
@@ -548,7 +655,9 @@ def kernel_counts() -> dict:
 
     return {"lfilter": cuda_iir.launches, "iir": cuda_iir.iir_launches,
             "power_spectrogram": cuda_spectrogram.launches, "viterbi": cuda_viterbi.launches,
-            "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches, **cuda_attention.launches}
+            "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches, **cuda_attention.launches,
+            **{f"power_spectrogram_{r}": c for r, c in cuda_spectrogram.route_launches.items()},
+            **{f"join_stats_topk_{r}": c for r, c in cuda_rnnt_lps.join_route_launches.items()}}
 
 
 def reset_kernel_counts() -> None:
@@ -558,7 +667,8 @@ def reset_kernel_counts() -> None:
     for mod in (cuda_iir, cuda_spectrogram, cuda_viterbi, cuda_lstm):
         mod.launches = 0
     cuda_iir.iir_launches = 0
-    for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches):
+    for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches,
+                     cuda_spectrogram.route_launches, cuda_rnnt_lps.join_route_launches):
         for name in counters:
             counters[name] = 0
 
@@ -568,6 +678,14 @@ def require_launches(what: str, counts: dict, names) -> None:
     missing = [n for n in names if counts[n] < 1]
     if missing:
         raise AssertionError(f"{what}: kernels of the path that did not launch: {missing}")
+
+
+def require_route(what: str, counts: dict, kernel: str, route: str) -> None:
+    """Every launch of ``kernel`` counted in ``counts`` went to ``route``."""
+    if counts[f"{kernel}_{route}"] != counts[kernel]:
+        raise AssertionError(f"{what}: {kernel} launched {counts[kernel]} times, {counts[f'{kernel}_{route}']} of them "
+                             f"on its {route!r} route")
+    print(f"  {what}: all {counts[kernel]} launches of {kernel} on its {route!r} route")
 
 
 def make_rnnt(dev, dtype, activation: str = "relu"):
@@ -932,6 +1050,7 @@ def run_filter_grad(rng, dev, card: str, wav, fb, window, order: int, reps: int)
     torch.cuda.synchronize()
     counts = kernel_counts()
     require_launches(f"one step of the {name}", counts, ["lfilter", "power_spectrogram", "iir"])
+    require_route(f"one step of the {name}", counts, "power_spectrogram", "fft")
     if not all(bool(torch.isfinite(t).all()) for t in out):
         raise AssertionError(f"{name}: non-finite loss or gradient")
     got = filter_grad_step(wav[:4], a, b, fb, window)
@@ -1017,12 +1136,19 @@ def main(argv=None) -> int:
         return check_close(name, got, ref, 5e-4 * float(ref.abs().max()), 0.0), got
 
     xs = torch.as_tensor(rng.standard_normal((7, 3001)).astype(np.float32) * 0.3, device=dev)
-    k2_check("K2 mel (7x3001, n_fft 400, hop 160)", xs, window, N_FFT, HOP, 2.0, fb)
-    k2_check("K2 power (7x3001, n_fft 400, hop 160)", xs, window, N_FFT, HOP, 2.0, None)
-    k2_check("K2 magnitude (7x3001, n_fft 512, hop 128)", xs, hann_window(512, device=dev), 512, 128, 1.0, None)
-    fb1024 = F.melscale_fbanks(513, 0.0, 8000.0, 128, SR, device=dev)
-    k2_check("K2 mel (7x3001, n_fft 1024, hop 256, 128 mels)", xs, hann_window(1024, device=dev), 1024, 256, 2.0,
-             fb1024)
+    # mel, power and magnitude on both routes: n_fft 400, 512, 1024 (128 mels) and 2048 on "fft",
+    # 398 = 2 x 199 on "dft"
+    for n_fft, hop, n_mels in ((N_FFT, HOP, N_MELS), (512, 128, N_MELS), (1024, 256, 128), (2048, 512, N_MELS),
+                               (398, HOP, N_MELS)):
+        win = hann_window(n_fft, device=dev)
+        fbank = F.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, n_mels, SR, device=dev)
+        route = cuda_spectrogram.kernel_route(n_fft)
+        for what, power, fb_ in (("mel", 2.0, fbank), ("power", 2.0, None), ("magnitude", 1.0, None)):
+            k2_check(f"K2 {what} [{route}] (7x3001, n_fft {n_fft}, hop {hop}{f', {n_mels} mels' if fb_ is not None else ''})",
+                     xs, win, n_fft, hop, power, fb_)
+    print(f"  K2 launches by route in phase 3 so far: {cuda_spectrogram.route_launches}")
+    if cuda_spectrogram.route_launches["fft"] < 12 or cuda_spectrogram.route_launches["dft"] < 3:
+        raise AssertionError(f"K2: a route was not held against the plain version: {cuda_spectrogram.route_launches}")
     # the public functions' glue around K2 (center pad, lead dims, norms, layout) on the card
     # against the same calls on the CPU, which run the plain version; 5e-4 of the peak
     xs_cpu, win_cpu, fb_cpu = xs.reshape(7, 1, -1).cpu(), window.cpu(), fb.cpu()
@@ -1038,7 +1164,19 @@ def main(argv=None) -> int:
                     F.mel_spectrogram(xs.reshape(7, 1, -1), fb, window=window, **kw).cpu(), ref,
                     5e-4 * float(ref.abs().max()), 0.0)
     x2 = _pad_center(k1_got[:, 0], N_FFT // 2, "reflect").contiguous()
-    k2_err, mel_main = k2_check("K2 mel main (8192x16400)", x2, window, N_FFT, HOP, 2.0, fb)
+    k2_err, mel_main = k2_check("K2 mel main [fft] (8192x16400)", x2, window, N_FFT, HOP, 2.0, fb)
+    ref_main = cuda_spectrogram.power_spectrogram_plain(x2, window, N_FFT, HOP, 2.0, fb=fb)
+    dft_main = cuda_spectrogram._power_spectrogram_kernel(x2, window, N_FFT, HOP, 2.0, fb, route="dft")
+    torch.cuda.synchronize()
+    k2_dft_err = check_close("K2 mel main [dft] (8192x16400)", dft_main, ref_main, 5e-4 * float(ref_main.abs().max()), 0.0)
+    print(f"  K2 main: max abs error relative to the peak, fft {k2_err / float(ref_main.abs().max()):.3e}, "
+          f"dft {k2_dft_err / float(ref_main.abs().max()):.3e}")
+    again = cuda_spectrogram.power_spectrogram(x2, window, N_FFT, HOP, 2.0, fb=fb)
+    torch.cuda.synchronize()
+    print(f"  K2 bits (8192x16400): equal over two runs: {torch.equal(again, mel_main)}")
+    if not torch.equal(again, mel_main):
+        raise AssertionError("K2: two runs at the main shape gave different bits")
+    del ref_main, dft_main, again
 
     # K3 ragged (shared-memory and global backpointers) and main: paths equal
     def k3_inputs(lp, tgt, il, tl):
@@ -1071,6 +1209,11 @@ def main(argv=None) -> int:
         errs = check_slice2_kernels(rng, dev, n_main, RNNT_D, RNNT_V, RNNT_H, RNNT_BEAM, dtype,
                                     f"{tag} main (N {n_main}, D {RNNT_D}, V {RNNT_V}, H {RNNT_H}, k {RNNT_BEAM})")
     s2_err = errs  # the main shape in bf16, the type the main path runs
+    # K5's route checks draw from their own generator, so the checks after them keep the inputs
+    # they had before these were added (ROADMAP.md C: a K9 "tiled" fault shows on other inputs)
+    k5_rng = np.random.default_rng(5)
+    s2_err["join_stats_topk"] = check_join_wgmma(k5_rng, dev)
+    check_join_wmma(k5_rng, dev)
     # K8 at the train step's shapes: the full loss's lattice and the pruned loss's band
     t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
     for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
@@ -1122,6 +1265,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     launches = kernel_counts()
     require_launches("one chain step", launches, ["lfilter", "power_spectrogram", "viterbi"])
+    require_route("one chain step", launches, "power_spectrogram", "fft")
     n_frames = 1 + T // HOP
     if tuple(mel.shape) != (B, n_frames, N_MELS) or tuple(paths.shape) != (B, n_frames):
         raise AssertionError(f"chain shapes: mel {tuple(mel.shape)}, paths {tuple(paths.shape)}")
@@ -1181,6 +1325,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     rnnt_launches = kernel_counts()
     require_launches(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, ["join_stats_topk", "lstm_gate_step"])
+    require_route(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, "join_stats_topk", "wgmma")
     check_beams("infer_batch", hypos.tokens, hypos.counts, hypos.scores)
     if tuple(hypos.tokens.shape) != (RNNT_S, RNNT_BEAM, RNNT_MAX_TOKENS) or len(state) != 20:
         raise AssertionError(f"infer_batch shapes: tokens {tuple(hypos.tokens.shape)}, {len(state)} layer states")
@@ -1190,6 +1335,7 @@ def main(argv=None) -> int:
         dec.static_expansion = static
         reset_kernel_counts()
         tick_ms, tick_runs, tick = time_tick(dec, feats[0], lengths, state, hypos)
+        require_route(f"the timed ticks, static_expansion={static}", kernel_counts(), "join_stats_topk", "wgmma")
         per_tick = {n: c / 6 for n, c in kernel_counts().items() if c}  # a warm-up and 5 timed ticks
         streams = RNNT_S * RNNT_SEG_SECONDS * 0.1 / (tick_ms / 1e3)
         print(f"  tick, static_expansion={static}: median {tick_ms:.3f} ms (runs {[round(m, 3) for m in tick_runs]}); "
@@ -1282,6 +1428,16 @@ def main(argv=None) -> int:
     n_freq = N_FFT // 2 + 1
     m_rows = B * n_frames
     k2_ms = cuda_ms(lambda: cuda_spectrogram.power_spectrogram(x2, window, N_FFT, HOP, 2.0, fb=fb), 10)
+    k2_dft_ms = cuda_ms(lambda: cuda_spectrogram._power_spectrogram_kernel(x2, window, N_FFT, HOP, 2.0, fb,
+                                                                           route="dft"), 5)
+    print(f"  K2 power_spectrogram at the main shape: route fft {k2_ms:.4f} ms, route dft (the kernel it replaced "
+          f"on this path) {k2_dft_ms:.4f} ms on {card}")
+    # the same frames without the mel product: the power spectra, 201 bins a frame, to device memory
+    k2_power_ms = cuda_ms(lambda: cuda_spectrogram.power_spectrogram(x2, window, N_FFT, HOP, 2.0), 10)
+    k2_power_bound = bound_ms(4 * (x2.numel() + window.numel() + m_rows * n_freq),
+                              m_rows * (N_FFT + 2.5 * N_FFT * math.log2(N_FFT) + 3 * n_freq))
+    print(f"  K2 route fft without the mel product (power, {n_freq} bins a frame): {k2_power_ms:.4f} ms, bound "
+          f"{k2_power_bound[0]:.4f} ms ({k2_power_bound[1]}) on {card}")
     k2_plain = cuda_ms(lambda: cuda_spectrogram.power_spectrogram_plain(x2, window, N_FFT, HOP, 2.0, fb=fb), 3)
 
     def library_k2():
@@ -1302,7 +1458,7 @@ def main(argv=None) -> int:
     kernels.append(dict(name="power_spectrogram", route="cuda", source="audio_tpu_torch/csrc/spectrogram.cu",
                         replaces="audio_tpu/ops/pallas_spectrogram.py:194",
                         launches=launches["power_spectrogram"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
-                        bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib))
+                        bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft"))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
     k3_plain = cuda_ms(lambda: cuda_viterbi.viterbi_paths_plain(*k3_args), 3)
@@ -1352,6 +1508,16 @@ def main(argv=None) -> int:
         kernels.append(dict(name=name, route="cuda", source=f"audio_tpu_torch/csrc/{source}.cu", replaces=replaces,
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+    kernels[-4]["kernel_route"] = "wgmma"  # K5
+    # K5's yardsticks: the wmma route it replaced, and the product alone (it computes less: no
+    # statistics, and it writes the (N, V) logits)
+    join_args = (inp["act"], inp["w_linear"], inp["b"], RNNT_BLANK, RNNT_BEAM)
+    join_outs = cuda_rnnt_lps._stats_outputs((n_main,), RNNT_BEAM, dev)
+    k5_wmma_ms = cuda_ms(lambda: cuda_rnnt_lps._join_launch("wmma", *join_args, join_outs), 10)
+    k5_linear_ms = cuda_ms(lambda: torch.nn.functional.linear(inp["act"], inp["w_linear"].t(), inp["b"]), 10)
+    print(f"  K5 join_stats_topk at the main shape: route wgmma {kernels[-4]['ms']:.4f} ms, route wmma (the kernel "
+          f"it replaced on this path) {k5_wmma_ms:.4f} ms, the product alone (F.linear, bf16) {k5_linear_ms:.4f} ms "
+          f"on {card}")
     # K4 as the gradient path runs it: the order-2 recurrence backwards in time
     a_tail = (fg["a"][1:] / fg["a"][0]).reshape(1, -1).contiguous()
     k4_ms = cuda_ms(lambda: cuda_iir.iir_allpole(x1, a_tail, reverse=True), 20)
@@ -1377,7 +1543,8 @@ def main(argv=None) -> int:
                        "chain_runs_ms": step_ms, "streams_rtf0.1": chain_streams, "launches": launches,
                        "profile": breakdown, "rnnt_launches": rnnt_launches,
                        "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()},
-                       "train_step": train,
+                       "train_step": train, "k2_dft_ms": k2_dft_ms, "k2_power_ms": k2_power_ms, "k5_wmma_ms": k5_wmma_ms,
+                       "k5_linear_ms": k5_linear_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()}}, f, indent=1)
     print(json.dumps(result))

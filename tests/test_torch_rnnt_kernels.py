@@ -178,3 +178,86 @@ def test_cpu_tensors_launch_nothing():
     cuda_lstm.lstm_gate_step(torch.zeros(2, 16), torch.zeros(2, 4), torch.zeros(2, 4), torch.zeros(4, 16),
                              torch.ones(16), torch.zeros(16), torch.ones(4), torch.zeros(4), 1e-3)
     assert (dict(cuda_rnnt_lps.launches), cuda_lstm.launches) == before
+
+
+# ------------------------------------------------------------------ K5's "wgmma" route: host side
+def _split_merge(act, w, b, blank: int, k: int, splits: int):
+    """The wgmma route's column split in plain PyTorch: per split (its tiles of 128 columns,
+    cut at the blank) the maximum, the sum of exponentials, the blank logit where it lies and
+    the k-best (value, index) pairs; then the merge in split order, pairs compared as
+    (greater value, lower index)."""
+    x = act.float() @ w.float() + b.float()
+    parts = []
+    for t0, t1 in cuda_rnnt_lps.join_split_tiles(blank + 1, splits):
+        lo, hi = t0 * 128, min(t1 * 128, blank + 1)
+        xs = x[:, lo:hi]
+        m = xs.max(-1).values
+        cand = xs[:, : max(0, min(hi, blank) - lo)]
+        vals, idx = cuda_rnnt_lps.top_k(cand, min(k, cand.shape[1]))
+        parts.append((m, torch.exp(xs - m[:, None]).sum(-1), vals, idx + lo))
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    lse = m + torch.log(sum(p[1] * torch.exp(p[0] - m) for p in parts))
+    vals, idx = [], []
+    for r in range(x.shape[0]):
+        pairs = [(float(v), int(i)) for p in parts for v, i in zip(p[2][r], p[3][r])]
+        best = sorted(pairs, key=lambda vi: (-vi[0], vi[1]))[:k]
+        vals.append([v for v, _ in best])
+        idx.append([i for _, i in best])
+    return lse, x[:, blank], torch.tensor(vals), torch.tensor(idx, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n,d,v,blank,k,splits,ties", [
+    (6, 32, 300, 299, 10, 2, False), (5, 16, 513, 512, 5, 3, True), (4, 24, 700, 650, 1, 4, True),
+    (3, 8, 257, 200, 7, 2, True),
+])
+def test_join_column_split_merge(n, d, v, blank, k, splits, ties):
+    """The column split and its merge give join_stats_topk_plain: indices exactly, ties to the lowest."""
+    rng = np.random.default_rng(n + v)
+    act = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((d, v)) * 0.2).astype(np.float32)).bfloat16()
+    b = torch.from_numpy((rng.standard_normal((v,)) * 0.1).astype(np.float32)).bfloat16()
+    if ties:  # exact ties across the splits' boundaries: the bias alone on a zero row, repeated
+        act[0] = 0
+        b[::37] = b.max() + 1
+    got = _split_merge(act, w, b, blank, k, splits)
+    ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, blank, k)
+    for name, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+        _close(g, r.numpy(), 1e-5, name)
+    np.testing.assert_array_equal(got[3].numpy(), ref[3].numpy())
+    if ties:  # the tied maxima below the blank come first, lowest index first
+        tied = [c for c in range(0, blank, 37)][:k]
+        assert got[3][0].tolist()[: len(tied)] == tied
+
+
+def test_join_split_tiles_partition_the_columns():
+    for n_cols in (33, 129, 4097):
+        tiles = -(-n_cols // 128)
+        for splits in range(1, min(8, tiles) + 1):
+            ranges = cuda_rnnt_lps.join_split_tiles(n_cols, splits)
+            assert ranges[0][0] == 0 and ranges[-1][1] == tiles
+            assert all(t0 < t1 for t0, t1 in ranges) and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("n,n_cols,want", [(5120, 4097, 3), (5121, 4097, 3), (40, 4097, 8), (1, 4097, 8),
+                                           (63, 33, 1), (65, 4097, 8), (20000, 4097, 1)])
+def test_join_column_splits(n, n_cols, want):
+    """Split so that every row block has a block an SM, within the tiles and 8."""
+    assert cuda_rnnt_lps.join_column_splits(n, n_cols, 132) == want
+
+
+@pytest.mark.parametrize("dtype,d,k,linear,want", [
+    (torch.bfloat16, 1024, 10, True, "wgmma"), (torch.bfloat16, 16, 1, True, "wgmma"),
+    (torch.bfloat16, 1024, 32, True, "wgmma"), (torch.bfloat16, 1024, 33, True, "wmma"),
+    (torch.bfloat16, 100, 10, True, "simt"), (torch.bfloat16, 1024, 10, False, "simt"),
+    (torch.float32, 1024, 10, True, "simt"), (torch.bfloat16, 4096, 64, True, "simt"),
+    (torch.bfloat16, 512, 100, True, "wmma"), (torch.bfloat16, 64, 256, True, "wmma"),
+])
+def test_join_route(dtype, d, k, linear, want):
+    """K5's route from type, shape and layout: f32 never takes the tensor cores."""
+    assert cuda_rnnt_lps.join_route(dtype, d, k, linear) == want
+
+
+def test_join_route_sees_the_linear_layout():
+    lin = torch.nn.Linear(64, 33).bfloat16()
+    assert cuda_rnnt_lps._linear_layout(lin.weight.detach().t())
+    assert not cuda_rnnt_lps._linear_layout(lin.weight.detach().t().contiguous())
