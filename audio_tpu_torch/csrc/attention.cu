@@ -11,9 +11,15 @@
 // sum is the logsumexp the TPU kernel saves; they are kept apart because at a fully
 // masked row m is -1e8, where f32 steps by 8 and m + log l would lose log l:
 //
-//   dV = cast(P)^T dO          delta = rowsum(dO * O)  (f32)
+//   dV = cast(P)^T dO          delta = rowsum(P * (dO V^T))  (f32)
 //   dS = cast(P * (dO V^T - delta))
 //   dQ = dS K                  dK = dS^T Q
+//
+// delta is the softmax backward's own sum over the keys, from P and dO V^T in f32.  It equals
+// rowsum(dO * O), but O is the output rounded to its type: in bf16 that rounding, one error
+// shared by every key of a row, moved whole rows of dQ by up to the tolerance (the dQ of
+// (B, H, Tq, Tk, dh) = (1, 2, 257, 32, 128) and (2, 2, 100, 70, 136) in chip_smoke.py's checks
+// against float64).
 //
 // The mask is the finite -1e8 of the model, so a fully masked row is uniform, never
 // NaN.  The mask and the key bias are added to the f32 scores in that order.
@@ -36,14 +42,14 @@
 //     reference's: exp(S - m) cast to bf16, times V, divided by l last.  P feeds P V
 //     straight from registers as wgmma's A operand.  m and log l are saved apart.
 //   * backward, one launch: a block owns (head, batch); warpgroup w owns 64 keys and keeps
-//     their dK and dV in registers over the whole sweep.  (Q, dO, O) tiles of 64 rows come
+//     their dK and dV in registers over the whole sweep.  (Q, dO) tiles of 64 rows come
 //     through a ring of two TMA slots, the mask block a warpgroup reads by cp.async.  Per tile
-//     each warpgroup computes S^T = K_w Q^T and dP^T = V_w dO^T once (delta = rowsum(dO O)
-//     of the tile from the slot meanwhile), forms
-//     P^T and dS^T in registers and adds P^T dO to dV and dS^T Q to dK with them as A
-//     operands.  dS^T also goes to shared memory (bf16, two buffers); after a block barrier
-//     warpgroup (tile mod W) computes dQ = dS K over all keys and writes it.  No atomics:
-//     every sum has one order, so every run gives the same bits.
+//     each warpgroup computes S^T = K_w Q^T and dP^T = V_w dO^T once, forms P^T, adds its
+//     keys' share of delta = rowsum(P dP) through shared memory, forms dS^T in registers and
+//     adds P^T dO to dV and dS^T Q to dK with them as A operands.  dS^T also goes to shared
+//     memory (bf16, and its bf16 residual); after a block barrier warpgroup (tile mod W)
+//     computes dQ = dS K over all keys and writes it.  No atomics: every sum has one order,
+//     so every run gives the same bits.
 //   What held PR 3's kernels back, and what this route does about it: two sweeps over the
 //   keys (one sweep; S computed once); wmma through shared-memory accumulators (wgmma,
 //   accumulators and P, dS in registers); block-wide barriers between load, product and
@@ -59,7 +65,7 @@
 //     row maximum and the sum of exponentials; pass 2 sweeps them again, forms
 //     exp(S - m) with the final maximum (the reference's rounding, no rescaling of a
 //     running sum), casts it and accumulates P V in f32; the division by l comes last.
-//   * backward: a small kernel first writes delta, one warp a row.  dK and dV: a block
+//   * backward: a kernel first writes delta, one warp a row sweeping the keys.  dK and dV: a block
 //     owns a tile of keys and sweeps the query tiles, so both sums over query rows are
 //     accumulated on chip in f32 and written once.  P and dS take the place of the raw
 //     products they are made from in shared memory, which lets two blocks share an SM.
@@ -142,7 +148,7 @@ struct Params {
   const float* kb;    // (B, Tk)
   float* row_max;     // (B, H, Tq): m
   float* log_sum;     // (B, H, Tq): log l
-  float* delta;       // (B, H, Tq): rowsum(dO * O), scratch of the backward
+  float* delta;       // (B, H, Tq): rowsum(P * dO V^T), scratch of the backward
   int tq, tk, dh;
   int dc;        // width of the tiles on chip: dh rounded up to 16, at most kChunk
   int n_chunks;  // chunks of kChunk columns that cover dh
@@ -372,7 +378,8 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(Params p) {
     }
 }
 
-// delta = rowsum(dO * O) in f32 for every query row, one warp a row.
+// delta = rowsum(P * dO V^T) in f32 for every query row, one warp a row sweeping the keys in
+// order: P recomputed from the saved m and log l as the other kernels do, dO V^T from the inputs.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) attention_delta_kernel(Params p, int heads, i64 rows) {
   const i64 row = (static_cast<i64>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
@@ -382,11 +389,23 @@ __global__ void __launch_bounds__(kThreads) attention_delta_kernel(Params p, int
   const i64 bh = row / p.tq;
   const int h = static_cast<int>(bh % heads);
   const i64 b = bh / heads;
-  const T* o = static_cast<const T*>(p.o.p) + b * p.o.sb + h * p.o.sh + qi * p.o.st;
+  const T* q = static_cast<const T*>(p.q.p) + b * p.q.sb + h * p.q.sh + qi * p.q.st;
   const T* d_o = static_cast<const T*>(p.d_o.p) + b * p.d_o.sb + h * p.d_o.sh + qi * p.d_o.st;
+  const T* k = static_cast<const T*>(p.k.p) + b * p.k.sb + h * p.k.sh;
+  const T* v = static_cast<const T*>(p.v.p) + b * p.v.sb + h * p.v.sh;
+  const float* kb_row = p.kb + b * p.tk;
+  const float m = p.row_max[row], logl = p.log_sum[row];
   float sum = 0.f;
-  for (int d = lane; d < p.dh; d += 32) sum = fmaf(to_f32(d_o[d]), to_f32(o[d]), sum);
-  sum = warp_sum(sum);
+  for (int kj = 0; kj < p.tk; ++kj) {
+    float s = 0.f, dp = 0.f;
+    for (int d = lane; d < p.dh; d += 32) {
+      s = fmaf(to_f32(q[d]), to_f32(k[kj * p.k.st + d]), s);
+      dp = fmaf(to_f32(d_o[d]), to_f32(v[kj * p.v.st + d]), dp);
+    }
+    s = warp_sum(s);
+    dp = warp_sum(dp);
+    sum = fmaf(expf((biased(s, p.mask, kb_row, qi, kj, p.tq, p.tk) - m) - logl), dp, sum);
+  }
   if (lane == 0) p.delta[row] = sum;
 }
 
@@ -679,11 +698,6 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // (8 keys by 4 queries two apart a warp) and the copy's writes (32 keys a warp) hit 32 banks.
 __device__ __forceinline__ int mask_word(int ql, int kl) { return ql * kRows + (kl ^ (((ql >> 1) & 3) << 3)); }
 
-// Byte offset of element (row, col) of a swizzled tile region whose rows are 128 bytes.
-__device__ __forceinline__ uint32_t swizzled(int row, int col) {
-  return row * kRowBytes + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -703,11 +717,6 @@ __device__ __forceinline__ void hold(uint32_t (&a)[4]) {
 #define WG_D32                                                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
   "%24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                                                              \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),     \
-      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),      \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
 // d (64 x 64, f32) += A B over 16 of K, A and B from shared memory.  kTransA / kTransB: 0 when
 // the operand's rows run along M (A) or N (B) with K along the row, 1 when its rows run along K.
@@ -746,6 +755,17 @@ __device__ __forceinline__ void fragment(uint32_t (&a)[4], const float (&d)[32],
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// What ``fragment`` rounds away, d - bf16(d), itself in bf16: a product of the two parts is the
+// product of d to about 16 bits.
+__device__ __forceinline__ void fragment_residual(uint32_t (&a)[4], const float (&d)[32], int kk) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = d[8 * kk + 2 * r], x1 = d[8 * kk + 2 * r + 1];
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+    a[r] = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+  }
 }
 
 // Writes a 64 x (64 DC) f32 accumulator as bf16 to rows row0 .. of a (b, h) slice through its
@@ -934,39 +954,41 @@ struct BwdArgs {
   const float* row_max;  // (B, H, Tq)
   const float* log_sum;  // (B, H, Tq)
   int tq, tk, dh;
-  Axes aq, ak, av, ao, ado;
+  Axes aq, ak, av, ado;
 };
 
 // One block a (head, batch); warpgroup w owns keys [64 w, 64 w + 64) and holds their dK and dV
-// in registers.  The query tiles stream through a ring of two slots (Q, dO and O of 64 rows).
-// For each, every warpgroup computes S^T = K_w Q_i^T and dP^T = V_w dO_i^T once, and meanwhile
-// delta = rowsum(dO O) of the tile's rows from the slot; turns them into P^T and dS^T in
+// in registers.  The query tiles stream through a ring of two slots (Q and dO of 64 rows).
+// For each, every warpgroup computes S^T = K_w Q_i^T and dP^T = V_w dO_i^T once, turns S^T into
+// P^T, adds its keys' share of delta = rowsum(P dP) of the tile's rows into shared memory (a
+// barrier of the block, then the shares summed in warpgroup and warp order), forms dS^T in
 // registers, and adds P^T dO_i to dV and dS^T Q_i to dK with P^T and dS^T as A operands.  dS^T
-// also goes to shared memory (bf16, two buffers); after a barrier, warpgroup i mod W computes
-// dQ_i = dS_i K over all keys and writes it.  The mask entries and row statistics a
-// warpgroup's softmax reads come by cp.async into its own shared block while the products run
-// (4 bytes an element: a mask row of Tk floats need not be the multiple of 16 bytes a tensor
-// map needs); read from global memory inside the softmax they were the first version's
-// largest cost, the loads waiting on each other for want of registers to keep them in flight.
+// also goes to shared memory, as bf16 and the bf16 of what that rounding lost; after a barrier,
+// warpgroup i mod W computes dQ_i = dS_i K over all keys from both parts and writes it.  The
+// mask entries and row statistics a warpgroup's softmax reads come by cp.async into its own
+// shared block while the products run (4 bytes an element: a mask row of Tk floats need not be
+// the multiple of 16 bytes a tensor map needs); read from global memory inside the softmax they
+// were the first version's largest cost, the loads waiting on each other for want of registers
+// to keep them in flight.
 template <int W, int DC>
 __global__ void __launch_bounds__(W * 128, 1)
     attention_bwd_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                        const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                        const __grid_constant__ CUtensorMap mdo, const BwdArgs a) {
+                        const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                        const BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = align1024(smem_raw);         // DC regions of W tiles: the keys
   unsigned char* sv = sk + DC * W * kTileBytes;    // the values
   unsigned char* sq = sv + DC * W * kTileBytes;    // 2 slots of DC tiles: a query tile
   unsigned char* sdo = sq + 2 * DC * kTileBytes;   // 2 slots of DC tiles: its rows of dO
-  unsigned char* so = sdo + 2 * DC * kTileBytes;   // 2 slots of DC tiles: its rows of O
-  unsigned char* sds = so + 2 * DC * kTileBytes;   // 2 buffers of W tiles: dS^T of a query tile
+  unsigned char* sds = sdo + 2 * DC * kTileBytes;  // W tiles of dS^T of a query tile, then W of its residual
   // each warpgroup's copy of what the current tile's softmax reads: its 64 x 64 block of the
-  // mask, and m, log l and delta of the tile's 64 rows
+  // mask, and m and log l of the tile's 64 rows; then every warp's share of delta, and delta
   float* s_mask = reinterpret_cast<float*>(sds + 2 * W * kTileBytes);
   float* s_m = s_mask + W * kRows * kRows;
   float* s_logl = s_m + W * kRows;
-  float* s_delta = s_logl + W * kRows;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(s_delta + W * kRows);  // K and V; the two slots
+  float* s_share = s_logl + W * kRows;     // [4 W][64]: warp (w, j)'s share of the tile's rows' delta
+  float* s_delta = s_share + 4 * W * kRows;  // [64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_delta + kRows);  // K and V; the two slots
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, wgi = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
@@ -978,12 +1000,11 @@ __global__ void __launch_bounds__(W * 128, 1)
   __syncthreads();
   auto load_query_tile = [&](int i) {
     uint64_t* bar = &bars[1 + (i & 1)];
-    mbar_expect_tx(bar, 3 * DC * kTileBytes);
+    mbar_expect_tx(bar, 2 * DC * kTileBytes);
     for (int c = 0; c < DC; ++c) {
       const int at = ((i & 1) * DC + c) * kTileBytes;
       tma_load(sq + at, &mq, a.aq, c * 64, i * kRows, h, b, bar);
       tma_load(sdo + at, &mdo, a.ado, c * 64, i * kRows, h, b, bar);
-      tma_load(so + at, &mo, a.ao, c * 64, i * kRows, h, b, bar);
     }
   };
   if (tid == 0) {
@@ -1003,7 +1024,6 @@ __global__ void __launch_bounds__(W * 128, 1)
   float* mask_block = s_mask + wgi * kRows * kRows;
   float* row_m = s_m + wgi * kRows;
   float* row_logl = s_logl + wgi * kRows;
-  float* delta = s_delta + wgi * kRows;
   const int key0 = warp * 16 + (lane >> 2);  // this thread's keys of the warpgroup's 64: key0, key0 + 8
   const float* kb_row = a.kb + static_cast<i64>(b) * a.tk;
   const float kbv[2] = {kb_row[min(wgi * kRows + key0, a.tk - 1)],
@@ -1044,31 +1064,12 @@ __global__ void __launch_bounds__(W * 128, 1)
     }
     wg_commit();
 
-    // meanwhile delta of the tile's 64 rows (0 past Tq), two threads a row, 16 bytes at a time
-    {
-      const int row = t >> 1;
-      float sum = 0.f;
-      for (int ch = t & 1; ch < a.dh / 8; ch += 2) {
-        const uint32_t off = (slot * DC + (ch >> 3)) * kTileBytes + swizzled(row, (ch & 7) * 8);
-        const uint4 x = *reinterpret_cast<const uint4*>(sdo + off);
-        const uint4 y = *reinterpret_cast<const uint4*>(so + off);
-        const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 xf = __bfloat1622float2(xs[e]), yf = __bfloat1622float2(ys[e]);
-          sum = fmaf(xf.y, yf.y, fmaf(xf.x, yf.x, sum));
-        }
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      if ((t & 1) == 0) delta[row] = sum;
-      cp_async_wait_all();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");  // this warpgroup's threads only
-    }
+    cp_async_wait_all();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");  // this warpgroup's threads only
     wg_wait_all();
     hold(st);
     hold(dpt);
-    // P^T = exp((S + mask + key bias - m) - log l), dS^T = P^T (dP^T - delta); 0 past Tq or Tk
+    // P^T = exp((S + mask + key bias - m) - log l); 0 past Tq or Tk
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int kl = key0 + 8 * half, key = wgi * kRows + kl;
@@ -1078,13 +1079,37 @@ __global__ void __launch_bounds__(W * 128, 1)
         for (int e = 0; e < 2; ++e) {
           const int ql = g * 8 + cq + e, qi = i * kRows + ql, at = 4 * g + 2 * half + e;
           const float bias = mask_block[mask_word(ql, kl)];
-          const float pr = key < a.tk && qi < a.tq
-                               ? expf((((st[at] + bias) + kbv[half]) - row_m[ql]) - row_logl[ql])
-                               : 0.f;
-          st[at] = pr;
-          dpt[at] = pr * (dpt[at] - delta[ql]);
+          st[at] = key < a.tk && qi < a.tq ? expf((((st[at] + bias) + kbv[half]) - row_m[ql]) - row_logl[ql]) : 0.f;
         }
     }
+    // delta = rowsum(P dP) of the tile's rows: the thread's two keys, the warp's 16 by shuffles
+    // over the lanes of one query column, then the 4 W warps' shares in order
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float share = fmaf(st[4 * g + 2 + e], dpt[4 * g + 2 + e], st[4 * g + e] * dpt[4 * g + e]);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) share += __shfl_xor_sync(kFull, share, o);
+        if (lane < 4) s_share[(wgi * 4 + warp) * kRows + g * 8 + cq + e] = share;
+      }
+    __syncthreads();  // every warp's share is written
+    if (tid < kRows) {
+      float sum = 0.f;
+      for (int j = 0; j < 4 * W; ++j) sum += s_share[j * kRows + tid];
+      s_delta[tid] = sum;
+    }
+    __syncthreads();  // delta is whole
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int g = 0; g < 8; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int at = 4 * g + 2 * half + e;
+          dpt[at] = st[at] * (dpt[at] - s_delta[g * 8 + cq + e]);
+        }
     uint32_t pa[4][4], dsa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -1092,15 +1117,22 @@ __global__ void __launch_bounds__(W * 128, 1)
       fragment(dsa[kk], dpt, kk);
     }
 
-    // dS^T to this tile's buffer, swizzled as TMA would have written it, for dQ
-    unsigned char* stage = sds + slot * W * kTileBytes;
+    // dS^T to the buffer, swizzled as TMA would have written it, for dQ: its bf16 rounding, then
+    // what that rounding lost, so that dQ takes dS to about 16 bits (dS rounded once moved dQ by
+    // up to the tolerance at the train step's shape).  One buffer is enough: the warpgroup that
+    // reads it for dQ finishes before any thread passes the next tile's barriers.
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t lo[4];
+      fragment_residual(lo, dpt, kk);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = wgi * kRows + warp * 16 + (lane >> 2) + 8 * (r & 1);
-        *reinterpret_cast<uint32_t*>(stage + swizzled(row, (2 * kk + (r >> 1)) * 8 + cq)) = dsa[kk][r];
+        const uint32_t at = swizzled(row, (2 * kk + (r >> 1)) * 8 + cq);
+        *reinterpret_cast<uint32_t*>(sds + at) = dsa[kk][r];
+        *reinterpret_cast<uint32_t*>(sds + W * kTileBytes + at) = lo[r];
       }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
     // dV += P^T dO_i and dK += dS^T Q_i, the A operands from registers
@@ -1135,20 +1167,22 @@ __global__ void __launch_bounds__(W * 128, 1)
       hold(pa[kk]);
       hold(dsa[kk]);
     }
-    __syncthreads();  // dS^T of the tile is whole; its slot of Q, dO and O is free
+    __syncthreads();  // dS^T of the tile is whole; its slot of Q and dO is free
 
     if (tid == 0 && i + 2 < nq) load_query_tile(i + 2);
     if (wgi == i % W) {  // dQ_i = dS_i K over all the keys
       float dq[DC][32];
       zero(dq);
-      const uint32_t ds_base = smem_u32(stage);
+      const uint32_t ds_base = smem_u32(sds);
 #pragma unroll
       for (int c = 0; c < DC; ++c) hold(dq[c]);
       wg_fence();
-      for (int kk = 0; kk < 4 * W; ++kk)
+      for (int part = 0; part < 2; ++part)  // the bf16 dS, then its residual
+        for (int kk = 0; kk < 4 * W; ++kk)
 #pragma unroll
-        for (int c = 0; c < DC; ++c)
-          mma_ss<1, 1>(dq[c], desc(ds_base + kk * kStepBytes), desc(k_base + c * W * kTileBytes + kk * kStepBytes));
+          for (int c = 0; c < DC; ++c)
+            mma_ss<1, 1>(dq[c], desc(ds_base + part * W * kTileBytes + kk * kStepBytes),
+                         desc(k_base + c * W * kTileBytes + kk * kStepBytes));
       wg_commit();
       wg_wait_all();
 #pragma unroll
@@ -1226,12 +1260,11 @@ cudaError_t forward_wgmma(const CUtensorMap* maps, const FwdArgs& a, int batch, 
 
 template <int W, int DC>
 cudaError_t backward_wgmma(const CUtensorMap* maps, const BwdArgs& a, int batch, int heads, cudaStream_t stream) {
-  const size_t smem = 1024 + static_cast<size_t>(DC) * (2 * W + 6) * kTileBytes + 2 * W * kTileBytes +
-                      W * (kRows * kRows + 3 * kRows) * sizeof(float) + 3 * sizeof(uint64_t);
+  const size_t smem = 1024 + static_cast<size_t>(DC) * (2 * W + 4) * kTileBytes + 2 * W * kTileBytes +
+                      (W * (kRows * kRows + 6 * kRows) + kRows) * sizeof(float) + 3 * sizeof(uint64_t);
   cudaError_t err = set_smem(attention_bwd_wgmma<W, DC>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_wgmma<W, DC><<<dim3(heads, batch), W * 128, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                                                             maps[4], a);
+  attention_bwd_wgmma<W, DC><<<dim3(heads, batch), W * 128, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   return cudaGetLastError();
 }
 
@@ -1325,20 +1358,20 @@ extern "C" int emformer_attention_fwd_wgmma(const void* q, const void* k, const 
   return static_cast<int>(err);
 }
 
-// The backward of the call above, one launch; no scratch.  Arguments as emformer_attention_bwd.
+// The backward of the call above, one launch; no scratch.  Arguments as emformer_attention_bwd; o is
+// not read (delta comes from P and dO V^T).
 extern "C" int emformer_attention_bwd_wgmma(const void* q, const void* k, const void* v, const float* mask,
                                             const float* kb, const void* o, const float* stats, const void* d_o,
                                             void* dq, void* dk, void* dv, int batch, int heads, int tq, int tk,
                                             int dh, const long long* strides, void* stream) {
   const int nk = wgmma_key_tiles(tq, tk, dh);
   if (!shape_ok(batch, heads, tq, tk, dh) || nk == 0) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap maps[5];
+  CUtensorMap maps[4];
   BwdArgs a{};
   cudaError_t err = make_map(&maps[0], &a.aq, q, batch, heads, tq, dh, strides, kRows);
   if (err == cudaSuccess) err = make_map(&maps[1], &a.ak, k, batch, heads, tk, dh, strides + 3, nk * kRows);
   if (err == cudaSuccess) err = make_map(&maps[2], &a.av, v, batch, heads, tk, dh, strides + 6, nk * kRows);
-  if (err == cudaSuccess) err = make_map(&maps[3], &a.ao, o, batch, heads, tq, dh, strides + 9, kRows);
-  if (err == cudaSuccess) err = make_map(&maps[4], &a.ado, d_o, batch, heads, tq, dh, strides + 12, kRows);
+  if (err == cudaSuccess) err = make_map(&maps[3], &a.ado, d_o, batch, heads, tq, dh, strides + 12, kRows);
   if (err != cudaSuccess) return static_cast<int>(err);
   a.dq = view_of(dq, strides + 15);
   a.dk = view_of(dk, strides + 18);

@@ -1,17 +1,25 @@
 // Hopper building blocks shared by the kernels that copy by TMA and multiply on wgmma
-// (attention.cu: K9's "wgmma" route; rnnt_lps.cu: K5's "wgmma" route).
+// (attention.cu: K9's "wgmma" route; rnnt_lps.cu: K5's "wgmma" route; lstm.cu: K7's "wgmma" route).
 //
 //   * mbarriers in shared memory: init, arrive, arrive with an expected byte count, wait on
 //     a phase's parity;
-//   * the wgmma descriptor of a tile in TMA's 128-byte swizzle, and the warpgroup fences;
-//   * the tensor-map encoder cuTensorMapEncodeTiled, taken through the runtime so that a
-//     library needs no -lcuda.
+//   * the wgmma descriptor of a tile in TMA's 128-byte swizzle, the byte offset of an element
+//     in such a tile, the warpgroup fences, and the asm operands of a 64 x 64 f32 accumulator;
+//   * 2-D TMA copies both ways, and the tensor-map encoder cuTensorMapEncodeTiled, taken through the
+//     runtime so that a library needs no -lcuda, with the 2-D bf16 maps in the 128-byte swizzle.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The inline-asm operands of a wgmma accumulator of 32 f32 registers (a 64 x 64 f32 tile).
+#define WG_OUT32(d)                                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),     \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),      \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
 
 namespace {
 
@@ -50,6 +58,13 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// Byte offset of bf16 element (row, col) of a tile whose rows are 128 bytes, as TMA's 128-byte
+// swizzle lays it out (the tile 1024-byte aligned): a row's 16-byte chunks permuted by its low
+// three bits.
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
@@ -63,6 +78,31 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uint32_t a = smem_u32(p);
   return p + ((1024 - (a & 1023)) & 1023);
 }
+
+constexpr int kSwizzleCols = 64;  // bf16 columns of one 128-byte swizzle span
+
+// A TMA copy of the box at (c0, c1) of a 2-D tensor map into shared memory ``dst``; its bytes are
+// counted on ``bar``.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A TMA copy of shared memory ``src`` to the box at (c0, c1) of a 2-D tensor map (rows past the
+// map's edge are not written), in this thread's bulk group: commit it, and wait on it before the
+// block leaves or ``src`` is written again.  The shared memory must have been made visible to the
+// async proxy (``fence.proxy.async.shared::cta``) after it was written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1, const void* src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(smem_u32(src))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -88,6 +128,24 @@ cudaError_t make_device_current() {
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   return err;
+}
+
+// The tensor map of a bf16 matrix of ``outer`` rows of ``inner`` elements, ``row_bytes`` apart:
+// boxes of 64 columns (one swizzle span) by ``box_rows`` rows, past either edge read as zero.
+cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, int inner, long long outer, long long row_bytes,
+                        int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t err = make_device_current();
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSwizzleCols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

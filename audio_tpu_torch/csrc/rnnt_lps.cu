@@ -521,14 +521,6 @@ __device__ __forceinline__ void hold(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A barrier of the two consumer warpgroups alone (the producer warp has left).
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
@@ -861,24 +853,6 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
   }
   if (tid == 0) a.counters[blockIdx.y] = 0;
-}
-
-// The tensor map of a bf16 matrix of ``outer`` rows of ``inner`` elements, ``row_bytes`` apart:
-// boxes of 64 columns (one swizzle span) by ``box_rows`` rows, past either edge read as zero.
-cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, int inner, long long outer, long long row_bytes,
-                        int box_rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cudaError_t err = make_device_current();
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kWDepth), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 size_t join_wgmma_smem(int k) {

@@ -2,12 +2,15 @@
 
 Same semantics as ``audio_tpu.functional._filtering``: coefficients are
 normalized by ``a[0]``, the FIR stage runs before the all-pole recurrence,
-and the output is clamped to [-1, 1] by default.  On CUDA (float32, at most
-129 taps; the kernels raise on anything else) a signal longer than 256 samples
-runs the fused kernel K1 and, under autograd, kernel K4 in its backward; a
-shorter one runs the plain FIR stage and kernel K4, the split the JAX package
-makes at that length.  On the CPU ``lfilter`` runs the plain FIR stage and
-recurrence, K1's plain version, with the same analytic backward.
+and the output is clamped to [-1, 1] by default.  On CUDA, inside the kernels'
+limits (float32, at most 129 taps), a signal longer than 256 samples runs the
+fused kernel K1 and, under autograd, kernel K4 in its backward; a shorter one
+runs the plain FIR stage and kernel K4, the split the JAX package makes at
+that length.  Outside those limits a CUDA signal runs the plain FIR stage and
+recurrence in its own dtype, differentiated by autograd, as the JAX package
+runs ``iir_apply(_fir_causal(...))`` there.  On the CPU ``lfilter`` runs the
+plain FIR stage and recurrence, K1's plain version, with the same analytic
+backward.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import math
 
 import torch
 
-from ..ops.cuda_iir import iir_apply, lfilter_fused
-from ..ops.iir import fir_causal
+from ..ops.cuda_iir import MAX_TAPS, iir_apply, lfilter_fused
+from ..ops.iir import fir_causal, iir_plain
 
 __all__ = [
     "allpass_biquad",
@@ -38,6 +41,22 @@ __all__ = [
 
 # Shortest signal that takes the fused path (the JAX gate).
 _FUSED_MIN_T = 257
+
+
+def _filter_route(on_cuda: bool, dtype: torch.dtype, t: int, taps: int) -> str:
+    """How ``lfilter`` runs a signal of ``t`` samples through ``taps`` coefficients a row.
+
+    On CUDA: ``"plain"`` outside the kernels' limits (a dtype other than float32, or more than
+    ``MAX_TAPS`` taps): the plain FIR stage and recurrence, under autograd; ``"short"`` below the
+    fused kernel's length or with no poles: the plain FIR stage and kernel K4; ``"fused"``
+    otherwise: kernel K1, and K4 in its backward.  On the CPU always ``"fused"``: K1's plain
+    version with the analytic backward.
+    """
+    if on_cuda and (dtype != torch.float32 or taps > MAX_TAPS):
+        return "plain"
+    if on_cuda and (t < _FUSED_MIN_T or taps < 2):
+        return "short"
+    return "fused"
 
 
 def lfilter(
@@ -81,7 +100,10 @@ def lfilter(
     a_norm = (a_coeffs / a0).contiguous()
     b_norm = (b_coeffs / a0).contiguous()
 
-    if x.is_cuda and (x.shape[-1] < _FUSED_MIN_T or a_norm.shape[-1] < 2):
+    route = _filter_route(x.is_cuda, x.dtype, x.shape[-1], a_norm.shape[-1])
+    if route == "plain":
+        output = iir_plain(fir_causal(x, b_norm), a_norm[:, 1:])
+    elif route == "short":
         output = iir_apply(fir_causal(x, b_norm).contiguous(), a_norm)
     else:
         output = lfilter_fused(x.contiguous(), a_norm, b_norm)

@@ -1,10 +1,13 @@
 """Spectral ops: spectrogram and mel_spectrogram.
 
-Same semantics as ``audio_tpu.functional._spectral``.  Real-valued one-sided
-spectrograms of the configurations kernel K2 takes go through one glue path,
-``_power_spec_tm``, into K2's wrapper (``ops/cuda_spectrogram.py``): the
-kernel for a CUDA tensor, its plain version for a CPU tensor.  Other
-configurations raise on CUDA and take the STFT on the CPU.
+Same semantics as ``audio_tpu.functional._spectral``.  One-sided power and
+magnitude spectrograms (power 2 or 1) go through one glue path,
+``_power_spec_tm``, on every device: the configurations kernel K2 takes
+(``spectrogram_supported``) into K2's wrapper (``ops/cuda_spectrogram.py``),
+the kernel for a CUDA tensor and its plain version for a CPU tensor; every
+other n_fft and hop into the plain version on the tensor's own device, as the
+JAX package computes outside its kernel's gate.  Other powers, and complex
+or two-sided spectrograms, take the STFT.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda_spectrogram import power_spectrogram, spectrogram_supported
+from ..ops.cuda_spectrogram import power_spectrogram, power_spectrogram_plain, spectrogram_supported
 from ._stft import _pad_center, _prepare_window
 from ._stft import stft as _stft
 
@@ -36,15 +39,6 @@ def _get_spec_norms(normalized: Union[str, bool]):
     return frame_length_norm, window_norm
 
 
-def _require_kernel(n_fft: int, hop: int, power: float) -> None:
-    if not spectrogram_supported(n_fft, hop, power):
-        raise NotImplementedError(
-            f"spectrogram on CUDA runs kernel K2, which takes power 1 or 2, n_fft <= 2048 and "
-            f"32 <= hop <= n_fft; got n_fft={n_fft}, hop={hop}, power={power}. "
-            "Compute it from a CPU tensor instead."
-        )
-
-
 def _power_spec_tm(
     waveform: torch.Tensor,
     window: Optional[torch.Tensor],
@@ -56,23 +50,24 @@ def _power_spec_tm(
     power: float,
     fb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Time-major (..., time, bins) power, magnitude or mel spectrogram.
+    """Time-major (..., time, bins) power (power 2), magnitude (power 1) or mel spectrogram.
 
-    Runs through K2's wrapper: the kernel in float32 for a CUDA tensor, its
-    plain version in the waveform's dtype for a CPU tensor.
+    Inside K2's limits it runs through K2's wrapper: the kernel in float32 for
+    a CUDA tensor, its plain version in the waveform's dtype for a CPU tensor.
+    Outside them the plain version runs in the waveform's dtype on the
+    waveform's device.
     """
-    if waveform.is_cuda:
-        _require_kernel(n_fft, hop_length, power)
-        dtype = torch.float32
-        fb = None if fb is None else fb.float().contiguous()
-    else:
-        dtype = waveform.dtype
+    supported = spectrogram_supported(n_fft, hop_length, power)
+    on_kernel = supported and waveform.is_cuda
+    dtype = torch.float32 if on_kernel else waveform.dtype
+    if on_kernel and fb is not None:
+        fb = fb.float().contiguous()
     window = _prepare_window(window, n_fft, win_length, dtype, waveform.device)
     if center:
         waveform = _pad_center(waveform, n_fft // 2, pad_mode)
     lead = waveform.shape[:-1]
     x = waveform.reshape(-1, waveform.shape[-1]).to(dtype).contiguous()
-    p = power_spectrogram(x, window, n_fft, hop_length, power, fb=fb)
+    p = (power_spectrogram if supported else power_spectrogram_plain)(x, window, n_fft, hop_length, power, fb=fb)
     return p.reshape(lead + p.shape[1:])
 
 
@@ -92,7 +87,8 @@ def mel_spectrogram(
     """Mel power spectrogram in one call.
 
     ``fb`` is the (n_freq, n_mels) filterbank from :func:`melscale_fbanks`.
-    On CUDA the framing, windowed DFT, power and mel product run in kernel K2.
+    On CUDA the framing, windowed DFT, power and mel product run in kernel K2
+    where it takes n_fft and hop, and in its plain version elsewhere.
     Returns (..., n_mels, time), or (..., time, n_mels) when ``time_major``.
     """
     hop_length = hop_length or n_fft // 2
@@ -147,7 +143,7 @@ def spectrogram(
     if pad > 0:
         waveform = F.pad(waveform, (pad, pad))
     frame_length_norm, window_norm = _get_spec_norms(normalized)
-    if power is not None and onesided and (waveform.is_cuda or spectrogram_supported(n_fft, hop_length, power)):
+    if power is not None and onesided and float(power) in (1.0, 2.0):
         power = float(power)
         spec = _power_spec_tm(waveform, window, n_fft, hop_length, win_length, center, pad_mode, power)
         if frame_length_norm:

@@ -42,7 +42,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda_lstm import _ln, lstm_gate_step
+from ..ops.cuda_lstm import _ln, kernel_route, lstm_gate_step, weight_layout
 from ..ops.cuda_rnnt_lps import join_stats_topk, lattice_row_stats, row_stats_topk, top_k
 
 __all__ = ["RNNTBeamSearch", "Hypothesis", "rnnt_greedy_decode"]
@@ -172,7 +172,14 @@ class RNNTBeamSearch:
         return unflat(out), _tree_map(unflat, new_state)
 
     def _can_fast_predict(self) -> bool:
-        return bool(getattr(getattr(self.model, "predictor", None), "lstm_layer_norm", False))
+        """A layer-norm predictor whose recurrent step a route of kernel K7 takes (type, hidden
+        size and the Linear weight's layout); any other runs the module path, as the JAX
+        search does without its kernel."""
+        pred = getattr(self.model, "predictor", None)
+        if not getattr(pred, "lstm_layer_norm", False):
+            return False
+        weights = [lstm.p2g.weight.t() for lstm in pred.lstm_layers]
+        return all(kernel_route(w.dtype, w.shape[0], weight_layout(w)) is not None for w in weights)
 
     def _predict_fast(self, tokens, state):
         """One-token predictor step with each layer's gate chain in kernel K7.

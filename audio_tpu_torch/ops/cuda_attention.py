@@ -7,7 +7,7 @@ CUDA C++ in ``csrc/attention.cu``, replacing the TPU kernels of
 
 with f32 scores and softmax, the probabilities cast to V's type before the
 second product, and the f32 row maximum and log row sum saved for the backward,
-which recomputes the probabilities (dV = P^T dO, dS = P (dO V^T - rowsum(dO O)),
+which recomputes the probabilities (dV = P^T dO, dS = P (dO V^T - rowsum(P dO V^T)),
 dQ = dS K, dK = dS^T Q).  The TPU kernel saves their sum, the logsumexp; they are
 kept apart here so that a fully masked row, whose maximum is the mask's -1e8,
 keeps its uniform probabilities in the backward.  The (Tq, Tk) scores never
@@ -185,7 +185,7 @@ class EmformerAttentionFn(torch.autograd.Function):
                 err = _build.bind("attention", "emformer_attention_bwd_wgmma", _WGMMA_BWD_ARGTYPES)(*head, *tail,
                                                                                                       stream)
             else:
-                delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)  # the kernels' rowsum(dO * O)
+                delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)  # rowsum(P * dO V^T)
                 fn = _build.bind("attention", "emformer_attention_bwd", _BWD_ARGTYPES)
                 err = fn(*head, delta.data_ptr(), *tail, int(q.dtype == torch.bfloat16), stream)
         _build.check_launch(err, f"emformer_attention backward ({ctx.route})")

@@ -7,7 +7,12 @@ of ``audio_tpu/ops/pallas_iir.py``:
 * K4 ``iir_pallas``: the all-pole recurrence y[t] = x[t] - sum_k a[k] y[t-k],
   which is the forward of ``iir_apply`` and, run backwards in time over the
   cotangent, the backward of both filters.  The kernel takes a ``reverse``
-  flag, so the two flips of the JAX backward are indices, not copies.
+  flag, so the two flips of the JAX backward are indices, not copies.  Two
+  routes, chosen by :func:`kernel_route` from the order: ``"chunked"`` (order
+  <= 16: chunks of a row in parallel, their states carried by the powers of
+  the companion matrix, which :func:`chunk_plan_on_device` makes, and whose
+  plain version is ``ops/iir.py::chunk_plan``) and ``"serial"`` (one thread a
+  row).
 
 ``lfilter_fused`` and ``iir_apply`` are ``torch.autograd.Function``s with the
 analytic backward of ``audio_tpu/ops/iir.py``: dx through K4 on the reversed
@@ -15,7 +20,8 @@ cotangent, the coefficient gradients as one windowed sum a tap (no
 (B, C, T, taps) gather is built).  ``iir_allpole`` launches K4 for a CUDA
 tensor and runs ``iir_plain`` for a CPU tensor; ``lfilter_fused`` launches K1
 for a CUDA tensor and runs ``lfilter_plain`` for a CPU tensor.  ``launches``
-counts K1's launches and ``iir_launches`` K4's.
+counts K1's launches, ``iir_launches`` K4's and ``iir_route_launches`` those of
+each of K4's routes.
 """
 
 from __future__ import annotations
@@ -25,14 +31,17 @@ import ctypes
 import torch
 
 from . import _build
-from .iir import fir_causal, iir_plain
+from .iir import CHUNK, CARRY_LEVELS, fir_causal, iir_plain
 
 __all__ = [
     "MAX_TAPS",
+    "chunk_plan_on_device",
     "iir_allpole",
     "iir_apply",
     "iir_launches",
     "iir_plain",
+    "iir_route_launches",
+    "kernel_route",
     "launches",
     "lfilter_fused",
     "lfilter_plain",
@@ -41,11 +50,23 @@ __all__ = [
 # Coefficient rows of up to 129 taps (order <= 128), as in the JAX gate.
 MAX_TAPS = 129
 
+# K4's "chunked" route takes filters of up to this order (csrc/iir.cu)
+CHUNKED_MAX_ORDER = 16
+
 launches = 0
 iir_launches = 0
+iir_route_launches = {"chunked": 0, "serial": 0}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _IIR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_CHUNKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def kernel_route(order: int) -> str:
+    """K4's route for a filter of ``order`` (1 .. 128): ``"chunked"`` up to order 16, whatever the
+    length (a signal shorter than one chunk included), ``"serial"`` past it."""
+    return "chunked" if order <= CHUNKED_MAX_ORDER else "serial"
 
 
 def lfilter_plain(x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
@@ -96,9 +117,9 @@ def iir_allpole(x: torch.Tensor, a_tail: torch.Tensor, reverse: bool = False) ->
     x (B, C, T); a_tail (C, order), order <= 128.  With ``reverse`` the
     recurrence runs from the last sample to the first (``y[t+k]`` in place of
     ``y[t-k]``).  No gradient is recorded.  A CUDA tensor runs kernel K4
-    (contiguous float32 only); a CPU tensor runs :func:`iir_plain`.
+    (contiguous float32 only) on the route :func:`kernel_route` names; a CPU
+    tensor runs :func:`iir_plain`.
     """
-    global iir_launches
     with torch.no_grad():
         if not x.is_cuda:
             return iir_plain(x, a_tail, reverse)
@@ -109,17 +130,43 @@ def iir_allpole(x: torch.Tensor, a_tail: torch.Tensor, reverse: bool = False) ->
             return x
         if order > MAX_TAPS - 1:
             raise ValueError(f"iir kernel takes an order of at most {MAX_TAPS - 1}; got {order}")
-        y = torch.empty_like(x)
-        if x.numel() == 0:
-            return y
-        bsz, c, t = x.shape
-        with torch.cuda.device(x.device):
-            fn = _build.bind("iir", "iir_f32", _IIR_ARGTYPES)
-            err = fn(x.data_ptr(), a_tail.data_ptr(), y.data_ptr(), bsz * c, c, t, order, int(reverse),
-                     torch.cuda.current_stream().cuda_stream)
-        _build.check_launch(err, "iir")
-        iir_launches += 1
+        return _iir_launch(kernel_route(order), x, a_tail, reverse)
+
+
+def chunk_plan_on_device(a_tail: torch.Tensor) -> torch.Tensor:
+    """The "chunked" route's plan of a contiguous float32 CUDA a_tail (C, order), order <= 16,
+    made on the card in float64 by one launch: what ``ops/iir.py::chunk_plan`` makes."""
+    c, order = a_tail.shape
+    plan = torch.empty((c, CARRY_LEVELS * order * order + order * CHUNK), dtype=torch.float32, device=a_tail.device)
+    with torch.cuda.device(a_tail.device):
+        err = _build.bind("iir", "iir_chunk_plan", _PLAN_ARGTYPES)(a_tail.data_ptr(), plan.data_ptr(), c, order,
+                                                                   torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "iir chunk plan")
+    return plan
+
+
+def _iir_launch(route: str, x: torch.Tensor, a_tail: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """One launch of K4 on ``route`` (the wrapper's checks done)."""
+    global iir_launches
+    y = torch.empty_like(x)
+    if x.numel() == 0:
         return y
+    bsz, c, t = x.shape
+    order = a_tail.shape[-1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "chunked":
+            plan = chunk_plan_on_device(a_tail)
+            fn = _build.bind("iir", "iir_f32_chunked", _CHUNKED_ARGTYPES)
+            err = fn(x.data_ptr(), a_tail.data_ptr(), plan.data_ptr(), y.data_ptr(), bsz * c, c, t, order, int(reverse),
+                     stream)
+        else:
+            fn = _build.bind("iir", "iir_f32", _IIR_ARGTYPES)
+            err = fn(x.data_ptr(), a_tail.data_ptr(), y.data_ptr(), bsz * c, c, t, order, int(reverse), stream)
+    _build.check_launch(err, f"iir ({route})")
+    iir_launches += 1
+    iir_route_launches[route] += 1
+    return y
 
 
 def _tap_sums(g: torch.Tensor, s: torch.Tensor, taps: int) -> torch.Tensor:

@@ -11,7 +11,10 @@ Same contract as ``audio_tpu.ops.iir``:
   Only the block-to-block carry is sequential.
 
 ``iir_plain`` chooses between them as the JAX package's ``iir_apply`` does off
-the accelerator, and is kernel K4's plain version.  These engines run on the
+the accelerator, and is kernel K4's plain version.  ``chunk_plan`` makes the
+tables of K4's "chunked" route (``csrc/iir_chunks.cuh``): for each channel the
+powers of the companion matrix that carry the state from chunk to chunk, and
+the chunks' zero-input responses.  These engines run on the
 CPU in the port: on CUDA ``lfilter`` goes through kernel K1 and the all-pole
 recurrence through kernel K4 (``cuda_iir``, which also holds ``iir_apply`` and
 ``lfilter_fused`` with their analytic gradients).
@@ -24,12 +27,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fir_causal", "iir_scan", "iir_blocked", "iir_plain", "allpole_impulse_response"]
+__all__ = [
+    "CHUNK",
+    "CARRY_LEVELS",
+    "allpole_impulse_response",
+    "chunk_plan",
+    "companion_matrix",
+    "fir_causal",
+    "iir_blocked",
+    "iir_plain",
+    "iir_scan",
+]
 
 # Default block length of the blocked formulation.
 _DEFAULT_BLOCK = 128
 # At or below this many samples the scan is used.
 _SCAN_CUTOFF = 256
+# The "chunked" route: samples a chunk (a lane's), and the levels of the carry scan over the
+# 32 chunks of a warp's pass (csrc/iir_chunks.cuh: kChunk, kLevels).
+CHUNK = 32
+CARRY_LEVELS = 5
 
 
 def fir_causal(x: torch.Tensor, b_coeffs: torch.Tensor) -> torch.Tensor:
@@ -128,3 +145,33 @@ def iir_plain(x: torch.Tensor, a_tail: torch.Tensor, reverse: bool = False) -> t
     if x.shape[-1] <= _SCAN_CUTOFF:
         return iir_scan(x, a_tail)
     return iir_blocked(x, a_tail)
+
+
+def companion_matrix(a_tail: torch.Tensor) -> torch.Tensor:
+    """A (C, order, order): the state s_t = (y[t], .., y[t-order+1]) moves as s_t = A s_{t-1} + x[t] e_0."""
+    c, order = a_tail.shape
+    a = torch.zeros((c, order, order), dtype=a_tail.dtype, device=a_tail.device)
+    a[:, 0, :] = -a_tail
+    a[:, 1:, :-1] += torch.eye(order - 1, dtype=a_tail.dtype, device=a_tail.device)
+    return a
+
+
+def chunk_plan(a_tail: torch.Tensor, chunk: int = CHUNK, levels: int = CARRY_LEVELS) -> torch.Tensor:
+    """Tables of K4's "chunked" route, (C, levels order^2 + order chunk) float32, on a_tail's device.
+
+    For each channel, made in float64: the carry matrices A^(chunk d) for d = 1, 2, .., 2^(levels-1),
+    row-major, then g (order, chunk), g[j, i] = (A^(i+1))[0, j], the response at sample i of a
+    chunk to a unit state y[-1-j] and no input.
+    """
+    c, order = a_tail.shape
+    a = companion_matrix(a_tail.double())
+    powers = a[:, None]  # A^1 .. A^k, doubled until k >= chunk
+    while powers.shape[1] < chunk:
+        powers = torch.cat([powers, powers[:, -1:] @ powers], dim=1)
+    powers = powers[:, :chunk]
+    g = powers[:, :, 0, :].transpose(1, 2)  # (C, order, chunk)
+    carry = [powers[:, -1]]
+    for _ in range(levels - 1):
+        carry.append(carry[-1] @ carry[-1])
+    carry = torch.stack(carry, dim=1)  # (C, levels, order, order)
+    return torch.cat([carry.reshape(c, -1), g.reshape(c, -1)], dim=1).float().contiguous()

@@ -18,9 +18,11 @@ class MelSpectrogram(nn.Module):
 
     The same parameters and layout as ``audio_tpu.transforms.MelSpectrogram``.
     Framing, windowed DFT, power and the mel product run in one call of
-    ``functional.mel_spectrogram``: kernel K2 for a CUDA waveform.  Window and
-    filterbank are buffers, made on ``device`` (CUDA unless the caller says
-    otherwise).  Only ``power=2.0`` is carried so far.
+    ``functional.mel_spectrogram`` at ``power=2.0``: kernel K2 for a CUDA
+    waveform where it takes n_fft and hop.  Any other power composes
+    ``functional.spectrogram`` with the mel product, as the JAX class does.
+    Window and filterbank are buffers, made on ``device`` (CUDA unless the
+    caller says otherwise).
     """
 
     def __init__(
@@ -44,8 +46,6 @@ class MelSpectrogram(nn.Module):
         device="cuda",
     ) -> None:
         super().__init__()
-        if power != 2.0:
-            raise NotImplementedError("MelSpectrogram carries power=2.0 only")
         self.sample_rate = sample_rate
         self.n_fft = n_fft
         self.win_length = win_length if win_length is not None else n_fft
@@ -68,6 +68,11 @@ class MelSpectrogram(nn.Module):
             persistent=False)
 
     def forward(self, waveform: torch.Tensor) -> torch.Tensor:
+        if self.power != 2.0:
+            spec = F.spectrogram(waveform, pad=self.pad, window=self.window, n_fft=self.n_fft,
+                                 hop_length=self.hop_length, win_length=self.win_length, power=self.power,
+                                 normalized=self.normalized, center=self.center, pad_mode=self.pad_mode)
+            return (spec.transpose(-1, -2) @ self.fb.to(spec.dtype)).transpose(-1, -2)
         if self.pad > 0:
             waveform = torch.nn.functional.pad(waveform, (self.pad, self.pad))
         return F.mel_spectrogram(

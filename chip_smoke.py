@@ -16,11 +16,23 @@ Phases, each of which raises on failure:
    the blank inside V and at V - 1, k 1, 10 and 32, rows of exact ties won by
    the lowest indices across column splits, and bitwise equal over two runs;
    K5 on its "wmma" route at the ragged bf16 shapes, the main shape, and k 33,
-   100 and 256 through the wrapper; K9 forward and
-   backward in f32 and bf16 on both of its routes, bf16 at the edges of the
-   wgmma route, a fully masked row included, and bitwise equal over two runs;
-   K4 in both time directions), and the public spectral functions on the card
-   against the same calls on the CPU;
+   100 and 256 through the wrapper; K7 on its "wgmma" route at N 1, 63, 65 and
+   5121 by H 64, 256 and 512, the main shape, bitwise equal over two runs, and
+   on its "wmma" and "simt" routes at the ragged shapes and the main shape;
+   K9 forward and backward in f32 and bf16 on both of its routes, bf16 at the
+   edges of the wgmma route, a fully masked row included, bitwise equal over
+   two runs, and the "tiled" route's bf16 case (2, 2, 100, 70, 136) of seed
+   25, its kernel and its plain version each also against float64, and the
+   same bits again after the free device memory was filled with NaN; K4 on
+   its "chunked" route at orders 1, 2, 8, 12 and 16 in both time directions,
+   a signal shorter than a chunk, one not a multiple of it, poles at
+   |z| = 0.977, the main shape, with the plan made on the card against its
+   plain version, and on its "serial" route at orders 17 and 128), the public
+   spectral functions on the card against the same calls on the CPU, and one
+   call of each route the public functions take outside their kernels' limits
+   (spectrogram at n_fft 4096 and at power 3, mel_spectrogram at hop 16,
+   lfilter and filtfilt in float64 and lfilter with 130 taps, MelSpectrogram
+   at power 1, the search's predictor at H 640) against the CPU;
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
@@ -34,7 +46,7 @@ Phases, each of which raises on failure:
    full width of ``emformer_rnnt_base(4097)`` with seeded random weights in
    bf16: S=512 streams, beam 10, ``step_max_tokens`` 4, four consecutive
    ticks of ``RNNTBeamSearch.infer_batch`` from ``init_beams`` with carried
-   state.  The counters of K5 and K7 must move, K5 only on its "wgmma" route;
+   state.  The counters of K5 and K7 must move, each only on its "wgmma" route;
    the beams must be well formed.  Time the tick for both forms of the inner
    loop and profile one;
 6. the same search in f32 on the card against the CPU (which runs the plain
@@ -53,12 +65,12 @@ Phases, each of which raises on failure:
 9. the fourth main path, lfilter's gradient: the gradients of
    mean(log1p(mel_spectrogram(lfilter(x, a, b)))) with respect to x, a and b at
    B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K2 only on "fft", K4
-   backward must move), against the CPU at B=4.
+   backward must move, only on "chunked"), against the CPU at B=4.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
-and its library call; for K2 and K5 also the route each replaced ("dft",
-"wmma"), for K2 the power spectra without the mel product and, for K5, the
-product alone (``torch.nn.functional.linear``).
+and its library call; for K2, K4, K5 and K7 also the route each replaced
+("dft", "serial", "wmma", "wmma"), for K2 the power spectra without the mel
+product and, for K5 and K7, the product alone (``torch.nn.functional.linear``).
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -170,7 +182,10 @@ def check_close(name: str, got, ref, atol: float, rtol: float) -> float:
     print(f"  {name}: max_abs_err {max_err:.3e} (limit atol {atol:.1e} + rtol {rtol:.1e}·|ref|)"
           f" {'ok' if excess <= 0 else 'FAIL'}")
     if excess > 0:
-        raise AssertionError(f"{name}: outside tolerance (max_abs_err {max_err:.3e})")
+        worst = int((err - (atol + rtol * ref.abs())).argmax())
+        where = tuple(int(i) for i in np.unravel_index(worst, tuple(ref.shape)))
+        print(f"    worst entry {where}: got {float(got.flatten()[worst])!r}, ref {float(ref.flatten()[worst])!r}")
+        raise AssertionError(f"{name}: outside tolerance (max_abs_err {max_err:.3e}) at {where}")
     return max_err
 
 
@@ -385,12 +400,65 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
     tol = 2e-2 if bf16 else sum_tol(1e-5, hd)
     ref = cuda_lstm.lstm_gate_step_plain(**inp["lstm"], eps=1e-3)
     for layout, ls in (("row-major W", inp["lstm"]), ("Linear W", inp["lstm_linear"])):
+        route = cuda_lstm.kernel_route(dtype, hd, cuda_lstm.weight_layout(ls["w_p2g"]))
         got = cuda_lstm.lstm_gate_step(**ls, eps=1e-3)
         torch.cuda.synchronize()
         errs["lstm_gate_step"] = max(
-            check_close(f"K7 lstm_gate_step {label}, {layout} {part}", g.float(), r.float(), tol, tol)
+            check_close(f"K7 lstm_gate_step {label}, {layout} [{route}] {part}", g.float(), r.float(), tol, tol)
             for part, g, r in zip(("h", "c"), got, ref))
+    if bf16 and hd % 16 == 0:
+        # the wmma route, which the wgmma route took H 64 and 512 from, on the same inputs
+        check_lstm_route("wmma", f"K7 lstm_gate_step {label}, Linear W", inp["lstm_linear"], ref)
     return errs
+
+
+def check_lstm_route(route: str, label: str, inputs: dict, ref) -> float:
+    """One launch of K7 on ``route`` against the plain version's (h', c') ``ref`` (bf16 2e-2, the JAX
+    kernel tests' tolerance); the route's launch counter must move by one."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_lstm
+
+    before = cuda_lstm.route_launches[route]
+    got = cuda_lstm._launch(route, **inputs, eps=1e-3)
+    torch.cuda.synchronize()
+    if cuda_lstm.route_launches[route] != before + 1:
+        raise AssertionError(f"{label}: the {route} route's counter did not move")
+    return max(check_close(f"{label} [{route}] {part}", g.float(), r.float(), 2e-2, 2e-2)
+               for part, g, r in zip(("h", "c"), got, ref))
+
+
+def check_lstm_wgmma(rng, dev) -> float:
+    """K7 on its "wgmma" route (bf16, W in a Linear's layout) against the plain version (JAX kernel
+    tests, bf16: 2e-2): N 1, 63, 65 and 5121 (off and past the 128-row tile) by H 64, 256 and 512
+    (clusters of 1, 4 and 8 blocks), then the main shape, twice: the same bits.  Returns the main
+    shape's max abs error."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_lstm
+
+    main = (RNNT_S * RNNT_BEAM, RNNT_H)
+    err = 0.0
+    for n, hd in [(n, hd) for hd in (64, 256, 512) for n in (1, 63, 65, 5121)] + [main]:
+        ls = slice2_kernel_inputs(rng, dev, n, 8, 33, hd, torch.bfloat16)["lstm_linear"]
+        route = cuda_lstm.kernel_route(torch.bfloat16, hd, cuda_lstm.weight_layout(ls["w_p2g"]))
+        before = cuda_lstm.route_launches["wgmma"]
+        got = cuda_lstm.lstm_gate_step(**ls, eps=1e-3)
+        torch.cuda.synchronize()
+        if route != "wgmma" or cuda_lstm.route_launches["wgmma"] != before + 1:
+            raise AssertionError(f"K7 (N {n}, H {hd}) did not run on the wgmma route ({route})")
+        ref = cuda_lstm.lstm_gate_step_plain(**ls, eps=1e-3)
+        e = max(check_close(f"K7 lstm_gate_step [wgmma] (N {n}, H {hd}) {part}", g.float(), r.float(), 2e-2, 2e-2)
+                for part, g, r in zip(("h", "c"), got, ref))
+        if (n, hd) == main:
+            err = e
+            again = cuda_lstm.lstm_gate_step(**ls, eps=1e-3)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(got, again)]
+            print(f"  K7 bits (N {n}, H {hd}): h', c' equal over two runs: {same}")
+            if not all(same):
+                raise AssertionError(f"K7: two runs gave different bits {same}")
+    return err
 
 
 def check_join_route(route: str, label: str, act, w, b, blank: int, k: int) -> float:
@@ -506,70 +574,219 @@ def attention_inputs(rng, dev, b: int, h: int, tq: int, tk: int, dh: int, dtype,
     return q, k, v, torch.as_tensor(mask, device=dev), torch.as_tensor(kb, device=dev), w
 
 
-def check_attention(rng, dev, shape, dtype, label: str, masked_row: bool = False) -> dict:
+def attention_f64(q, k, v, mask_bias, key_bias):
+    """The attention of K9 with every step in float64 (inputs cast): the reference that both the
+    kernel and the plain version round away from."""
+    import torch
+
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double())
+    scores = scores + mask_bias.double()[None, None] + key_bias.double()[:, None, None, :]
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), v.double())
+
+
+def attention_outputs(fn, q, k, v, mask, kb, w, dtype=None):
+    """[O, dQ, dK, dV] of ``fn`` on q, k, v cast to ``dtype`` (their own if None), the cotangent ``w``."""
+    import torch
+
+    with torch.enable_grad():
+        leaves = [t.detach().to(dtype or t.dtype).requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, mask, kb)
+        return [out.detach(), *torch.autograd.grad(out, leaves, w.to(dtype or w.dtype))]
+
+
+def check_attention(rng, dev, shape, dtype, label: str, masked_row: bool = False, f64: bool = False) -> dict:
     """K9 forward and backward against the plain version and its autograd gradient.
     Tolerances of the JAX kernel's tests: f32 1e-5 forward, 2e-5 + 2e-4 |ref| gradients;
-    bf16 0.05 (both products round their inputs to bf16 on either side)."""
+    bf16 0.05 (both products round their inputs to bf16 on either side).  With ``f64`` the
+    kernel and the plain version are each also held against the plain version in float64 on
+    the same inputs, at the same tolerance: which of the two a miss comes from."""
     import torch
 
     from audio_tpu_torch.ops import cuda_attention
 
     bf16 = dtype == torch.bfloat16
     label = f"{label} [{cuda_attention.kernel_route(dtype, *shape[2:])} route]"
-    q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, dtype, masked_row)
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        got = cuda_attention.emformer_attention(*leaves, mask, kb)
-        got_grads = torch.autograd.grad(got, leaves, w)
-        torch.cuda.synchronize()
-        ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        ref = cuda_attention.emformer_attention_plain(*ref_leaves, mask, kb)
-        ref_grads = torch.autograd.grad(ref, ref_leaves, w)
+    inputs = attention_inputs(rng, dev, *shape, dtype, masked_row)
+    got = attention_outputs(cuda_attention.emformer_attention, *inputs)
+    torch.cuda.synchronize()
+    ref = attention_outputs(cuda_attention.emformer_attention_plain, *inputs)
     fwd_tol, (g_atol, g_rtol) = (0.05, (0.05, 0.05)) if bf16 else (1e-5, (2e-5, 2e-4))
-    fwd = check_close(f"K9 forward {label}", got.detach().float(), ref.detach().float(), fwd_tol, fwd_tol)
-    bwd = max(check_close(f"K9 backward {label} d{name}", g.float(), r.float(), g_atol, g_rtol)
-              for name, g, r in zip("qkv", got_grads, ref_grads))
+    names = ("forward", "backward dq", "backward dk", "backward dv")
+    if f64:
+        exact = attention_outputs(attention_f64, *inputs, dtype=torch.float64)
+        for who, outs in (("kernel", got), ("plain version", ref)):
+            for name, g, r in zip(names, outs, exact):
+                tol = (fwd_tol, fwd_tol) if name == "forward" else (g_atol, g_rtol)
+                check_close(f"K9 {name} {label}: the {who} against float64", g.double(), r, *tol)
+    fwd = check_close(f"K9 forward {label}", got[0].float(), ref[0].float(), fwd_tol, fwd_tol)
+    bwd = max(check_close(f"K9 {name} {label}", g.float(), r.float(), g_atol, g_rtol)
+              for name, g, r in zip(names[1:], got[1:], ref[1:]))
     return {"fwd": fwd, "bwd": bwd}
 
 
-def check_attention_bits(rng, dev, shape, label: str) -> None:
+def poison_free_memory(dev) -> None:
+    """Fills 2 GB of device memory with NaN and frees it to the caching allocator, so that the
+    next allocations (outputs and scratch) start as NaN: a kernel that reads a word it did not
+    write shows."""
+    import torch
+
+    junk = [torch.full((1 << 26,), float("nan"), device=dev) for _ in range(8)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def check_attention_bits(rng, dev, shape, label: str, poison: bool = False) -> None:
     """K9 forward and backward twice on the same bf16 inputs: O, dQ, dK and dV must be the same bits
-    (no floating-point atomics, a fixed order of every sum)."""
+    (no floating-point atomics, a fixed order of every sum).  With ``poison`` the free device memory
+    is filled with NaN before the second run."""
     import torch
 
     from audio_tpu_torch.ops import cuda_attention
 
-    q, k, v, mask, kb, w = attention_inputs(rng, dev, *shape, torch.bfloat16)
+    inputs = attention_inputs(rng, dev, *shape, torch.bfloat16)
     runs = []
-    for _ in range(2):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = cuda_attention.emformer_attention(*leaves, mask, kb)
-            runs.append((out.detach(), *torch.autograd.grad(out, leaves, w)))
+    for i in range(2):
+        if poison and i == 1:
+            poison_free_memory(dev)
+        runs.append(attention_outputs(cuda_attention.emformer_attention, *inputs))
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(*runs)]
-    print(f"  K9 bits {label}: O, dQ, dK, dV equal over two runs: {same}")
+    after = ", the second on NaN-filled memory" if poison else ""
+    print(f"  K9 bits {label}: O, dQ, dK, dV equal over two runs{after}: {same}")
     if not all(same):
         raise AssertionError(f"K9 {label}: two runs gave different bits {same}")
 
 
-def check_iir(rng, dev, b: int, c: int, t: int, order: int, label: str) -> float:
+def check_iir(rng, dev, b: int, c: int, t: int, order: int, label: str, a_tail=None) -> float:
     """K4 in both directions against its plain version, at K1's tolerance (the sequential
-    recurrence against the blocked Toeplitz product)."""
+    recurrence against the blocked Toeplitz product), on the route kernel_route names, whose
+    launch counter must move; the coefficients ``a_tail`` (C, order) or stable_coeffs'."""
     import torch
 
     from audio_tpu_torch.ops import cuda_iir
 
-    a, _ = stable_coeffs(rng, c, order)
-    a_tail = torch.as_tensor(a[:, 1:].copy(), device=dev)
+    if a_tail is None:
+        a, _ = stable_coeffs(rng, c, order)
+        a_tail = torch.as_tensor(a[:, 1:].copy(), device=dev)
     x = torch.as_tensor(rng.standard_normal((b, c, t)).astype(np.float32) * 0.1, device=dev)
+    route = cuda_iir.kernel_route(order)
     err = 0.0
     for reverse in (False, True):
+        before = cuda_iir.iir_route_launches[route]
         got = cuda_iir.iir_allpole(x, a_tail, reverse=reverse)
         torch.cuda.synchronize()
-        err = max(err, check_close(f"K4 iir {label}{', reversed' if reverse else ''}", got,
+        if cuda_iir.iir_route_launches[route] != before + 1:
+            raise AssertionError(f"K4 {label}: the {route} route's counter did not move")
+        err = max(err, check_close(f"K4 iir [{route}] {label}{', reversed' if reverse else ''}", got,
                                    cuda_iir.iir_plain(x, a_tail, reverse=reverse), 2e-4, 1e-4))
     return err
+
+
+def check_iir_routes(rng, dev) -> None:
+    """K4's "chunked" route (order <= 16) at orders 1, 2, 8, 12 and 16, a signal shorter than one
+    chunk (20 samples) and one that is no multiple of a chunk and spans passes (3001), with the plan
+    that the card makes held against its plain version (float64, cast: 1e-6 of each table's peak);
+    a resonant filter, poles at |z| = 0.977 (a 1 kHz resonance at 16 kHz) over 16000 samples; the
+    "serial" route at orders 17 and 128.  Tolerances of check_iir."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_iir
+    from audio_tpu_torch.ops.iir import chunk_plan
+
+    for order in (1, 2, 8, 12, 16):
+        a, _ = stable_coeffs(rng, 2, order)
+        a_tail = torch.as_tensor(a[:, 1:].copy(), device=dev)
+        plan = cuda_iir.chunk_plan_on_device(a_tail)
+        torch.cuda.synchronize()
+        ref = chunk_plan(a_tail.cpu().double())
+        check_close(f"K4 chunk plan, order {order}", plan.cpu(), ref, 1e-6 * float(ref.abs().max()), 0.0)
+        for b, t in ((5, 20), (9, 3001)):
+            check_iir(rng, dev, b, 2, t, order, f"order {order} ({b}x2x{t})", a_tail)
+    r, theta = 0.977, 2 * math.pi * 1000 / SR
+    resonant = torch.tensor([[-2 * r * math.cos(theta), r * r]], dtype=torch.float32, device=dev)
+    check_iir(rng, dev, 64, 1, T, 2, f"poles at |z| = {r} (64x1x{T})", resonant)
+    for b, c, t, order in ((7, 2, 1500, 17), (5, 2, 700, 128)):
+        check_iir(rng, dev, b, c, t, order, f"order {order} ({b}x{c}x{t})")
+
+
+def check_fallback_routes(dev) -> None:
+    """The public functions outside their kernels' limits take the plain versions on the card, as
+    the JAX package computes outside its kernels' gates; each call against the same call on the CPU,
+    launching no kernel (MelSpectrogram at power 1 composes the magnitude spectrogram, which K2
+    takes, with the mel product: K2 alone).  Tolerances: the spectrograms 5e-4 of the peak (the JAX
+    spectrogram tests'), the filters 1e-6 of the peak in float64 and 2e-4 + 1e-4 |ref| in float32
+    (check_iir's), the predictor step 1e-4 in float32."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.models import RNNTBeamSearch, emformer_rnnt_model
+    from audio_tpu_torch.transforms import MelSpectrogram
+
+    rng = np.random.default_rng(11)
+    wav = torch.as_tensor(rng.standard_normal((3, 9000)).astype(np.float32) * 0.3)
+    wav64 = wav.double()
+    a, b = stable_coeffs(rng, 1, 3)
+    a64, b64 = torch.as_tensor(a[0], dtype=torch.float64), torch.as_tensor(b[0], dtype=torch.float64)
+    taps = 130  # past the kernels' 129: the JAX package's plain route, whose blocks take T <= 256 here
+    a_long = np.zeros(taps, np.float32)
+    a_long[0], a_long[1], a_long[-1] = 1.0, -0.3, 0.05
+    b_long = (0.1 * rng.standard_normal(taps)).astype(np.float32)
+    fb = F.melscale_fbanks(201, 0.0, 8000.0, 40, SR, device="cpu")
+    calls = {
+        "spectrogram, n_fft 4096 (past 2048)": (
+            lambda d: F.spectrogram(wav.to(d), n_fft=4096, hop_length=1024, power=2.0), 5e-4, 0.0, {}),
+        "spectrogram, power 3": (
+            lambda d: F.spectrogram(wav.to(d), n_fft=400, hop_length=160, power=3.0), 5e-4, 0.0, {}),
+        "mel_spectrogram, hop 16 (below 32)": (
+            lambda d: F.mel_spectrogram(wav.to(d), fb.to(d), n_fft=400, hop_length=16), 5e-4, 0.0, {}),
+        "lfilter, float64": (lambda d: F.lfilter(wav64.to(d), a64.to(d), b64.to(d)), 1e-6, 0.0, {}),
+        "filtfilt, float64": (lambda d: F.filtfilt(wav64.to(d), a64.to(d), b64.to(d)), 1e-6, 0.0, {}),
+        "lfilter, 130 taps, 200 samples": (
+            lambda d: F.lfilter(wav[:, :200].to(d), torch.as_tensor(a_long, device=d),
+                                torch.as_tensor(b_long, device=d), clamp=False), 2e-4, 1e-4, {}),
+        "MelSpectrogram, power 1": (
+            lambda d: MelSpectrogram(n_fft=400, hop_length=160, n_mels=40, power=1.0, device=d)(wav.to(d)),
+            5e-4, 0.0, {"power_spectrogram": 1, "power_spectrogram_fft": 1}),
+    }
+    for name, (call, atol, rtol, want) in calls.items():
+        reset_kernel_counts()
+        got = call(dev)
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in kernel_counts().items() if c}
+        if launched != want:
+            raise AssertionError(f"{name}: launched {launched}, where the route launches {want}")
+        ref = call(torch.device("cpu"))
+        scale = float(ref.abs().max()) if rtol == 0.0 else 1.0
+        check_close(f"{name} on the card against the CPU (launches {want})", got.cpu(), ref, atol * scale, rtol)
+    # the search's predictor at H 640, past K7's routes: the module path, as the JAX search without its kernel
+    cfg = dict(input_dim=16, encoding_dim=32, num_symbols=33, segment_length=8, right_context_length=4,
+               time_reduction_input_dim=8, time_reduction_stride=4, transformer_num_heads=4, transformer_ffn_dim=64,
+               transformer_num_layers=1, transformer_dropout=0.0, transformer_activation="gelu",
+               transformer_left_context_length=6, transformer_max_memory_size=0,
+               transformer_weight_init_scale_strategy="depthwise", transformer_tanh_on_mem=True,
+               symbol_embedding_dim=640, num_lstm_layers=2, lstm_layer_norm=True, lstm_layer_norm_epsilon=1e-3,
+               lstm_dropout=0.0)
+    model = emformer_rnnt_model(**cfg, device=dev, generator=torch.Generator().manual_seed(5))
+    tokens = torch.as_tensor(rng.integers(0, 32, (4, 3, 1)).astype(np.int32))
+    state = [tuple(torch.as_tensor(rng.standard_normal((4, 3, 640)).astype(np.float32) * 0.5) for _ in range(2))
+             for _ in range(2)]
+
+    def predict(m, d):
+        dec = RNNTBeamSearch(m, blank=32)
+        if dec._can_fast_predict():
+            raise AssertionError("a predictor of H 640 would take K7, whose routes end at H 594")
+        out, new_state = dec._predict(tokens.to(d), [tuple(t.to(d) for t in hc) for hc in state])
+        return [out] + [t for hc in new_state for t in hc]
+
+    reset_kernel_counts()
+    got = predict(model, dev)
+    torch.cuda.synchronize()
+    if kernel_counts()["lstm_gate_step"]:
+        raise AssertionError("the H 640 predictor launched K7")
+    ref = predict(copy.deepcopy(model).cpu(), torch.device("cpu"))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        check_close(f"the search's predictor at H 640, output {i}, on the card against the CPU (no K7 launch)",
+                    g.cpu(), r, 1e-4, 1e-4)
 
 
 def check_lattice_stats(rng, dev, card: str, shape, label: str) -> float:
@@ -649,7 +866,7 @@ def time_attention(rng, dev, shape, errs: dict, launches: dict) -> list:
 
 # ------------------------------------------------------------------ slice 2: the streaming search
 def kernel_counts() -> dict:
-    """The launch counters of all ten kernel entries."""
+    """The launch counters of all ten kernel entries, and of the routes of K2, K4, K5 and K7."""
     from audio_tpu_torch.ops import (cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
                                      cuda_viterbi)
 
@@ -657,7 +874,9 @@ def kernel_counts() -> dict:
             "power_spectrogram": cuda_spectrogram.launches, "viterbi": cuda_viterbi.launches,
             "lstm_gate_step": cuda_lstm.launches, **cuda_rnnt_lps.launches, **cuda_attention.launches,
             **{f"power_spectrogram_{r}": c for r, c in cuda_spectrogram.route_launches.items()},
-            **{f"join_stats_topk_{r}": c for r, c in cuda_rnnt_lps.join_route_launches.items()}}
+            **{f"join_stats_topk_{r}": c for r, c in cuda_rnnt_lps.join_route_launches.items()},
+            **{f"lstm_gate_step_{r}": c for r, c in cuda_lstm.route_launches.items()},
+            **{f"iir_{r}": c for r, c in cuda_iir.iir_route_launches.items()}}
 
 
 def reset_kernel_counts() -> None:
@@ -668,7 +887,8 @@ def reset_kernel_counts() -> None:
         mod.launches = 0
     cuda_iir.iir_launches = 0
     for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches,
-                     cuda_spectrogram.route_launches, cuda_rnnt_lps.join_route_launches):
+                     cuda_spectrogram.route_launches, cuda_rnnt_lps.join_route_launches, cuda_lstm.route_launches,
+                     cuda_iir.iir_route_launches):
         for name in counters:
             counters[name] = 0
 
@@ -1051,6 +1271,7 @@ def run_filter_grad(rng, dev, card: str, wav, fb, window, order: int, reps: int)
     counts = kernel_counts()
     require_launches(f"one step of the {name}", counts, ["lfilter", "power_spectrogram", "iir"])
     require_route(f"one step of the {name}", counts, "power_spectrogram", "fft")
+    require_route(f"one step of the {name}", counts, "iir", "chunked")
     if not all(bool(torch.isfinite(t).all()) for t in out):
         raise AssertionError(f"{name}: non-finite loss or gradient")
     got = filter_grad_step(wav[:4], a, b, fb, window)
@@ -1209,11 +1430,12 @@ def main(argv=None) -> int:
         errs = check_slice2_kernels(rng, dev, n_main, RNNT_D, RNNT_V, RNNT_H, RNNT_BEAM, dtype,
                                     f"{tag} main (N {n_main}, D {RNNT_D}, V {RNNT_V}, H {RNNT_H}, k {RNNT_BEAM})")
     s2_err = errs  # the main shape in bf16, the type the main path runs
-    # K5's route checks draw from their own generator, so the checks after them keep the inputs
-    # they had before these were added (ROADMAP.md C: a K9 "tiled" fault shows on other inputs)
-    k5_rng = np.random.default_rng(5)
-    s2_err["join_stats_topk"] = check_join_wgmma(k5_rng, dev)
-    check_join_wmma(k5_rng, dev)
+    s2_err["join_stats_topk"] = check_join_wgmma(rng, dev)
+    check_join_wmma(rng, dev)
+    s2_err["lstm_gate_step"] = check_lstm_wgmma(rng, dev)
+    print(f"  K7 launches by route in phase 3: {cuda_lstm.route_launches}")
+    if min(cuda_lstm.route_launches.values()) < 1:
+        raise AssertionError(f"K7: a route was never held against the plain version: {cuda_lstm.route_launches}")
     # K8 at the train step's shapes: the full loss's lattice and the pruned loss's band
     t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
     for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
@@ -1238,6 +1460,11 @@ def main(argv=None) -> int:
             check_attention(rng, dev, (1, 2, tq_, tk_, dh_), torch.bfloat16, f"bf16 edge {(1, 2, tq_, tk_, dh_)}")
     check_attention(rng, dev, k9_main, torch.bfloat16, f"bf16 main {k9_main}, a fully masked row", True)
     check_attention_bits(rng, dev, k9_main, f"bf16 main {k9_main}")
+    # the tiled route's bf16 case that missed its dQ tolerance once (ROADMAP.md C): the kernel and the
+    # plain version each against float64 too, and the kernel's bits on memory filled with NaN
+    a1 = (2, 2, 100, 70, 136)
+    check_attention(np.random.default_rng(25), dev, a1, torch.bfloat16, f"bf16 {a1}, seed 25", f64=True)
+    check_attention_bits(np.random.default_rng(25), dev, a1, f"bf16 {a1}, seed 25", poison=True)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for shape, masked_row in (((2, 2, 32, 32, 8), False), ((3, 4, 33, 47, 24), False),
@@ -1253,10 +1480,15 @@ def main(argv=None) -> int:
     print(f"  K9 launches by route in phase 3: {k9_routes}")
     if min(k9_routes.values()) < 1:
         raise AssertionError(f"K9: a route was never held against the plain version: {k9_routes}")
-    # K4: orders 1, 8, 12 and 128 at small ragged shapes, then the gradient path's shape
+    # K4: orders 1, 8, 12 and 128 at small ragged shapes, both routes at their edges, then the
+    # gradient path's shape
     for b_, c_, t_, order in ((45, 3, 1007, 1), (33, 2, 300, 8), (17, 1, 5000, 12), (5, 2, 700, 128)):
         check_iir(rng, dev, b_, c_, t_, order, f"order {order} ({b_}x{c_}x{t_})")
+    check_iir_routes(rng, dev)
     k4_err = check_iir(rng, dev, B, 1, T, 2, f"main, order 2 ({B}x1x{T})")
+    print(f"  K4 launches by route in phase 3: {cuda_iir.iir_route_launches}")
+    # the public functions outside their kernels' limits
+    check_fallback_routes(dev)
 
     # ---------------------------------------------------------------- phase 4
     print("phase 4: the chain at full width")
@@ -1326,6 +1558,7 @@ def main(argv=None) -> int:
     rnnt_launches = kernel_counts()
     require_launches(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, ["join_stats_topk", "lstm_gate_step"])
     require_route(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, "join_stats_topk", "wgmma")
+    require_route(f"{RNNT_TICKS} ticks of infer_batch", rnnt_launches, "lstm_gate_step", "wgmma")
     check_beams("infer_batch", hypos.tokens, hypos.counts, hypos.scores)
     if tuple(hypos.tokens.shape) != (RNNT_S, RNNT_BEAM, RNNT_MAX_TOKENS) or len(state) != 20:
         raise AssertionError(f"infer_batch shapes: tokens {tuple(hypos.tokens.shape)}, {len(state)} layer states")
@@ -1336,6 +1569,7 @@ def main(argv=None) -> int:
         reset_kernel_counts()
         tick_ms, tick_runs, tick = time_tick(dec, feats[0], lengths, state, hypos)
         require_route(f"the timed ticks, static_expansion={static}", kernel_counts(), "join_stats_topk", "wgmma")
+        require_route(f"the timed ticks, static_expansion={static}", kernel_counts(), "lstm_gate_step", "wgmma")
         per_tick = {n: c / 6 for n, c in kernel_counts().items() if c}  # a warm-up and 5 timed ticks
         streams = RNNT_S * RNNT_SEG_SECONDS * 0.1 / (tick_ms / 1e3)
         print(f"  tick, static_expansion={static}: median {tick_ms:.3f} ms (runs {[round(m, 3) for m in tick_runs]}); "
@@ -1509,6 +1743,7 @@ def main(argv=None) -> int:
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
     kernels[-4]["kernel_route"] = "wgmma"  # K5
+    kernels[-2]["kernel_route"] = "wgmma"  # K7
     # K5's yardsticks: the wmma route it replaced, and the product alone (it computes less: no
     # statistics, and it writes the (N, V) logits)
     join_args = (inp["act"], inp["w_linear"], inp["b"], RNNT_BLANK, RNNT_BEAM)
@@ -1518,15 +1753,27 @@ def main(argv=None) -> int:
     print(f"  K5 join_stats_topk at the main shape: route wgmma {kernels[-4]['ms']:.4f} ms, route wmma (the kernel "
           f"it replaced on this path) {k5_wmma_ms:.4f} ms, the product alone (F.linear, bf16) {k5_linear_ms:.4f} ms "
           f"on {card}")
+    # K7's yardsticks: the wmma route it replaced, and the product alone, h W^T (N, 4H) in bf16 (it
+    # computes less: no gx, no LayerNorms, and it writes the (N, 4H) gates)
+    lstm_args = [ls[k] for k in ("gx", "h", "c", "w_p2g", "g_scale", "g_bias", "c_scale", "c_bias")]
+    k7_wmma_ms = cuda_ms(lambda: cuda_lstm._launch("wmma", *lstm_args, 1e-3), 10)
+    k7_linear_ms = cuda_ms(lambda: torch.nn.functional.linear(ls["h"], ls["w_p2g"].t()), 10)
+    print(f"  K7 lstm_gate_step at the main shape: route wgmma {kernels[-2]['ms']:.4f} ms, route wmma (the kernel it "
+          f"replaced on this path) {k7_wmma_ms:.4f} ms, the product alone (F.linear, bf16) {k7_linear_ms:.4f} ms "
+          f"on {card}")
     # K4 as the gradient path runs it: the order-2 recurrence backwards in time
     a_tail = (fg["a"][1:] / fg["a"][0]).reshape(1, -1).contiguous()
     k4_ms = cuda_ms(lambda: cuda_iir.iir_allpole(x1, a_tail, reverse=True), 20)
+    k4_serial_ms = cuda_ms(lambda: cuda_iir._iir_launch("serial", x1, a_tail, True), 20)
     k4_plain = cuda_ms(lambda: cuda_iir.iir_plain(x1, a_tail, reverse=True), 3)
+    # x read once and y written once; the plan (a few KB) is not counted
     k4_bound = bound_ms(2 * x1.numel() * 4, 2 * x1.numel() * a_tail.shape[1])
     kernels.append(dict(name="iir", route="cuda", source="audio_tpu_torch/csrc/iir.cu",
                         replaces="audio_tpu/ops/pallas_iir.py:161", launches=fg["launches"]["iir"],
                         max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound[0], bound_by=k4_bound[1],
-                        library_ms=None))
+                        library_ms=None, kernel_route=cuda_iir.kernel_route(a_tail.shape[1])))
+    print(f"  K4 iir at the main shape (order 2, reversed): route chunked {k4_ms:.4f} ms (the plan's launch included), "
+          f"route serial (the kernel it replaced) {k4_serial_ms:.4f} ms on {card}")
     # K9 at the train step's shape in bf16; each direction alone (the backward through a kept
     # graph); the library call is scaled_dot_product_attention with the combined additive mask
     kernels += time_attention(np.random.default_rng(4), dev, k9_main, k9_err,
@@ -1544,7 +1791,8 @@ def main(argv=None) -> int:
                        "profile": breakdown, "rnnt_launches": rnnt_launches,
                        "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()},
                        "train_step": train, "k2_dft_ms": k2_dft_ms, "k2_power_ms": k2_power_ms, "k5_wmma_ms": k5_wmma_ms,
-                       "k5_linear_ms": k5_linear_ms,
+                       "k5_linear_ms": k5_linear_ms, "k7_wmma_ms": k7_wmma_ms, "k7_linear_ms": k7_linear_ms,
+                       "k4_serial_ms": k4_serial_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()}}, f, indent=1)
     print(json.dumps(result))

@@ -1,0 +1,143 @@
+"""The public functions' routes outside their kernels' limits, against the JAX package.
+
+On a CUDA tensor outside a kernel's limits each public function takes the plain
+version, as the JAX package computes outside its kernels' gates; the route is a
+rule on type and shape, never a caught error.  Here, on the CPU, each rule is
+held on both sides of each limit, and each result against the JAX package on
+the same numpy inputs: spectrograms to 5e-4 of their peak (the JAX package's
+spectrogram tolerance), filters to 1e-5 in float32 and 1e-10 in float64, the
+predictor step to 1e-4 (the port's RNN-T tests).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import audio_tpu.functional as JF
+from audio_tpu import transforms as jax_transforms
+
+import audio_tpu_torch.functional as TF
+from audio_tpu_torch import transforms as port_transforms
+from audio_tpu_torch.functional import _filtering, _spectral
+from audio_tpu_torch.models import RNNTBeamSearch
+from audio_tpu_torch.ops import cuda_lstm
+from audio_tpu_torch.ops.cuda_spectrogram import spectrogram_supported
+
+from .test_torch_rnnt import CFG, shared_models
+
+
+def _peak_close(got, ref, frac=5e-4):
+    ref = np.asarray(ref, np.float32)
+    got = got.detach().numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=frac * float(np.abs(ref).max()))
+
+
+def _wave(seed, t=6000):
+    return (np.random.default_rng(seed).standard_normal((2, t)) * 0.3).astype(np.float32)
+
+
+@pytest.fixture
+def spectral_calls(monkeypatch):
+    """Records which of K2's wrapper and its plain version ``_power_spec_tm`` called."""
+    seen = []
+    for name in ("power_spectrogram", "power_spectrogram_plain"):
+        real = getattr(_spectral, name)
+        monkeypatch.setattr(_spectral, name,
+                            lambda *a, _real=real, _name=name, **k: seen.append(_name) or _real(*a, **k))
+    return seen
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (4096, 512), (400, 31), (400, 32)])
+@pytest.mark.parametrize("power", [1.0, 2.0, 3.0])
+def test_spectrogram_route_and_result_on_both_sides_of_k2s_limits(n_fft, hop, power, spectral_calls):
+    x = _wave(n_fft + hop)
+    got = TF.spectrogram(torch.from_numpy(x), window=torch.hann_window(n_fft), n_fft=n_fft, hop_length=hop,
+                         power=power)
+    ref = JF.spectrogram(jnp.asarray(x), window=jnp.hanning(n_fft + 1)[:-1], n_fft=n_fft, hop_length=hop,
+                         power=power)
+    _peak_close(got, ref)
+    if power == 3.0:  # no power spectrum: the STFT, on every device
+        assert spectral_calls == []
+    else:  # K2's wrapper inside its limits, the plain version on the tensor's device outside them
+        assert spectrogram_supported(n_fft, hop, power) == (n_fft <= 2048 and hop >= 32)
+        want = "power_spectrogram" if spectrogram_supported(n_fft, hop, power) else "power_spectrogram_plain"
+        assert spectral_calls == [want]
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (4096, 512), (400, 31), (400, 32)])
+def test_mel_spectrogram_route_and_result_on_both_sides_of_k2s_limits(n_fft, hop, spectral_calls):
+    x = _wave(2 * n_fft + hop)
+    fb = JF.melscale_fbanks(n_fft // 2 + 1, 0.0, 8000.0, 40, 16000)
+    got = TF.mel_spectrogram(torch.from_numpy(x), torch.from_numpy(np.array(fb, np.float32)),
+                             window=torch.hann_window(n_fft), n_fft=n_fft, hop_length=hop)
+    ref = JF.mel_spectrogram(jnp.asarray(x), jnp.asarray(fb, jnp.float32), window=jnp.hanning(n_fft + 1)[:-1],
+                             n_fft=n_fft, hop_length=hop)
+    _peak_close(got, ref)
+    supported = n_fft <= 2048 and hop >= 32
+    assert spectral_calls == ["power_spectrogram" if supported else "power_spectrogram_plain"]
+
+
+@pytest.mark.parametrize("dtype,taps,t,want", [
+    (torch.float32, 129, 300, "fused"), (torch.float32, 130, 300, "plain"),
+    (torch.float64, 3, 300, "plain"), (torch.float32, 3, 300, "fused"),
+    (torch.float32, 3, 256, "short"), (torch.float32, 3, 257, "fused"), (torch.float32, 1, 300, "short"),
+    (torch.bfloat16, 3, 300, "plain"),
+])
+def test_lfilter_route_rule_on_cuda(dtype, taps, t, want):
+    assert _filtering._filter_route(True, dtype, t, taps) == want
+    assert _filtering._filter_route(False, dtype, t, taps) == "fused"  # the CPU: plain with the analytic backward
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("taps", [129, 130])
+def test_lfilter_and_filtfilt_past_the_kernels_limits_match_jax(dtype, taps):
+    """Float64 and 130 taps are past the kernels' limits on CUDA; 200 samples keep the JAX package's
+    plain route on its scan (its blocks of 128 take no more than 128 poles)."""
+    rng = np.random.default_rng(taps)
+    x = (rng.standard_normal((2, 200)) * 0.3).astype(dtype)
+    a = np.zeros(taps, dtype)
+    a[0], a[1], a[-1] = 1.0, -0.4, 0.05
+    b = (0.1 * rng.standard_normal(taps)).astype(dtype)
+    tol = dict(atol=1e-10, rtol=1e-10) if dtype == np.float64 else dict(atol=1e-5, rtol=1e-5)
+    for port_fn, jax_fn in ((TF.lfilter, JF.lfilter), (TF.filtfilt, JF.filtfilt)):
+        got = port_fn(torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b), clamp=False)
+        ref = jax_fn(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), clamp=False)
+        assert got.dtype == torch.from_numpy(x).dtype
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+
+
+@pytest.mark.parametrize("power", [1.0, 2.0])
+def test_mel_spectrogram_transform_takes_any_power(power):
+    x = _wave(7, 4000)
+    kw = dict(sample_rate=16000, n_fft=400, hop_length=160, n_mels=40, power=power)
+    got = port_transforms.MelSpectrogram(**kw, device="cpu")(torch.from_numpy(x))
+    ref = jax_transforms.MelSpectrogram(**kw)(jnp.asarray(x))
+    _peak_close(got, ref)
+
+
+@pytest.mark.parametrize("hidden,fast", [(594, True), (640, False)])
+def test_predictor_takes_k7_only_where_a_route_takes_its_hidden_size(hidden, fast):
+    """H 594 is the last size a route of K7 takes (float32: "simt"); H 640 runs the module path, as
+    the JAX search does without its kernel.  Either way the step equals the JAX module path's."""
+    cfg = dict(CFG, symbol_embedding_dim=hidden, num_lstm_layers=1, transformer_num_layers=1)
+    jmodel, params, port = shared_models(cfg, seed=3)
+    from audio_tpu.models.rnnt_decoder import RNNTBeamSearch as JaxBeamSearch
+
+    blank = cfg["num_symbols"] - 1
+    t_dec, j_dec = RNNTBeamSearch(port, blank=blank), JaxBeamSearch(jmodel, params, blank=blank)
+    w = port.predictor.lstm_layers[0].p2g.weight.t()
+    assert (cuda_lstm.kernel_route(w.dtype, hidden, cuda_lstm.weight_layout(w)) is not None) == fast
+    assert t_dec._can_fast_predict() == fast
+    rng = np.random.default_rng(hidden)
+    tokens = rng.integers(0, blank, (2, 3, 1)).astype(np.int32)
+    state = [tuple((rng.standard_normal((2, 3, hidden)) * 0.5).astype(np.float32) for _ in range(2))]
+    with torch.no_grad():
+        out, new_state = t_dec._predict(torch.from_numpy(tokens), [tuple(map(torch.from_numpy, hc)) for hc in state])
+    ref_out, ref_state = j_dec._predict(jnp.asarray(tokens), [tuple(map(jnp.asarray, hc)) for hc in state])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=1e-4, rtol=1e-4)
+    for got_hc, ref_hc in zip(new_state, ref_state):
+        for g, r in zip(got_hc, ref_hc):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4)
