@@ -1,7 +1,7 @@
 // The chunked all-pole recurrence: the chunk, carry and fix-up stages of K4's "chunked" route
 // (iir.cu), written for any kernel that runs y[t] = v[t] - sum_{1<=k<=order} a[k] y[t-k] with
-// zero initial state over rows of samples staged in shared memory (K1, lfilter.cu, runs the
-// same recurrence after its FIR stage).
+// zero initial state over rows of samples staged in shared memory: K4's "chunked" route and
+// K1's (lfilter.cu), which runs it after its FIR stage.
 //
 // A warp owns one row and walks it in passes of 32 chunks of kChunk samples, lane p owning
 // chunk p of the pass.  With the state s_t = (y[t], y[t-1], .., y[t-N+1]) and the companion

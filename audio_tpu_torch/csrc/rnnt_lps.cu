@@ -10,10 +10,24 @@
 // (value, index) pairs, never on the value alone.
 //
 // Bound on the H100.  K6 and K8 by bytes: each row is read once (42 MB at N = 5120,
-// V = 4097, f32).  One warp owns a row: it copies the row into shared memory as f32
-// while taking the maximum, sums the exponentials, and then runs k rounds of
-// (best pair, mask it out) over the copy; a lane only ever touches the columns
-// congruent to its index, so the rounds need no barrier.
+// V = 4097, f32; the train step's full lattice, (32, 128, 65, 4097) bf16, 2.18 GB).
+// K6: one warp owns a row: it copies the row into shared memory as f32 while taking the
+// maximum, sums the exponentials, and then runs k rounds of (best pair, mask it out) over
+// the copy; a lane only ever touches the columns congruent to its index, so the rounds need
+// no barrier.
+// K8, route "stream": one warp owns a row and reads it once, keeping nothing of it.  A row of
+// odd V starts anywhere on the 16-byte grid, so it splits into a scalar head up to the first
+// 16-byte boundary, 16-byte vectors, and a scalar tail; each lane folds its head and tail
+// scalars, then batches of eight vectors (eight 16-byte loads in flight a lane, 512 bytes a
+// warp instruction, past L1) into an online (maximum, rescaled sum of exponentials), in
+// log2 units on the SFU's ex2; a lane that has seen only -inf adds nothing, so leading -inf
+// columns give no inf - inf.  The warp combines its lanes by a fixed butterfly, so every
+// run gives the same bits, and one lane reads x[blank] and x[tgt].  Blocks of 8 warps and no
+// shared memory; V has no limit.  The batch's registers (79 a thread in bf16) leave 24 warps
+// resident an SM, 4 KB of loads in flight each: capping the registers for 32, 48 or 64
+// resident warps (batches of four or eight) spilled and ran slower.  The first
+// kernel (the row copied to shared memory, one scalar load a lane at a time) stays as route
+// "row", for timing beside it; it takes V <= 58,112.
 // K5 by operations (43 GFLOP at N = 5120, D = 1024, V = 4097: 0.043 ms at the bf16 peak).
 // Three routes, chosen by the wrapper from the type, the shape and W's layout
 // (ops/cuda_rnnt_lps.py: join_route):
@@ -164,6 +178,113 @@ __global__ void lattice_row_stats_kernel(const T* __restrict__ x, const int* __r
     lse[r] = l;
     blank_out[r] = row[blank];
     label_out[r] = row[tgt[r]];
+  }
+}
+
+// ------------------------------------------------------------------- K8, route "stream"
+constexpr int kStreamWarps = 8;  // rows a block, one warp each
+constexpr int kStreamBatch = 8;  // 16-byte loads a lane issues before it folds them
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+// The elements of a 16-byte word, in order: 8 bf16 or 4 f32.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ static __forceinline__ float get(const uint4& r, int e) {
+    const uint32_t w = e < 2 ? r.x : e < 4 ? r.y : e < 6 ? r.z : r.w;
+    return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+template <>
+struct Vec16<float> {
+  static constexpr int kElems = 4;
+  __device__ static __forceinline__ float get(const uint4& r, int e) {
+    return __uint_as_float(e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w);
+  }
+};
+
+// The online fold of a lane: s = sum 2^(x log2e - base) over what it has seen, base = its
+// maximum in log2 units (-inf while it has seen nothing above -inf).  mb: the maximum of
+// the new values; f(j): the new values.
+template <int Count, typename F>
+__device__ __forceinline__ void fold(float& base, float& s, float mb, F f) {
+  const float nb = fmaxf(base, mb * kLog2e);
+  if (nb == -INFINITY) return;  // all -inf so far: nothing to add, and no -inf - -inf
+  float acc = s * ex2(base - nb);
+#pragma unroll
+  for (int j = 0; j < Count; ++j) acc += ex2(fmaf(f(j), kLog2e, -nb));
+  s = acc;
+  base = nb;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStreamWarps * 32)
+    lattice_stream_kernel(const T* __restrict__ x, const int* __restrict__ tgt, long long n, int v, int blank,
+                          float* __restrict__ lse, float* __restrict__ blank_out, float* __restrict__ label_out) {
+  using V16 = Vec16<T>;
+  constexpr int E = V16::kElems;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kStreamWarps + warp;
+  if (r >= n) return;
+  const T* row = x + r * v;
+  float blank_v = 0.f, label_v = 0.f;
+  if (lane == 0) {
+    blank_v = to_f32(row[blank]);
+    label_v = to_f32(row[__ldg(tgt + r)]);
+  }
+  // head: the elements before the row's first 16-byte boundary; tail: those after its last vector
+  int head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / sizeof(T));
+  head = head < v ? head : v;
+  const int nvec = (v - head) / E;
+  const int tail0 = head + nvec * E;
+  float base = -INFINITY, s = 0.f;
+  {
+    const float h = lane < head ? to_f32(row[lane]) : -INFINITY;
+    const float t = tail0 + lane < v ? to_f32(row[tail0 + lane]) : -INFINITY;
+    fold<2>(base, s, fmaxf(h, t), [&](int j) { return j == 0 ? h : t; });
+  }
+  const uint4* vec = reinterpret_cast<const uint4*>(row + head);
+  for (int j0 = 0; j0 < nvec; j0 += 32 * kStreamBatch) {
+    uint4 raw[kStreamBatch];
+#pragma unroll
+    for (int u = 0; u < kStreamBatch; ++u) {
+      const int j = j0 + 32 * u + lane;
+      raw[u] = j < nvec ? ld_stream(vec + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    // vectors past the row's last read as -inf
+    auto value = [&](int i) {
+      const int u = i / E;
+      return j0 + 32 * u + lane < nvec ? V16::get(raw[u], i % E) : -INFINITY;
+    };
+    float mb = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kStreamBatch * E; ++i) mb = fmaxf(mb, value(i));
+    fold<kStreamBatch * E>(base, s, mb, value);
+  }
+  // the warp: the largest base, then each lane's sum rescaled to it, by a fixed butterfly
+  const float wb = warp_max(base);
+  const float total = warp_sum(base == -INFINITY ? 0.f : s * ex2(base - wb));
+  if (lane == 0) {
+    lse[r] = wb == INFINITY || wb == -INFINITY ? wb : wb * kLn2 + logf(total);
+    blank_out[r] = blank_v;
+    label_out[r] = label_v;
   }
 }
 
@@ -891,6 +1012,15 @@ int launch_row_stats_topk(const void* x, long long n, int ld, int blank, int k, 
 }
 
 template <typename T>
+int launch_lattice_stream(const void* x, const int* tgt, long long n, int v, int blank, float* lse,
+                          float* blank_out, float* label_out, cudaStream_t stream) {
+  const long long blocks = (n + kStreamWarps - 1) / kStreamWarps;
+  lattice_stream_kernel<T><<<static_cast<unsigned>(blocks), kStreamWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), tgt, n, v, blank, lse, blank_out, label_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_lattice_row_stats(const void* x, const int* tgt, long long n, int v, int blank, float* lse,
                              float* blank_out, float* label_out, cudaStream_t stream) {
   const int warps = row_warps(v);
@@ -960,9 +1090,21 @@ extern "C" int row_stats_topk(const void* x, long long n, int ld, int blank, int
               : launch_row_stats_topk<float>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
 }
 
-// x: (n, v); tgt: (n,) int32 in [0, v); lse, blank_out, label_out: (n,).
+// K8, route "stream".  x: (n, v), rows contiguous, any v >= 1; tgt: (n,) int32 in [0, v);
+// lse, blank_out, label_out: (n,).
 extern "C" int lattice_row_stats(const void* x, const int* tgt, long long n, int v, int blank, int bf16,
                                  float* lse, float* blank_out, float* label_out, void* stream) {
+  if (n <= 0) return 0;
+  if (blank < 0 || blank >= v) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_lattice_stream<__nv_bfloat16>(x, tgt, n, v, blank, lse, blank_out, label_out, s)
+              : launch_lattice_stream<float>(x, tgt, n, v, blank, lse, blank_out, label_out, s);
+}
+
+// K8, route "row" (the first kernel): as lattice_row_stats, v <= 58,112 (a row of f32 a warp in
+// shared memory).
+extern "C" int lattice_row_stats_row(const void* x, const int* tgt, long long n, int v, int blank, int bf16,
+                                     float* lse, float* blank_out, float* label_out, void* stream) {
   if (n <= 0) return 0;
   if (blank < 0 || blank >= v) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,7 +3,11 @@
 CUDA C++ in ``csrc/lfilter.cu`` and ``csrc/iir.cu``, replacing the TPU kernels
 of ``audio_tpu/ops/pallas_iir.py``:
 
-* K1 ``lfilter_pallas``: the fused filter y = IIR_a(FIR_b(x));
+* K1 ``lfilter_pallas``: the fused filter y = IIR_a(FIR_b(x)).  Two routes,
+  chosen by :func:`lfilter_route` from the orders: ``"chunked"`` (order
+  Pa - 1 <= 16, any Pb <= 129: a FIR stage over each pass of a row, then K4's
+  chunked recurrence with :func:`chunk_plan_on_device`'s plan) and
+  ``"serial"`` (one thread a row);
 * K4 ``iir_pallas``: the all-pole recurrence y[t] = x[t] - sum_k a[k] y[t-k],
   which is the forward of ``iir_apply`` and, run backwards in time over the
   cotangent, the backward of both filters.  The kernel takes a ``reverse``
@@ -20,8 +24,8 @@ cotangent, the coefficient gradients as one windowed sum a tap (no
 (B, C, T, taps) gather is built).  ``iir_allpole`` launches K4 for a CUDA
 tensor and runs ``iir_plain`` for a CPU tensor; ``lfilter_fused`` launches K1
 for a CUDA tensor and runs ``lfilter_plain`` for a CPU tensor.  ``launches``
-counts K1's launches, ``iir_launches`` K4's and ``iir_route_launches`` those of
-each of K4's routes.
+counts K1's launches, ``lfilter_route_launches`` those of each of K1's routes,
+``iir_launches`` K4's and ``iir_route_launches`` those of each of K4's routes.
 """
 
 from __future__ import annotations
@@ -45,19 +49,23 @@ __all__ = [
     "launches",
     "lfilter_fused",
     "lfilter_plain",
+    "lfilter_route",
+    "lfilter_route_launches",
 ]
 
 # Coefficient rows of up to 129 taps (order <= 128), as in the JAX gate.
 MAX_TAPS = 129
 
-# K4's "chunked" route takes filters of up to this order (csrc/iir.cu)
+# K1's and K4's "chunked" routes take filters of up to this order (csrc/lfilter.cu, csrc/iir.cu)
 CHUNKED_MAX_ORDER = 16
 
 launches = 0
+lfilter_route_launches = {"chunked": 0, "serial": 0}
 iir_launches = 0
 iir_route_launches = {"chunked": 0, "serial": 0}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LFILTER_CHUNKED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _IIR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _CHUNKED_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _PLAN_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -67,6 +75,12 @@ def kernel_route(order: int) -> str:
     """K4's route for a filter of ``order`` (1 .. 128): ``"chunked"`` up to order 16, whatever the
     length (a signal shorter than one chunk included), ``"serial"`` past it."""
     return "chunked" if order <= CHUNKED_MAX_ORDER else "serial"
+
+
+def lfilter_route(pa: int, pb: int) -> str:
+    """K1's route for ``pa`` denominator and ``pb`` numerator taps (2 .. 129 and 1 .. 129):
+    ``"chunked"`` up to order pa - 1 = 16, whatever ``pb`` and the length, ``"serial"`` past it."""
+    return "chunked" if pa - 1 <= CHUNKED_MAX_ORDER else "serial"
 
 
 def lfilter_plain(x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
@@ -90,24 +104,37 @@ def _check_coeffs(name: str, coeffs: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def _lfilter_kernel(x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
-    """One launch of K1 on CUDA tensors."""
-    global launches
+    """One launch of K1 on CUDA tensors, on the route :func:`lfilter_route` names."""
     _check_signal("lfilter", x)
-    bsz, c, t = x.shape
     pa, pb = a_norm.shape[-1], b_norm.shape[-1]
     _check_coeffs("a_norm", a_norm, x)
     _check_coeffs("b_norm", b_norm, x)
     if not (1 < pa <= MAX_TAPS and 1 <= pb <= MAX_TAPS):
         raise ValueError(f"lfilter kernel takes 2..{MAX_TAPS} a taps and 1..{MAX_TAPS} b taps; got {pa}, {pb}")
+    return _lfilter_launch(lfilter_route(pa, pb), x, a_norm, b_norm)
+
+
+def _lfilter_launch(route: str, x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
+    """One launch of K1 on ``route`` (the wrapper's checks done); "chunked" first makes its plan."""
+    global launches
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
+    bsz, c, t = x.shape
+    pa, pb = a_norm.shape[-1], b_norm.shape[-1]
     with torch.cuda.device(x.device):
-        fn = _build.bind("lfilter", "lfilter_f32", _ARGTYPES)
-        err = fn(x.data_ptr(), a_norm.data_ptr(), b_norm.data_ptr(), y.data_ptr(),
-                 bsz * c, c, t, pa, pb, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "lfilter")
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "chunked":
+            plan = chunk_plan_on_device(a_norm[:, 1:].contiguous())
+            fn = _build.bind("lfilter", "lfilter_f32_chunked", _LFILTER_CHUNKED_ARGTYPES)
+            err = fn(x.data_ptr(), a_norm.data_ptr(), b_norm.data_ptr(), plan.data_ptr(), y.data_ptr(),
+                     bsz * c, c, t, pa, pb, stream)
+        else:
+            fn = _build.bind("lfilter", "lfilter_f32", _ARGTYPES)
+            err = fn(x.data_ptr(), a_norm.data_ptr(), b_norm.data_ptr(), y.data_ptr(), bsz * c, c, t, pa, pb, stream)
+    _build.check_launch(err, f"lfilter ({route})")
     launches += 1
+    lfilter_route_launches[route] += 1
     return y
 
 
@@ -240,8 +267,8 @@ def lfilter_fused(x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -
     """y = IIR_a(FIR_b(x)) per channel with zero initial state, with gradients to all three.
 
     x (B, C, T); a_norm (C, Pa), b_norm (C, Pb) with a_norm[:, 0] == 1 and
-    Pa, Pb <= 129.  A CUDA tensor runs kernel K1 (float32 only) and, in the
-    backward, kernel K4; a CPU tensor runs :func:`lfilter_plain` and
+    Pa, Pb <= 129.  A CUDA tensor runs kernel K1 (float32 only) on the route
+    :func:`lfilter_route` names and, in the backward, kernel K4; a CPU tensor runs :func:`lfilter_plain` and
     :func:`iir_plain`.
     """
     return _LfilterFusedFn.apply(x, a_norm, b_norm)

@@ -8,7 +8,11 @@ CUDA C++ in ``csrc/rnnt_lps.cu``, replacing the TPU kernels of
   columns [0, blank); the (N, V) logits never reach device memory;
 * K6 ``row_stats_topk``: the same four outputs from logits that exist;
 * K8 ``lattice_row_stats``: per row the logsumexp over all V columns, the
-  blank logit and the logit at a per-row target.
+  blank logit and the logit at a per-row target, on route ``"stream"`` (one
+  read of each row, any V); the first kernel stays as route ``"row"`` (the row in
+  shared memory, V <= 58,112), which only ``_lattice_launch`` takes, to time
+  it beside the first.  ``lattice_route_launches`` counts each route's
+  launches.
 
 Each wrapper launches its kernel for a CUDA tensor (float32 or bfloat16,
 anything else raises) and runs its plain PyTorch version, ``*_plain``, for a
@@ -40,6 +44,7 @@ __all__ = [
     "join_split_tiles",
     "join_stats_topk",
     "join_stats_topk_plain",
+    "lattice_route_launches",
     "lattice_row_stats",
     "lattice_row_stats_plain",
     "launches",
@@ -50,6 +55,7 @@ __all__ = [
 
 launches = {"join_stats_topk": 0, "row_stats_topk": 0, "lattice_row_stats": 0}
 join_route_launches = {"wgmma": 0, "wmma": 0, "simt": 0}
+lattice_route_launches = {"stream": 0, "row": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW_ARGTYPES = [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
@@ -61,7 +67,8 @@ _JOIN_WGMMA_ARGTYPES = [_P, _P, _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _P
 _WG_ROWS, _WG_COLS, _WG_MAX_K, _WG_MAX_SPLITS = 128, 128, 32, 8
 _WMMA_ROWS, _WMMA_COLS, _WMMA_DEPTH, _WMMA_STAGES = 64, 128, 32, 3
 _MAX_SMEM = 232448
-# shared memory a block can opt in to on sm_90: a row kernel keeps one f32 row a warp
+# shared memory a block can opt in to on sm_90: a row kernel (K6, K8's route "row") keeps one
+# f32 row a warp
 _MAX_ROW_COLS = 232448 // 4
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -95,7 +102,7 @@ def lattice_row_stats_plain(x: torch.Tensor, tgt: torch.Tensor, blank: int):
 
 # ------------------------------------------------------------------ what the kernels take
 def _check_logits(name: str, x: torch.Tensor, blank: int, n_cols: int) -> None:
-    """``n_cols``: the columns of a row that the kernel reads."""
+    """``n_cols``: the columns of a row that the kernel keeps in shared memory (0: none)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 logits; got {x.dtype}")
     if x.dim() < 1 or not 0 <= blank < x.shape[-1]:
@@ -165,27 +172,37 @@ def row_stats_topk(x: torch.Tensor, blank: int, k: int):
 def lattice_row_stats(x: torch.Tensor, tgt: torch.Tensor, blank: int):
     """Per-row ``(logsumexp(x, -1), x[..., blank], x[..., tgt])`` as f32.
 
-    x (..., V) logits; tgt (...) integer label of each row, in [0, V).  A
-    CUDA tensor runs kernel K8; a CPU tensor runs
+    x (..., V) logits, any V; tgt (...) integer label of each row, in [0, V).
+    A CUDA tensor runs kernel K8 on its route ``"stream"``; a CPU tensor runs
     :func:`lattice_row_stats_plain`.
     """
     if not x.is_cuda:
         return lattice_row_stats_plain(x, tgt, blank)
-    _check_logits("lattice_row_stats", x, blank, x.shape[-1] if x.dim() else 0)
+    _check_logits("lattice_row_stats", x, blank, 0)
     if tgt.shape != x.shape[:-1]:
         raise ValueError(f"lattice_row_stats: tgt must have shape {tuple(x.shape[:-1])}; got {tuple(tgt.shape)}")
+    return _lattice_launch("stream", x, tgt, blank)
+
+
+def _lattice_launch(route: str, x: torch.Tensor, tgt: torch.Tensor, blank: int):
+    """One launch of K8 on ``route`` (the wrapper's checks done); "row" keeps the row in shared
+    memory and takes V <= 58,112."""
     v = x.shape[-1]
+    if route == "row":
+        _check_logits("lattice_row_stats", x, blank, v)
     x2 = x.reshape(-1, v).contiguous()
     tgt2 = tgt.to(device=x.device, dtype=torch.int32).reshape(-1).contiguous()
     lse, blank_raw, label = (torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) for _ in range(3))
     if x2.shape[0] == 0:
         return lse, blank_raw, label
+    symbol = "lattice_row_stats" if route == "stream" else "lattice_row_stats_row"
     with torch.cuda.device(x.device):
-        fn = _build.bind("rnnt_lps", "lattice_row_stats", _LATTICE_ARGTYPES)
+        fn = _build.bind("rnnt_lps", symbol, _LATTICE_ARGTYPES)
         err = fn(x2.data_ptr(), tgt2.data_ptr(), x2.shape[0], v, blank, int(x.dtype == torch.bfloat16),
                  lse.data_ptr(), blank_raw.data_ptr(), label.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "lattice_row_stats")
+    _build.check_launch(err, f"lattice_row_stats ({route})")
     launches["lattice_row_stats"] += 1
+    lattice_route_launches[route] += 1
     return lse, blank_raw, label
 
 

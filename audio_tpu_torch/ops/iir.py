@@ -12,7 +12,7 @@ Same contract as ``audio_tpu.ops.iir``:
 
 ``iir_plain`` chooses between them as the JAX package's ``iir_apply`` does off
 the accelerator, and is kernel K4's plain version.  ``chunk_plan`` makes the
-tables of K4's "chunked" route (``csrc/iir_chunks.cuh``): for each channel the
+tables of K4's and K1's "chunked" routes (``csrc/iir_chunks.cuh``): for each channel the
 powers of the companion matrix that carry the state from chunk to chunk, and
 the chunks' zero-input responses.  These engines run on the
 CPU in the port: on CUDA ``lfilter`` goes through kernel K1 and the all-pole
@@ -157,7 +157,7 @@ def companion_matrix(a_tail: torch.Tensor) -> torch.Tensor:
 
 
 def chunk_plan(a_tail: torch.Tensor, chunk: int = CHUNK, levels: int = CARRY_LEVELS) -> torch.Tensor:
-    """Tables of K4's "chunked" route, (C, levels order^2 + order chunk) float32, on a_tail's device.
+    """Tables of K4's and K1's "chunked" routes, (C, levels order^2 + order chunk) float32, on a_tail's device.
 
     For each channel, made in float64: the carry matrices A^(chunk d) for d = 1, 2, .., 2^(levels-1),
     row-major, then g (order, chunk), g[j, i] = (A^(i+1))[0, j], the response at sample i of a

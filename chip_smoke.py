@@ -9,7 +9,14 @@ Phases, each of which raises on failure:
    turn TF32 off so the plain versions and the projection are exact float32;
 2. build the seven kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
 3. hold each of the ten kernel entries against its plain PyTorch version on the
-   card, at its main path's shape and at ragged small shapes (K2 on both of its
+   card, at its main path's shape and at ragged small shapes (K1 on its
+   "chunked" route at orders 1, 2, 8, 12 and 16 by pb 1, 3, order + 1, 17 and
+   129, C 1 and 3, T 1, 31, 1000 and 2100, poles at |z| = 0.977, the main
+   shape, bitwise equal over two runs, and on its "serial" route at orders 17
+   and 128; K8 on its "stream" route in f32 and bf16 at V 1, 2, 7, 8, 9, 33,
+   4097 and 65537, every row start off the 16-byte grid, the blank and the
+   targets at 0 and V - 1, rows whose first columns are -inf, the train
+   step's full lattice and pruned band, bitwise equal over two runs; K2 on both of its
    routes: mel, power and magnitude at n_fft 400, 512, 1024 and 2048 on "fft"
    and at 398 on "dft", the main shape on both, bitwise equal over two runs;
    K5 on its "wgmma" route at N 1, 40, 63, 65, 5120 and 5121, V 33 to 4097,
@@ -36,8 +43,8 @@ Phases, each of which raises on failure:
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
-   The launch counters of K1-K3 must move in that run, K2 only on its "fft"
-   route; the paths must be
+   The launch counters of K1-K3 must move in that run, K1 only on its
+   "chunked" route and K2 only on its "fft" route; the paths must be
    valid CTC alignments of the targets; a small slice of the chain must agree
    with the plain versions on the CPU.  Then time the chain and each kernel
    with CUDA events, and break one chain step down by kernel with
@@ -51,7 +58,7 @@ Phases, each of which raises on failure:
    loop and profile one;
 6. the same search in f32 on the card against the CPU (which runs the plain
    versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move) and
-   ``expansion="approx"`` (K8 must move) at S=32, two ticks each;
+   ``expansion="approx"`` (K8 must move, only on "stream") at S=32, two ticks each;
 7. the pipeline: seeded noise -> streaming feature extractor (K2 must move)
    -> ``infer`` segment by segment (K5 must move);
 8. the third main path, the Emformer RNN-T train step of
@@ -59,18 +66,20 @@ Phases, each of which raises on failure:
    (``emformer_rnnt_base(4097)``, features (B, 516, 80), 64 targets, bf16
    compute with f32 masters, dropout on, AdamW): the full-lattice loss at
    B=32 and the pruned loss (band 16) at B=64.  K9 must launch once a layer
-   forward and once backward, on its wgmma route, and K8 at least once; the loss must be finite and
+   forward and once backward, on its wgmma route, and K8 at least once, on "stream"; the loss must be finite and
    fall.  Time the step, read its peak memory, profile one.  Then the loss and
    its gradients in f32 at B=2 on the card against the CPU;
 9. the fourth main path, lfilter's gradient: the gradients of
    mean(log1p(mel_spectrogram(lfilter(x, a, b)))) with respect to x, a and b at
-   B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K2 only on "fft", K4
-   backward must move, only on "chunked"), against the CPU at B=4.
+   B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K1 only on "chunked", K2
+   only on "fft", K4 backward must move, only on "chunked"), against the CPU at B=4.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
-and its library call; for K2, K4, K5 and K7 also the route each replaced
-("dft", "serial", "wmma", "wmma"), for K2 the power spectra without the mel
-product and, for K5 and K7, the product alone (``torch.nn.functional.linear``).
+and its library call; for K1, K2, K4, K5, K7 and K8 also the route each
+replaced ("serial", "dft", "serial", "wmma", "wmma", "row"), K1 at orders 8 and
+12 on both routes, K8 on the train step's full lattice and pruned band, for K2
+the power spectra without the mel product and, for K5 and K7, the product
+alone (``torch.nn.functional.linear``).
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -82,6 +91,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -167,22 +177,53 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name: str, got, ref, atol: float, rtol: float) -> float:
-    """Max |got - ref|; raises unless |got - ref| <= atol + rtol |ref| everywhere."""
+def ptxas_entries(log: str) -> list:
+    """One line for each kernel in an ``nvcc -Xptxas=-v`` report: its name and template arguments,
+    registers a thread and spilled bytes."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if m is None:
+                name = mangled
+            else:
+                end = m.end() + int(m.group(1))
+                args = re.match(r"I(.*?)EE", mangled[end:])
+                args = "" if args is None else args.group(1).replace("13__nv_bfloat16", "bf16").replace("Li", "")
+                name = mangled[m.end():end] + (f"<{args.rstrip('E').replace('E', ',')}>" if args else "")
+        spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spilled:
+            spill = f", spills {spilled.group(1)}/{spilled.group(2)} bytes stored/loaded"
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out.append(f"{name}: {used.group(1)} registers{spill}")
+            name, spill = "?", ""
+    return out
+
+
+def check_close(name: str, got, ref, atol: float, rtol: float, quiet: bool = False, finite: bool = True) -> float:
+    """Max |got - ref|; raises unless |got - ref| <= atol + rtol |ref| everywhere.  ``quiet``
+    prints only a failure; ``finite=False`` lets the two agree on infinities (equal entries
+    count as no error)."""
     import torch
 
     got, ref = got.double(), ref.double()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
-    if not bool(torch.isfinite(got).all()):
+    if finite and not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite output")
-    err = (got - ref).abs()
-    excess = float((err - (atol + rtol * ref.abs())).max())
+    same = got == ref
+    err = torch.where(same, torch.zeros_like(got), (got - ref).abs())
+    over = torch.where(same, torch.full_like(got, -math.inf), (err - (atol + rtol * ref.abs())).nan_to_num(nan=math.inf))
+    excess = float(over.max())
     max_err = float(err.max())
-    print(f"  {name}: max_abs_err {max_err:.3e} (limit atol {atol:.1e} + rtol {rtol:.1e}·|ref|)"
-          f" {'ok' if excess <= 0 else 'FAIL'}")
+    if not quiet or excess > 0:
+        print(f"  {name}: max_abs_err {max_err:.3e} (limit atol {atol:.1e} + rtol {rtol:.1e}·|ref|)"
+              f" {'ok' if excess <= 0 else 'FAIL'}")
     if excess > 0:
-        worst = int((err - (atol + rtol * ref.abs())).argmax())
+        worst = int(over.argmax())
         where = tuple(int(i) for i in np.unravel_index(worst, tuple(ref.shape)))
         print(f"    worst entry {where}: got {float(got.flatten()[worst])!r}, ref {float(ref.flatten()[worst])!r}")
         raise AssertionError(f"{name}: outside tolerance (max_abs_err {max_err:.3e}) at {where}")
@@ -709,6 +750,103 @@ def check_iir_routes(rng, dev) -> None:
         check_iir(rng, dev, b, c, t, order, f"order {order} ({b}x{c}x{t})")
 
 
+def check_lfilter(rng, dev, b: int, c: int, t: int, a_norm, b_norm, label: str, quiet: bool = False) -> float:
+    """K1 through ``lfilter_fused`` against ``lfilter_plain`` (the FIR stage, then the recurrence
+    in time order or as blocked Toeplitz products: the JAX IIR tests' long-signal tolerance,
+    2e-4 + 1e-4 |ref|), on the route ``lfilter_route`` names, whose launch counter must move."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_iir
+
+    x = torch.as_tensor(rng.standard_normal((b, c, t)).astype(np.float32), device=dev)
+    route = cuda_iir.lfilter_route(a_norm.shape[1], b_norm.shape[1])
+    before = cuda_iir.lfilter_route_launches[route]
+    got = cuda_iir.lfilter_fused(x, a_norm, b_norm)
+    torch.cuda.synchronize()
+    if cuda_iir.lfilter_route_launches[route] != before + 1:
+        raise AssertionError(f"K1 {label}: the {route} route's counter did not move")
+    return check_close(f"K1 lfilter [{route}] {label}", got, cuda_iir.lfilter_plain(x, a_norm, b_norm), 2e-4, 1e-4,
+                       quiet=quiet)
+
+
+def check_lfilter_routes(rng, dev) -> None:
+    """K1's "chunked" route (order <= 16, any pb) at orders 1, 2, 8, 12 and 16 by pb 1, 3, order + 1,
+    17 and 129, C 1 and 3, T 1, 31, 1000 and 2100 (below a chunk, inside a pass, across two passes:
+    the FIR history crosses chunk and pass boundaries); poles at |z| = 0.977 over 16000 samples; the
+    "serial" route at orders 17 and 128.  Tolerances of check_lfilter."""
+    import torch
+
+    def coeffs(c, order, pb):
+        a, _ = stable_coeffs(rng, c, order)
+        b = (0.3 * rng.standard_normal((c, pb))).astype(np.float32)
+        return torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+
+    for order in (1, 2, 8, 12, 16):
+        for pb in sorted({1, 3, order + 1, 17, 129}):
+            err = 0.0
+            for c in (1, 3):
+                a, b = coeffs(c, order, pb)
+                for t in (1, 31, 1000, 2100):
+                    err = max(err, check_lfilter(rng, dev, 3, c, t, a, b, f"order {order}, pb {pb} (3x{c}x{t})",
+                                                 quiet=True))
+            print(f"  K1 lfilter [chunked] order {order}, pb {pb}: C 1 and 3 by T 1, 31, 1000, 2100: max_abs_err "
+                  f"{err:.3e} (limit atol 2.0e-04 + rtol 1.0e-04·|ref|) ok")
+    r, theta = 0.977, 2 * math.pi * 1000 / SR
+    resonant = torch.tensor([[1.0, -2 * r * math.cos(theta), r * r]], dtype=torch.float32, device=dev)
+    b = torch.tensor([[0.3, -0.2, 0.1]], dtype=torch.float32, device=dev)
+    check_lfilter(rng, dev, 64, 1, T, resonant, b, f"poles at |z| = {r} (64x1x{T})")
+    for b_, c_, t_, order in ((7, 2, 1500, 17), (5, 2, 700, 128)):
+        a, b = coeffs(c_, order, order + 1)
+        check_lfilter(rng, dev, b_, c_, t_, a, b, f"order {order} ({b_}x{c_}x{t_})")
+
+
+def check_lattice_stream(rng, dev) -> None:
+    """K8's route "stream" through the wrapper, in f32 (1e-5, the JAX kernel tests') and bf16 (1e-2):
+    V 1, 2, 7, 8, 9, 33, 4097 and 65537 (past the 58,112 columns of route "row"), the blank and the
+    targets at 0 and V - 1, every third row's first 100 columns (all but the last at small V) -inf,
+    each row start at every offset from the 16-byte grid (a view of a buffer whose first elements are
+    skipped; odd V moves the offset from row to row); then the same bits over two runs."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        elems = 16 // (4 if dtype == torch.float32 else 2)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for v in (1, 2, 7, 8, 9, 33, 4097, 65537):
+            n = 9 if v > 5000 else 37
+            x = torch.as_tensor(rng.standard_normal((n, v)).astype(np.float32) * 2.0, device=dev)
+            if v > 1:
+                x[::3, : min(100, v - 1)] = -math.inf
+            x = x.to(dtype)
+            tgt = torch.as_tensor(rng.integers(0, v, (n,)).astype(np.int32), device=dev)
+            tgt[0], tgt[1] = 0, v - 1
+            err = 0.0
+            for offset in range(elems):
+                buf = torch.empty(n * v + offset, dtype=dtype, device=dev)
+                xo = buf[offset:].view(n, v)
+                xo.copy_(x)
+                for blank in (0, v - 1):
+                    before = cuda_rnnt_lps.lattice_route_launches["stream"]
+                    got = cuda_rnnt_lps.lattice_row_stats(xo, tgt, blank)
+                    torch.cuda.synchronize()
+                    if cuda_rnnt_lps.lattice_route_launches["stream"] != before + 1:
+                        raise AssertionError("K8: the stream route's counter did not move")
+                    ref = cuda_rnnt_lps.lattice_row_stats_plain(x, tgt, blank)
+                    for part, g, r in zip(("lse", "blank", "label"), got, ref):
+                        err = max(err, check_close(f"K8 lattice_row_stats [stream] {tag} V {v}, offset {offset}, "
+                                                   f"blank {blank} {part}", g, r, tol, tol, quiet=True, finite=False))
+            print(f"  K8 lattice_row_stats [stream] {tag} V {v} ({n} rows, every row start mod {elems}, blank 0 and "
+                  f"V - 1, leading -inf rows): max_abs_err {err:.3e} (limit {tol:.0e} + {tol:.0e}·|ref|) ok")
+    x = torch.as_tensor(rng.standard_normal((37, RNNT_V)).astype(np.float32), device=dev).to(torch.bfloat16)
+    tgt = torch.as_tensor(rng.integers(0, RNNT_V, (37,)).astype(np.int32), device=dev)
+    one, two = (cuda_rnnt_lps.lattice_row_stats(x[1:], tgt[1:], RNNT_BLANK) for _ in range(2))
+    same = [torch.equal(a, b) for a, b in zip(one, two)]
+    print(f"  K8 bits (36 rows of V {RNNT_V}, bf16, rows off the 16-byte grid): equal over two runs: {same}")
+    if not all(same):
+        raise AssertionError(f"K8: two runs gave different bits {same}")
+
+
 def check_fallback_routes(dev) -> None:
     """The public functions outside their kernels' limits take the plain versions on the card, as
     the JAX package computes outside its kernels' gates; each call against the same call on the CPU,
@@ -789,12 +927,13 @@ def check_fallback_routes(dev) -> None:
                     g.cpu(), r, 1e-4, 1e-4)
 
 
-def check_lattice_stats(rng, dev, card: str, shape, label: str) -> float:
+def check_lattice_stats(rng, dev, card: str, shape, label: str) -> dict:
     """K8 as the transducer losses call it: a seeded 4-D bf16 lattice (B, T', rows, V), the blank
     raised as the joiner's, and each row's label from an int32 tensor of the lattice's leading
     shape (the full loss expands the padded targets over T', the pruned loss gathers them into
     its band).  The plain version runs a batch block at a time, so no f32 copy of the lattice
-    is made.  Tolerance of the JAX kernel's bf16 tests, 1e-2.  Also the kernel's time there."""
+    is made.  Tolerance of the JAX kernel's bf16 tests, 1e-2; the same bits over two runs.  Also
+    the kernel's time there, on its route "stream" and on the route it replaced, "row", and the bound."""
     import torch
 
     from audio_tpu_torch.ops import cuda_rnnt_lps
@@ -815,13 +954,22 @@ def check_lattice_stats(rng, dev, card: str, shape, label: str) -> float:
     ref = [torch.cat(part) for part in zip(*(cuda_rnnt_lps.lattice_row_stats_plain(x[i : i + block], tgt[i : i + block],
                                                                                     RNNT_BLANK)
                                              for i in range(0, b, block)))]
-    err = max(check_close(f"K8 lattice_row_stats {label} {part}", g, r, 1e-2, 1e-2)
+    err = max(check_close(f"K8 lattice_row_stats [stream] {label} {part}", g, r, 1e-2, 1e-2)
               for part, g, r in zip(("lse", "blank", "label"), got, ref))
+    del ref
+    again = cuda_rnnt_lps.lattice_row_stats(x, tgt, RNNT_BLANK)
+    same = [torch.equal(a, b_) for a, b_ in zip(got, again)]
+    print(f"  K8 bits {label}: equal over two runs: {same}")
+    if not all(same):
+        raise AssertionError(f"K8 {label}: two runs gave different bits {same}")
     n = b * t * rows
     ms = cuda_ms(lambda: cuda_rnnt_lps.lattice_row_stats(x, tgt, RNNT_BLANK), 5)
+    row_ms = cuda_ms(lambda: cuda_rnnt_lps._lattice_launch("row", x, tgt, RNNT_BLANK), 5)
+    # the lattice read once, tgt read and three f32 outputs written once a row
     bound = bound_ms(2 * n * v + n * (4 + 12), 3 * n * v)
-    print(f"  K8 lattice_row_stats {label}: {ms:.3f} ms (bound {bound[0]:.3f} ms by {bound[1]}) on {card}")
-    return err
+    print(f"  K8 lattice_row_stats {label}: route stream {ms:.3f} ms, route row (the kernel it replaced) "
+          f"{row_ms:.3f} ms (bound {bound[0]:.3f} ms by {bound[1]}) on {card}")
+    return dict(err=err, ms=ms, row_ms=row_ms, bound_ms=bound[0], bound_by=bound[1])
 
 
 def time_attention(rng, dev, shape, errs: dict, launches: dict) -> list:
@@ -866,7 +1014,7 @@ def time_attention(rng, dev, shape, errs: dict, launches: dict) -> list:
 
 # ------------------------------------------------------------------ slice 2: the streaming search
 def kernel_counts() -> dict:
-    """The launch counters of all ten kernel entries, and of the routes of K2, K4, K5 and K7."""
+    """The launch counters of all ten kernel entries, and of the routes of K1, K2, K4, K5, K7 and K8."""
     from audio_tpu_torch.ops import (cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
                                      cuda_viterbi)
 
@@ -876,7 +1024,9 @@ def kernel_counts() -> dict:
             **{f"power_spectrogram_{r}": c for r, c in cuda_spectrogram.route_launches.items()},
             **{f"join_stats_topk_{r}": c for r, c in cuda_rnnt_lps.join_route_launches.items()},
             **{f"lstm_gate_step_{r}": c for r, c in cuda_lstm.route_launches.items()},
-            **{f"iir_{r}": c for r, c in cuda_iir.iir_route_launches.items()}}
+            **{f"iir_{r}": c for r, c in cuda_iir.iir_route_launches.items()},
+            **{f"lfilter_{r}": c for r, c in cuda_iir.lfilter_route_launches.items()},
+            **{f"lattice_row_stats_{r}": c for r, c in cuda_rnnt_lps.lattice_route_launches.items()}}
 
 
 def reset_kernel_counts() -> None:
@@ -888,7 +1038,8 @@ def reset_kernel_counts() -> None:
     cuda_iir.iir_launches = 0
     for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches,
                      cuda_spectrogram.route_launches, cuda_rnnt_lps.join_route_launches, cuda_lstm.route_launches,
-                     cuda_iir.iir_route_launches):
+                     cuda_iir.iir_route_launches, cuda_iir.lfilter_route_launches,
+                     cuda_rnnt_lps.lattice_route_launches):
         for name in counters:
             counters[name] = 0
 
@@ -1075,6 +1226,7 @@ def run_train_path(recipe, model, dev, card: str, loss: str, batch: int) -> dict
     counts = kernel_counts()
     require_launches(f"one {name}", counts, ["emformer_attention_fwd", "emformer_attention_bwd",
                                               "lattice_row_stats"])
+    require_route(f"one {name}", counts, "lattice_row_stats", "stream")
     n_layers = len(model.transcriber.transformer.emformer_layers)
     if counts["emformer_attention_fwd"] != n_layers or counts["emformer_attention_bwd"] != n_layers:
         raise AssertionError(f"{name}: K9 launched {counts['emformer_attention_fwd']} forward and "
@@ -1272,6 +1424,7 @@ def run_filter_grad(rng, dev, card: str, wav, fb, window, order: int, reps: int)
     require_launches(f"one step of the {name}", counts, ["lfilter", "power_spectrogram", "iir"])
     require_route(f"one step of the {name}", counts, "power_spectrogram", "fft")
     require_route(f"one step of the {name}", counts, "iir", "chunked")
+    require_route(f"one step of the {name}", counts, "lfilter", "chunked")
     if not all(bool(torch.isfinite(t).all()) for t in out):
         raise AssertionError(f"{name}: non-finite loss or gradient")
     got = filter_grad_step(wav[:4], a, b, fb, window)
@@ -1318,9 +1471,8 @@ def main(argv=None) -> int:
     print(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for entry in ptxas_entries(log.read_text() if log.exists() else ""):
+            print(f"  {name}: {entry}")
 
     rng = np.random.default_rng(1)
     torch.set_grad_enabled(False)
@@ -1328,15 +1480,8 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- phase 3
     print("phase 3: kernels against their plain versions")
-    # K1 ragged: rows not a multiple of 128, T not a multiple of 32, orders 1, 2, 16
-    for order in (1, 2, 16):
-        a, b = stable_coeffs(rng, 3, order)
-        x = torch.as_tensor(rng.standard_normal((45, 3, 1007)).astype(np.float32), device=dev)
-        a, b = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
-        got = cuda_iir.lfilter_fused(x, a, b)
-        torch.cuda.synchronize()
-        # sequential recurrence vs blocked Toeplitz product: the JAX IIR tests' long-signal tolerance
-        check_close(f"K1 lfilter order {order} (45x3x1007)", got, cuda_iir.lfilter_plain(x, a, b), 2e-4, 1e-4)
+    # K1 ragged (rows not a multiple of a block's, T not a multiple of a chunk or a pass) on both routes
+    check_lfilter_routes(rng, dev)
     # K1 main path: the lowpass biquad at (8192, 1, 16000)
     w0 = 2 * np.pi * CUTOFF / SR
     alpha = np.sin(w0) / 2 / 0.707
@@ -1347,7 +1492,15 @@ def main(argv=None) -> int:
     x1 = wav[:, None, :].contiguous()
     k1_got = cuda_iir.lfilter_fused(x1, a_lp, b_lp)
     torch.cuda.synchronize()
-    k1_err = check_close("K1 lfilter main (8192x1x16000)", k1_got, cuda_iir.lfilter_plain(x1, a_lp, b_lp), 2e-4, 1e-4)
+    k1_err = check_close(f"K1 lfilter main [{cuda_iir.lfilter_route(3, 3)}] (8192x1x16000)", k1_got,
+                         cuda_iir.lfilter_plain(x1, a_lp, b_lp), 2e-4, 1e-4)
+    same = torch.equal(cuda_iir.lfilter_fused(x1, a_lp, b_lp), k1_got)
+    print(f"  K1 bits (8192x1x16000): equal over two runs: {same}")
+    if not same:
+        raise AssertionError("K1: two runs at the main shape gave different bits")
+    print(f"  K1 launches by route in phase 3: {cuda_iir.lfilter_route_launches}")
+    if min(cuda_iir.lfilter_route_launches.values()) < 1:
+        raise AssertionError(f"K1: a route was never held against the plain version: {cuda_iir.lfilter_route_launches}")
 
     # K2 ragged and main: 5e-4 of the peak, as the JAX spectrogram tests
     def k2_check(name, xp, win, n_fft, hop, power, fbank):
@@ -1436,12 +1589,16 @@ def main(argv=None) -> int:
     print(f"  K7 launches by route in phase 3: {cuda_lstm.route_launches}")
     if min(cuda_lstm.route_launches.values()) < 1:
         raise AssertionError(f"K7: a route was never held against the plain version: {cuda_lstm.route_launches}")
-    # K8 at the train step's shapes: the full loss's lattice and the pruned loss's band
+    # K8 on its route "stream" at ragged shapes, then at the train step's shapes: the full loss's
+    # lattice and the pruned loss's band
+    check_lattice_stream(rng, dev)
     t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
+    k8_train = {}
     for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
                          ((TRAIN_B_PRUNED, t_out, TRAIN_BAND, RNNT_V), "pruned band")):
-        s2_err["lattice_row_stats"] = max(s2_err["lattice_row_stats"],
-                                          check_lattice_stats(rng, dev, card, shape, f"bf16 {label} {shape}"))
+        k8_train[label] = check_lattice_stats(rng, dev, card, shape, f"bf16 {label} {shape}")
+        s2_err["lattice_row_stats"] = max(s2_err["lattice_row_stats"], k8_train[label]["err"])
+    print(f"  K8 launches by route in phase 3: {cuda_rnnt_lps.lattice_route_launches}")
     torch.cuda.empty_cache()
 
     # K9: ragged shapes (Tq, Tk off the tiles; dh = 8, 24, 128), heads deeper than the 128
@@ -1498,6 +1655,7 @@ def main(argv=None) -> int:
     launches = kernel_counts()
     require_launches("one chain step", launches, ["lfilter", "power_spectrogram", "viterbi"])
     require_route("one chain step", launches, "power_spectrogram", "fft")
+    require_route("one chain step", launches, "lfilter", "chunked")
     n_frames = 1 + T // HOP
     if tuple(mel.shape) != (B, n_frames, N_MELS) or tuple(paths.shape) != (B, n_frames):
         raise AssertionError(f"chain shapes: mel {tuple(mel.shape)}, paths {tuple(paths.shape)}")
@@ -1585,6 +1743,7 @@ def main(argv=None) -> int:
     compare_with_cpu("ReLU joiner through K5 (S=4)", model, 4, "exact", "join_stats_topk")
     route_launches = compare_with_cpu("expansion='approx' through K8 (S=32)", model, 32, "approx",
                                       "lattice_row_stats")
+    require_route("expansion='approx' through K8 (S=32)", route_launches, "lattice_row_stats", "stream")
     model.joiner.activation = "tanh"
     route_launches.update(row_stats_topk=compare_with_cpu("tanh joiner through K6 (S=32)", model, 32, "exact",
                                                           "row_stats_topk")["row_stats_topk"])
@@ -1650,14 +1809,29 @@ def main(argv=None) -> int:
     fg["profile"] = profile_chain(lambda: filter_grad_step(wav, fg["a"], fg["b"], fb, window), fg["ms"], reps=1)
 
     kernels = []
-    # K1
+    # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
+    # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
     k1_ms = cuda_ms(lambda: cuda_iir.lfilter_fused(x1, a_lp, b_lp), 20)
+    k1_serial_ms = cuda_ms(lambda: cuda_iir._lfilter_launch("serial", x1, a_lp, b_lp), 20)
     k1_plain = cuda_ms(lambda: cuda_iir.lfilter_plain(x1, a_lp, b_lp), 3)
+    # x read once and y written once; the plan (a few KB) is not counted
     k1_bound = bound_ms(2 * x1.numel() * 4, 2 * x1.numel() * (a_lp.shape[1] + b_lp.shape[1] - 1))
+    print(f"  K1 lfilter at the main shape (order 2): route chunked {k1_ms:.4f} ms (the plan's launch included), "
+          f"route serial (the kernel it replaced) {k1_serial_ms:.4f} ms on {card}")
+    k1_orders = {}
+    for order in (8, 12):
+        a_o = (filter_grad[order]["a"] / filter_grad[order]["a"][0]).reshape(1, -1).contiguous()
+        b_o = (filter_grad[order]["b"] / filter_grad[order]["a"][0]).reshape(1, -1).contiguous()
+        k1_orders[str(order)] = {route: cuda_ms(lambda r=route: cuda_iir._lfilter_launch(r, x1, a_o, b_o), 10)
+                                 for route in ("chunked", "serial")}
+        print(f"  K1 lfilter at order {order} (8192x1x16000, the gradient path's filter): route chunked "
+              f"{k1_orders[str(order)]['chunked']:.4f} ms, route serial {k1_orders[str(order)]['serial']:.4f} ms "
+              f"on {card}")
     kernels.append(dict(name="lfilter", route="cuda", source="audio_tpu_torch/csrc/lfilter.cu",
                         replaces="audio_tpu/ops/pallas_iir.py:267", launches=launches["lfilter"],
                         max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound[0],
-                        bound_by=k1_bound[1], library_ms=None))
+                        bound_by=k1_bound[1], library_ms=None, kernel_route=cuda_iir.lfilter_route(3, 3),
+                        serial_ms=k1_serial_ms, orders=k1_orders))
     # K2
     n_freq = N_FFT // 2 + 1
     m_rows = B * n_frames
@@ -1744,6 +1918,14 @@ def main(argv=None) -> int:
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
     kernels[-4]["kernel_route"] = "wgmma"  # K5
     kernels[-2]["kernel_route"] = "wgmma"  # K7
+    # K8: the route it replaced at the tick's shape (its 42 MB fit in L2), and both routes on the
+    # train step's lattices, which do not
+    k8_row_ms = cuda_ms(lambda: cuda_rnnt_lps._lattice_launch("row", inp["logits"], inp["tgt"], RNNT_BLANK), 10)
+    kernels[-1].update(kernel_route="stream", row_ms=k8_row_ms,
+                       **{label.replace(" ", "_"): {k: v for k, v in r.items() if k != "err"}
+                          for label, r in k8_train.items()})
+    print(f"  K8 lattice_row_stats at the tick's shape: route stream {kernels[-1]['ms']:.4f} ms, route row (the "
+          f"kernel it replaced) {k8_row_ms:.4f} ms on {card}")
     # K5's yardsticks: the wmma route it replaced, and the product alone (it computes less: no
     # statistics, and it writes the (N, V) logits)
     join_args = (inp["act"], inp["w_linear"], inp["b"], RNNT_BLANK, RNNT_BEAM)
@@ -1792,7 +1974,8 @@ def main(argv=None) -> int:
                        "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()},
                        "train_step": train, "k2_dft_ms": k2_dft_ms, "k2_power_ms": k2_power_ms, "k5_wmma_ms": k5_wmma_ms,
                        "k5_linear_ms": k5_linear_ms, "k7_wmma_ms": k7_wmma_ms, "k7_linear_ms": k7_linear_ms,
-                       "k4_serial_ms": k4_serial_ms,
+                       "k4_serial_ms": k4_serial_ms, "k1_serial_ms": k1_serial_ms, "k1_orders": k1_orders,
+                       "k8_row_ms": k8_row_ms, "k8_train": k8_train,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()}}, f, indent=1)
     print(json.dumps(result))

@@ -1,4 +1,4 @@
-"""Kernel K4's "chunked" route on the CPU: its route rule, its plan, and its algebra.
+"""Kernels K4's and K1's "chunked" routes on the CPU: their route rules, the plan, and the algebra.
 
 The route runs chunks of 32 samples from zero state, carries the state into each
 chunk by a scan over a pass of 32 chunks with the powers of the companion matrix
@@ -7,7 +7,11 @@ A, and adds each chunk's response to its incoming state (``csrc/iir_chunks.cuh``
 scan's zero-input responses; a plain PyTorch emulation of chunk, carry and
 fix-up in float32 against the TPU kernel ``iir_pallas`` in interpret mode,
 forward and reversed, at 2e-5 + 1e-5 |ref| (the port's short-signal IIR
-tolerance: both sides sum in float32 in another order).
+tolerance: both sides sum in float32 in another order).  K1 runs the same
+recurrence behind a FIR stage over each pass, staged behind the samples of the
+pass before it (``csrc/lfilter.cu``): its emulation is held against the TPU
+kernel ``lfilter_pallas`` in interpret mode and against the JAX package's
+``functional.lfilter``, at the same tolerance.
 """
 
 import numpy as np
@@ -16,7 +20,8 @@ import torch
 
 import jax.numpy as jnp
 
-from audio_tpu.ops.pallas_iir import iir_pallas
+from audio_tpu.functional import lfilter as jax_lfilter
+from audio_tpu.ops.pallas_iir import iir_pallas, lfilter_pallas
 
 from audio_tpu_torch.ops import cuda_iir
 from audio_tpu_torch.ops.iir import CARRY_LEVELS, CHUNK, chunk_plan, companion_matrix, iir_scan
@@ -121,3 +126,76 @@ def test_chunked_arithmetic_carries_the_state_across_passes(order):
     ref = np.asarray(iir_pallas(jnp.asarray(x), jnp.asarray(a_tail), interpret=True))
     got = chunked_emulation(torch.from_numpy(x), torch.from_numpy(a_tail))
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ K1
+PASS = LANES * CHUNK  # samples a warp's pass
+
+
+@pytest.mark.parametrize("pa,pb,want", [(2, 1, "chunked"), (3, 129, "chunked"), (17, 3, "chunked"),
+                                        (17, 129, "chunked"), (18, 1, "serial"), (18, 17, "serial"),
+                                        (129, 129, "serial")])
+def test_lfilter_route_on_both_sides_of_the_order_limit(pa, pb, want):
+    assert cuda_iir.lfilter_route(pa, pb) == want
+
+
+def lfilter_chunked_emulation(x: torch.Tensor, a_norm: torch.Tensor, b_norm: torch.Tensor) -> torch.Tensor:
+    """K1's "chunked" route in float32: per pass of PASS samples, the FIR stage over the pass staged
+    behind the pb - 1 samples before it (the previous pass's last ones, zeros at the row's start), on
+    the whole pass (samples past T are zeros, as the kernel stages them); then chunk, carry and
+    fix-up on the FIR stage's output, which outputs past T do not reach."""
+    b, c, t = x.shape
+    pb = b_norm.shape[1]
+    hist = pb - 1
+    passes = -(-t // PASS)
+    xs = torch.nn.functional.pad(x, (0, passes * PASS - t)).reshape(b, c, passes, PASS)
+    before = x.new_zeros((b, c, hist))
+    v = []
+    for p in range(passes):
+        staged = torch.cat([before, xs[:, :, p]], dim=-1)  # x[j] at staged[hist + j]
+        vp = torch.zeros((b, c, PASS))
+        for k in range(pb):
+            vp = vp + b_norm[:, k, None] * staged[..., hist - k : hist - k + PASS]
+        v.append(vp)
+        before = staged[..., PASS:]
+    return chunked_emulation(torch.cat(v, dim=-1), a_norm[:, 1:])[..., :t]
+
+
+def _lfilter_coeffs(seed, c, order, pb):
+    rng = np.random.default_rng(seed)
+    a = np.concatenate([np.ones((c, 1), np.float32), _a_tail(seed, c, order)], axis=1)
+    b = (0.3 * rng.standard_normal((c, pb))).astype(np.float32)
+    return a, b
+
+
+def _padded(a, b):
+    """(a, b) zero-padded to one length, as ``functional.lfilter`` takes them: the same filter."""
+    taps = max(a.shape[1], b.shape[1])
+    return tuple(np.pad(m, ((0, 0), (0, taps - m.shape[1]))) for m in (a, b))
+
+
+@pytest.mark.parametrize("order", [1, 2, 8, 16])
+@pytest.mark.parametrize("pb", [1, 3, 17])
+@pytest.mark.parametrize("t", [31, 1000, 2100])
+def test_lfilter_chunked_arithmetic_matches_the_interpreted_tpu_kernel_and_jax_lfilter(order, pb, t):
+    """T below one chunk, inside one pass, and across two pass boundaries (the FIR history
+    crosses them); the history also crosses chunk boundaries inside a pass."""
+    rng = np.random.default_rng(1000 * order + 10 * pb + t)
+    x = rng.standard_normal((2, 2, t)).astype(np.float32)
+    a, b = _lfilter_coeffs(order + pb + t, 2, order, pb)
+    got = lfilter_chunked_emulation(torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = np.asarray(lfilter_pallas(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), interpret=True))
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    ap, bp = _padded(a, b)
+    ref = np.asarray(jax_lfilter(jnp.asarray(x), jnp.asarray(ap), jnp.asarray(bp), clamp=False))
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+
+
+def test_lfilter_chunked_arithmetic_carries_129_taps_across_chunks_and_passes():
+    """pb - 1 = 128 samples of history: four chunks back inside a pass, and from one pass to the next."""
+    t = 2 * PASS + 100
+    x = np.random.default_rng(7).standard_normal((1, 2, t)).astype(np.float32)
+    a, b = _lfilter_coeffs(7, 2, 2, 129)
+    got = lfilter_chunked_emulation(torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = np.asarray(lfilter_pallas(jnp.asarray(x), jnp.asarray(a), jnp.asarray(b), interpret=True))
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)

@@ -100,6 +100,76 @@ def test_lattice_row_stats_plain(shape, v, blank, bf16, seed, oracle):
         _close(g, r, 1e-2 if bf16 else 1e-5, name)
 
 
+def test_lattice_row_stats_on_the_cpu_takes_any_v():
+    """V = 65,537, past the 58,112 columns a row kernel could keep in shared memory: the CPU
+    tensor runs the plain version, which has no limit, and the card's route "stream" keeps no row."""
+    rng = np.random.default_rng(9)
+    v = 65537
+    for bf16 in (False, True):
+        xj, xt = _pair(rng.standard_normal((3, v)).astype(np.float32), bf16)
+        tgt = np.array([0, v - 1, 12345], np.int32)
+        ref = jk.lattice_row_stats_reference(xj, jnp.asarray(tgt), v - 1)
+        got = cuda_rnnt_lps.lattice_row_stats(xt, torch.from_numpy(tgt), v - 1)
+        for name, g, r in zip(("lse", "blank", "label"), got, ref):
+            _close(g, r, 1e-2 if bf16 else 1e-5, name)
+
+
+# K8's route "stream" (csrc/rnnt_lps.cu): a warp a row, a scalar head up to the row's first
+# 16-byte boundary and a scalar tail, then batches of kStreamBatch 16-byte vectors a lane, folded
+# into an online (maximum, rescaled sum) in log2 units, then the lanes' butterfly
+STREAM_BATCH = 8
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _stream_fold(base, s, vals):
+    """One fold of every lane: base (32,), s (32,), the new values vals (32, n)."""
+    nb = torch.maximum(base, vals.max(-1).values * LOG2E)
+    live = nb != -np.inf
+    at = torch.where(live, nb, torch.zeros_like(nb))
+    acc = s * torch.exp2(base - at) + torch.exp2(vals * LOG2E - at[:, None]).sum(-1)
+    return torch.where(live, nb, base), torch.where(live, acc, s)
+
+
+def stream_lse_emulation(row: torch.Tensor, start: int, elems: int) -> torch.Tensor:
+    """The route's logsumexp of one float32 row whose first element lies ``start`` elements past a
+    16-byte boundary, with ``elems`` elements a 16-byte vector (8 bf16, 4 f32), in the kernel's order."""
+    v = row.shape[0]
+    head = min((elems - start % elems) % elems, v)
+    nvec = (v - head) // elems
+    tail0 = head + nvec * elems
+    ninf = torch.full((32,), -np.inf)
+    h, t = ninf.clone(), ninf.clone()
+    h[:head], t[: v - tail0] = row[:head], row[tail0:]
+    base, s = _stream_fold(ninf.clone(), torch.zeros(32), torch.stack([h, t], dim=-1))
+    per = 32 * STREAM_BATCH
+    batches = -(-nvec // per)
+    vecs = torch.full((batches * per, elems), -np.inf)
+    vecs[:nvec] = row[head:tail0].reshape(nvec, elems)
+    for j in range(batches):  # lane L's vectors of a batch: j per + 32 u + L, u < STREAM_BATCH
+        lane_vals = vecs[j * per : (j + 1) * per].reshape(STREAM_BATCH, 32, elems).transpose(0, 1)
+        base, s = _stream_fold(base, s, lane_vals.reshape(32, STREAM_BATCH * elems))
+    wb = base.max()
+    total = torch.where(base == -np.inf, torch.zeros(32), s * torch.exp2(base - wb)).sum()
+    return wb if torch.isinf(wb) else wb * LN2 + torch.log(total)
+
+
+@pytest.mark.parametrize("bf16,start", [(True, o) for o in range(8)] + [(False, o) for o in range(4)])
+@pytest.mark.parametrize("v", [1, 9, 4097])
+def test_lattice_stream_fold_matches_the_interpreted_tpu_kernel(v, bf16, start):
+    """Every row start modulo the 16-byte grid (rows of odd V move it from row to row), rows whose
+    first columns are -inf (all but one column at V = 9; none at V = 1), at 1e-5."""
+    rng = np.random.default_rng(v)
+    n = 6
+    x = (2.0 * rng.standard_normal((n, v))).astype(np.float32)
+    x[1::2, : min(100, v - 1)] = -np.inf
+    xj, xt = _pair(x, bf16)
+    tgt = np.zeros(n, np.int32)
+    ref = np.asarray(jk.lattice_row_stats(xj, jnp.asarray(tgt), v - 1, interpret=True)[0])
+    elems = 8 if bf16 else 4
+    got = np.array([float(stream_lse_emulation(xt[r].float(), start + r * v, elems)) for r in range(n)])
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
 # ------------------------------------------------------------------ K5
 @pytest.mark.parametrize("oracle", ORACLES)
 @pytest.mark.parametrize("shape,d,v,k,bf16,seed", [
