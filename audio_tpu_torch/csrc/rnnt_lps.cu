@@ -11,10 +11,14 @@
 //
 // Bound on the H100.  K6 and K8 by bytes: each row is read once (42 MB at N = 5120,
 // V = 4097, f32; the train step's full lattice, (32, 128, 65, 4097) bf16, 2.18 GB).
-// K6: one warp owns a row: it copies the row into shared memory as f32 while taking the
-// maximum, sums the exponentials, and then runs k rounds of (best pair, mask it out) over
-// the copy; a lane only ever touches the columns congruent to its index, so the rounds need
-// no barrier.
+// K6: one warp owns a row.  Route "row" (columns [0, blank] within 58,112): the warp copies
+// the row into shared memory as f32 while taking the maximum, sums the exponentials, and then
+// runs k rounds of (best pair, mask it out) over the copy; a lane only ever touches the
+// columns congruent to its index, so the rounds need no barrier.  Route "global" (any V):
+// the same, over the row in device memory, which it cannot mask: the maximum, then the sum
+// (both lane by lane in the same order as route "row", so the two give the same bits), then
+// k rounds, each taking the best pair that ranks after the last one taken; k + 2 reads of
+// the row.
 // K8, route "stream": one warp owns a row and reads it once, keeping nothing of it.  A row of
 // odd V starts anywhere on the 16-byte grid, so it splits into a scalar head up to the first
 // 16-byte boundary, 16-byte vectors, and a scalar tail; each lane folds its head and tail
@@ -115,6 +119,21 @@ __device__ float warp_load_lse(const T* __restrict__ x_row, float* row, int n_co
   return m + logf(warp_sum(s));
 }
 
+// The warp's best (value, index) pair: the greatest value, the lowest index among equals.
+// A lane with nothing above -inf holds (-inf, INT_MAX); the pair is then (-inf, 0).
+__device__ __forceinline__ void warp_best_pair(float& bv, int& bi) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, bv, o);
+    const int oi = __shfl_xor_sync(kFull, bi, o);
+    if (ov > bv || (ov == bv && oi < bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if (bi == INT_MAX) bi = 0;  // nothing above -inf is left
+}
+
 // k rounds of (greatest value, lowest index among equals, mask out) over row[0, n).
 __device__ void warp_topk(float* row, int n, int k, float* __restrict__ vals, int* __restrict__ idx, int lane) {
   for (int j = 0; j < k; ++j) {
@@ -127,16 +146,7 @@ __device__ void warp_topk(float* row, int n, int k, float* __restrict__ vals, in
         bi = c;
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, o);
-      const int oi = __shfl_xor_sync(kFull, bi, o);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (bi == INT_MAX) bi = 0;  // nothing above -inf is left
+    warp_best_pair(bv, bi);
     if (lane == 0) {
       vals[j] = bv;
       idx[j] = bi;
@@ -161,6 +171,49 @@ __global__ void row_stats_topk_kernel(const T* __restrict__ x, long long n, int 
     blank_out[r] = row[blank];
   }
   warp_topk(row, blank, k, vals + r * k, idx + r * k, lane);
+}
+
+// K6, route "global": the row stays in device memory.  Round j takes the best pair among
+// those ranking after round j-1's (a smaller value, or the same value at a higher index):
+// what route "row" finds once it has masked the pairs taken, NaN never taken on either.
+template <typename T>
+__global__ void row_stats_topk_global_kernel(const T* __restrict__ x, long long n, int ld, int blank, int k,
+                                             float* __restrict__ lse, float* __restrict__ blank_out,
+                                             float* __restrict__ vals, int* __restrict__ idx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (r >= n) return;
+  const T* row = x + r * ld;
+  float m = -INFINITY;
+  for (int j = lane; j <= blank; j += 32) m = fmaxf(m, to_f32(row[j]));
+  m = warp_max(m);
+  float s = 0.f;
+  for (int j = lane; j <= blank; j += 32) s += expf(to_f32(row[j]) - m);
+  const float l = m + logf(warp_sum(s));
+  if (lane == 0) {
+    lse[r] = l;
+    blank_out[r] = to_f32(row[blank]);
+  }
+  float pv = INFINITY;  // the last pair taken; (+inf, -1) ranks before every pair
+  int pi = -1;
+  for (int j = 0; j < k; ++j) {
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int c = lane; c < blank; c += 32) {  // increasing c: strict > keeps the lowest index
+      const float v = to_f32(row[c]);
+      if ((v < pv || (v == pv && c > pi)) && v > bv) {
+        bv = v;
+        bi = c;
+      }
+    }
+    warp_best_pair(bv, bi);
+    if (lane == 0) {
+      vals[r * k + j] = bv;
+      idx[r * k + j] = bi;
+    }
+    pv = bv;
+    pi = bi;
+  }
 }
 
 template <typename T>
@@ -1011,6 +1064,17 @@ int launch_row_stats_topk(const void* x, long long n, int ld, int blank, int k, 
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kGlobalRowWarps = 4;  // K6 route "global": rows a block
+
+template <typename T>
+int launch_row_stats_topk_global(const void* x, long long n, int ld, int blank, int k, float* lse,
+                                 float* blank_out, float* vals, int* idx, cudaStream_t stream) {
+  const long long blocks = (n + kGlobalRowWarps - 1) / kGlobalRowWarps;
+  row_stats_topk_global_kernel<T><<<static_cast<unsigned>(blocks), kGlobalRowWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), n, ld, blank, k, lse, blank_out, vals, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_lattice_stream(const void* x, const int* tgt, long long n, int v, int blank, float* lse,
                           float* blank_out, float* label_out, cudaStream_t stream) {
@@ -1079,8 +1143,8 @@ bool join_stats_topk_tensor_cores(int d, int k, int bf16, long long ldw, const v
 // Every entry returns the cudaError_t of its launch.  `bf16` selects __nv_bfloat16
 // inputs, else float32; outputs are float32 and int32.  1 <= k <= blank.
 
-// x: (n, ld) rows of which columns [0, blank] are read; lse, blank_out: (n,);
-// vals, idx: (n, k).
+// K6, route "row".  x: (n, ld) rows of which columns [0, blank] are read, blank + 1 <= 58,112
+// (a row of f32 a warp in shared memory); lse, blank_out: (n,); vals, idx: (n, k).
 extern "C" int row_stats_topk(const void* x, long long n, int ld, int blank, int k, int bf16, float* lse,
                               float* blank_out, float* vals, int* idx, void* stream) {
   if (n <= 0) return 0;
@@ -1088,6 +1152,16 @@ extern "C" int row_stats_topk(const void* x, long long n, int ld, int blank, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_row_stats_topk<__nv_bfloat16>(x, n, ld, blank, k, lse, blank_out, vals, idx, s)
               : launch_row_stats_topk<float>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+}
+
+// K6, route "global": as row_stats_topk, any blank.
+extern "C" int row_stats_topk_global(const void* x, long long n, int ld, int blank, int k, int bf16, float* lse,
+                                     float* blank_out, float* vals, int* idx, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > blank || blank >= ld) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_row_stats_topk_global<__nv_bfloat16>(x, n, ld, blank, k, lse, blank_out, vals, idx, s)
+              : launch_row_stats_topk_global<float>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
 }
 
 // K8, route "stream".  x: (n, v), rows contiguous, any v >= 1; tgt: (n,) int32 in [0, v);

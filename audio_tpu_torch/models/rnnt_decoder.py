@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda_lstm import _ln, kernel_route, lstm_gate_step, weight_layout
-from ..ops.cuda_rnnt_lps import join_stats_topk, lattice_row_stats, row_stats_topk, top_k
+from ..ops.cuda_rnnt_lps import (join_stats_topk, lattice_row_stats, row_stats_route, row_stats_topk,
+                                 row_stats_topk_plain, top_k)
 
 __all__ = ["RNNTBeamSearch", "Hypothesis", "rnnt_greedy_decode"]
 
@@ -232,7 +233,9 @@ class RNNTBeamSearch:
         return torch.logsumexp(rawf, dim=-1), rawf[..., -1]
 
     def _row_stats(self, raw, beam_width: int):
-        """(lse, blank logit, each row's top-k) of the join in one read (kernel K6).
+        """(lse, blank logit, each row's top-k) of the join (kernel K6 where ``row_stats_route``
+        takes the rows: float32 or bfloat16, any V; else the plain version, as the JAX search
+        leaves its kernel there).
 
         Each (stream, hypothesis) row's ``beam_width`` best non-blank logits
         are the only entries the selection over the stream's pool can pick
@@ -242,7 +245,9 @@ class RNNTBeamSearch:
         and the caller selects from the pool.
         """
         if self.temperature == 1.0:
-            lse, blank_raw, vals, idx = row_stats_topk(raw, raw.shape[-1] - 1, beam_width)
+            blank = raw.shape[-1] - 1
+            stats = row_stats_topk if row_stats_route(raw.dtype, blank) is not None else row_stats_topk_plain
+            lse, blank_raw, vals, idx = stats(raw, blank, beam_width)
             return lse, blank_raw, (vals, idx)
         lse, blank_raw = self._lse_blank(raw)
         return lse, blank_raw, None

@@ -6,7 +6,11 @@ CUDA C++ in ``csrc/rnnt_lps.cu``, replacing the TPU kernels of
 * K5 ``join_stats_topk``: ``act @ w + b`` with f32 accumulation and, per row,
   the logsumexp over columns <= blank, the blank logit and the top-k of
   columns [0, blank); the (N, V) logits never reach device memory;
-* K6 ``row_stats_topk``: the same four outputs from logits that exist;
+* K6 ``row_stats_topk``: the same four outputs from logits that exist, on
+  the route :func:`row_stats_route` names: ``"row"`` (the row in shared
+  memory, columns [0, blank] within 58,112) or ``"global"`` (the row read
+  from device memory k + 2 times, any V); ``row_stats_route_launches`` counts
+  each route's launches;
 * K8 ``lattice_row_stats``: per row the logsumexp over all V columns, the
   blank logit and the logit at a per-row target, on route ``"stream"`` (one
   read of each row, any V); the first kernel stays as route ``"row"`` (the row in
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,6 +52,8 @@ __all__ = [
     "lattice_row_stats",
     "lattice_row_stats_plain",
     "launches",
+    "row_stats_route",
+    "row_stats_route_launches",
     "row_stats_topk",
     "row_stats_topk_plain",
     "top_k",
@@ -56,6 +62,7 @@ __all__ = [
 launches = {"join_stats_topk": 0, "row_stats_topk": 0, "lattice_row_stats": 0}
 join_route_launches = {"wgmma": 0, "wmma": 0, "simt": 0}
 lattice_route_launches = {"stream": 0, "row": 0}
+row_stats_route_launches = {"row": 0, "global": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW_ARGTYPES = [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
@@ -139,6 +146,16 @@ def _stats_outputs(lead, k: int, device):
     return lse, blank_raw, vals, idx
 
 
+def row_stats_route(dtype: torch.dtype, blank: int) -> Optional[str]:
+    """K6's route for rows of ``dtype`` whose columns [0, blank] it reads: ``"row"`` while they fit
+    a warp's shared memory (blank + 1 <= 58,112), ``"global"`` past that; None for a type other than
+    float32 or bfloat16, where a caller on CUDA takes :func:`row_stats_topk_plain`, as the JAX
+    package's search leaves its kernel there."""
+    if dtype not in _DTYPES:
+        return None
+    return "row" if blank + 1 <= _MAX_ROW_COLS else "global"
+
+
 # ------------------------------------------------------------------ wrappers
 def row_stats_topk(x: torch.Tensor, blank: int, k: int):
     """Per-row ``(lse, blank_logit, top-k values, top-k indices)`` of logits.
@@ -147,25 +164,35 @@ def row_stats_topk(x: torch.Tensor, blank: int, k: int):
     columns [0, blank); columns past ``blank`` are ignored.  Returns lse and
     blank_logit (...) f32 over the columns <= blank, and vals (..., k) f32,
     idx (..., k) int32: the k largest of ``x[..., :blank]``, descending, ties
-    to the lowest index.  A CUDA tensor runs kernel K6; a CPU tensor runs
-    :func:`row_stats_topk_plain`.
+    to the lowest index.  A CUDA tensor runs kernel K6 on the route
+    :func:`row_stats_route` names; a CPU tensor runs :func:`row_stats_topk_plain`.
     """
     if not x.is_cuda:
         return row_stats_topk_plain(x, blank, k)
-    _check_logits("row_stats_topk", x, blank, blank + 1)
+    _check_logits("row_stats_topk", x, blank, 0)
     _check_k("row_stats_topk", blank, k)
+    return _row_stats_launch(row_stats_route(x.dtype, blank), x, blank, k)
+
+
+def _row_stats_launch(route: str, x: torch.Tensor, blank: int, k: int):
+    """One launch of K6 on ``route`` (the wrapper's checks done); "row" keeps columns [0, blank]
+    in shared memory and takes blank + 1 <= 58,112."""
+    if route == "row":
+        _check_logits("row_stats_topk", x, blank, blank + 1)
     v = x.shape[-1]
     x2 = x.reshape(-1, v).contiguous()
     outs = _stats_outputs(x.shape[:-1], k, x.device)
     if x2.shape[0] == 0:
         return outs
     lse, blank_raw, vals, idx = outs
+    symbol = "row_stats_topk" if route == "row" else "row_stats_topk_global"
     with torch.cuda.device(x.device):
-        fn = _build.bind("rnnt_lps", "row_stats_topk", _ROW_ARGTYPES)
+        fn = _build.bind("rnnt_lps", symbol, _ROW_ARGTYPES)
         err = fn(x2.data_ptr(), x2.shape[0], v, blank, k, int(x.dtype == torch.bfloat16), lse.data_ptr(),
                  blank_raw.data_ptr(), vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "row_stats_topk")
+    _build.check_launch(err, f"row_stats_topk ({route})")
     launches["row_stats_topk"] += 1
+    row_stats_route_launches[route] += 1
     return outs
 
 

@@ -9,7 +9,15 @@ Phases, each of which raises on failure:
    turn TF32 off so the plain versions and the projection are exact float32;
 2. build the seven kernel libraries from ``audio_tpu_torch/csrc`` in parallel;
 3. hold each of the ten kernel entries against its plain PyTorch version on the
-   card, at its main path's shape and at ragged small shapes (K1 on its
+   card, at its main path's shape and at ragged small shapes (K3 on both of its
+   routes, "warp" and "block", paths equal: shared-memory and global
+   backpointers, V past a warp, S 255, each in float32, float64, bfloat16 and
+   float16 and again on a grid of 0.5 that makes the transitions tie;
+   trellises without the CTC layout (holes in the valid states, skips into
+   even states); float16 with -inf columns, float32 emissions of -inf that
+   step the walk off state 0, the main shape and its bits over two runs; S
+   257, 1201 and 3201 (a float64 front in global memory) and a non-contiguous
+   view through the wrapper; K1 on its
    "chunked" route at orders 1, 2, 8, 12 and 16 by pb 1, 3, order + 1, 17 and
    129, C 1 and 3, T 1, 31, 1000 and 2100, poles at |z| = 0.977, the main
    shape, bitwise equal over two runs, and on its "serial" route at orders 17
@@ -39,12 +47,16 @@ Phases, each of which raises on failure:
    call of each route the public functions take outside their kernels' limits
    (spectrogram at n_fft 4096 and at power 3, mel_spectrogram at hop 16,
    lfilter and filtfilt in float64 and lfilter with 130 taps, MelSpectrogram
-   at power 1, the search's predictor at H 640) against the CPU;
+   at power 1, the search's predictor at H 640, the tanh-joiner search's row
+   statistics on float16 rows and at V 58,114) against the CPU, and
+   forced_align in bfloat16, float16 and float64 and at L = 600, which now
+   launch K3, against the CPU;
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
    of 1 s at 16 kHz, 80 mels, L=50, V=32): lowpass_biquad -> lfilter ->
    mel_spectrogram -> log1p -> projection -> log_softmax -> forced_align.
    The launch counters of K1-K3 must move in that run, K1 only on its
-   "chunked" route and K2 only on its "fft" route; the paths must be
+   "chunked" route, K2 only on its "fft" route and K3 only on its "warp"
+   route; the paths must be
    valid CTC alignments of the targets; a small slice of the chain must agree
    with the plain versions on the CPU.  Then time the chain and each kernel
    with CUDA events, and break one chain step down by kernel with
@@ -75,8 +87,8 @@ Phases, each of which raises on failure:
    only on "fft", K4 backward must move, only on "chunked"), against the CPU at B=4.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
-and its library call; for K1, K2, K4, K5, K7 and K8 also the route each
-replaced ("serial", "dft", "serial", "wmma", "wmma", "row"), K1 at orders 8 and
+and its library call; for K1, K2, K3, K4, K5, K7 and K8 also the route each
+replaced ("serial", "dft", "block", "serial", "wmma", "wmma", "row"), K1 at orders 8 and
 12 on both routes, K8 on the train step's full lattice and pruned band, for K2
 the power spectra without the mel product and, for K5 and K7, the product
 alone (``torch.nn.functional.linear``).
@@ -177,6 +189,13 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def template_args(mangled: str) -> list:
+    """A kernel's template arguments from their mangled form: types, integers and booleans."""
+    names = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16", "6__half": "half"}
+    return [m.group(1) or {"0": "false", "1": "true"}.get(m.group(2)) or names[m.group(0)]
+            for m in re.finditer(r"Li(\d+)E?|Lb([01])E?|13__nv_bfloat16|6__half|[fd]", mangled)]
+
+
 def ptxas_entries(log: str) -> list:
     """One line for each kernel in an ``nvcc -Xptxas=-v`` report: its name and template arguments,
     registers a thread and spilled bytes."""
@@ -191,8 +210,8 @@ def ptxas_entries(log: str) -> list:
             else:
                 end = m.end() + int(m.group(1))
                 args = re.match(r"I(.*?)EE", mangled[end:])
-                args = "" if args is None else args.group(1).replace("13__nv_bfloat16", "bf16").replace("Li", "")
-                name = mangled[m.end():end] + (f"<{args.rstrip('E').replace('E', ',')}>" if args else "")
+                args = "" if args is None else ",".join(template_args(args.group(1)))
+                name = mangled[m.end():end] + (f"<{args}>" if args else "")
         spilled = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spilled:
             spill = f", spills {spilled.group(1)}/{spilled.group(2)} bytes stored/loaded"
@@ -251,13 +270,14 @@ def stable_coeffs(rng, c: int, order: int):
 
 
 def alignment_inputs(rng, b: int, t: int, v: int, l_max: int, dev):
-    """Random emissions with varied lengths and repeated tokens."""
+    """Random emissions with varied lengths and repeated tokens: input lengths from 2 l_max + 2
+    frames (all T frames where T is shorter) to T."""
     import torch
 
     lp = torch.log_softmax(torch.as_tensor(rng.standard_normal((b, t, v)), dtype=torch.float32), -1)
     tgt = rng.integers(1, v, (b, l_max)).astype(np.int64)
     tgt[::3, 1] = tgt[::3, 0]  # repeated tokens forbid the skip
-    il = rng.integers(2 * l_max + 2, t + 1, (b,))
+    il = rng.integers(min(2 * l_max + 2, t), t + 1, (b,))
     tl = rng.integers(1, l_max + 1, (b,))
     return [torch.as_tensor(a).to(dev) for a in (lp, tgt, il, tl)]
 
@@ -416,8 +436,16 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
         x[:, 1::7] = x[:, :1]
     got = cuda_rnnt_lps.row_stats_topk(x, blank, k)
     torch.cuda.synchronize()
-    errs["row_stats_topk"] = check_row_topk(f"K6 row_stats_topk {label}", got,
-                                            cuda_rnnt_lps.row_stats_topk_plain(x, blank, k), tol)
+    ref = cuda_rnnt_lps.row_stats_topk_plain(x, blank, k)
+    errs["row_stats_topk"] = check_row_topk(f"K6 row_stats_topk {label}", got, ref, tol)
+    # K6's route "global" (the row in device memory, which the wrapper takes past 58,112 columns)
+    # on the same rows
+    before = cuda_rnnt_lps.row_stats_route_launches["global"]
+    glob = cuda_rnnt_lps._row_stats_launch("global", x, blank, k)
+    torch.cuda.synchronize()
+    if cuda_rnnt_lps.row_stats_route_launches["global"] != before + 1:
+        raise AssertionError(f"K6 {label}: route 'global' was not counted")
+    check_row_topk(f"K6 row_stats_topk [global] {label}", glob, ref, tol)
     got = cuda_rnnt_lps.lattice_row_stats(x, inp["tgt"], blank)
     torch.cuda.synchronize()
     ref = cuda_rnnt_lps.lattice_row_stats_plain(x, inp["tgt"], blank)
@@ -847,17 +875,150 @@ def check_lattice_stream(rng, dev) -> None:
         raise AssertionError(f"K8: two runs gave different bits {same}")
 
 
+def k3_inputs(lp, tgt, il, tl):
+    """K3's arguments for emissions ``lp`` (B, T, V) and targets ``tgt`` (B, L) of lengths il and tl."""
+    from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
+
+    s = 2 * tgt.shape[1] + 1
+    labels = _state_labels(tgt, 0, s)
+    valid, skip = _state_masks(tgt, tl, s)
+    return lp, labels, skip, valid, il, 2 * tl
+
+
+def check_viterbi_route(route: str, name: str, args, ref=None) -> int:
+    """K3 on ``route`` against its plain version on the same inputs: paths equal, and the route's
+    counter moves."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_viterbi
+
+    before = cuda_viterbi.route_launches[route]
+    got = cuda_viterbi._launch(route, *args)
+    torch.cuda.synchronize()
+    if cuda_viterbi.route_launches[route] != before + 1:
+        raise AssertionError(f"K3 {name}: route {route!r} was not counted")
+    if ref is None:
+        ref = cuda_viterbi.viterbi_paths_plain(*args)
+    return check_equal(f"K3 viterbi [{route}] {name}", got, ref)
+
+
+def check_viterbi_routes(rng, dev) -> None:
+    """K3's two routes against the plain version, paths equal, at ragged shapes with input lengths
+    below T and target lengths below L (alignment_inputs): each of the "warp" route's eight
+    instances (4 or 8 states a lane, shuffled or gathered emissions, shared-memory or global
+    backpointers), in every type the kernel takes, log-probs
+    on a grid of 0.5 (ties of stay, skip-1 and skip-2), trellises without the CTC layout (the
+    "warp" route without its fast path), float16 with -inf columns, emissions of -inf that step
+    the walk off state 0, S past the "warp" route's cap, past 1024 threads and past a front that
+    shared memory holds, and a non-contiguous view through the wrapper."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_viterbi
+
+    both = ("warp", "block")
+    # every instance of the "warp" route: 4 or 8 states a lane, emissions by __shfl_sync (V <= 32)
+    # or gathered, backpointers in shared memory or in the global scratch
+    instances = set()
+    for (b_, t_, v_, l_), label in (((37, 130, 12, 9), "shared-memory backpointers"),
+                                     ((5, 1500, 12, 20), "global backpointers"),
+                                     ((23, 100, 40, 50), "V past a warp, shared-memory backpointers"),
+                                     ((13, 300, 40, 25), "V past a warp, global backpointers"),
+                                     ((19, 120, 12, 100), "8 states a lane, shared-memory backpointers"),
+                                     ((11, 200, 12, 100), "8 states a lane, global backpointers"),
+                                     ((15, 120, 40, 80), "V past a warp, 8 states a lane, shared-memory backpointers"),
+                                     ((29, 300, 40, 100), "V past a warp, 8 states a lane"),
+                                     ((17, 300, 33, 127), "S 255, the warp route's largest")):
+        s_ = 2 * l_ + 1
+        instance = (cuda_viterbi.warp_states_per_lane(s_), v_ <= 32, cuda_viterbi.warp_bp_on_chip(t_, s_))
+        instances.add(instance)
+        label = f"{label} [states a lane, shuffled, on chip: {instance}]"
+        args = k3_inputs(*alignment_inputs(rng, b_, t_, v_, l_, dev))
+        ref = cuda_viterbi.viterbi_paths_plain(*args)
+        for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.float16):
+            typed = [args[0].to(dtype)] + list(args[1:])
+            ref_t = ref if dtype == torch.float32 else cuda_viterbi.viterbi_paths_plain(*typed)
+            for route in both:
+                check_viterbi_route(route, f"{label} ({b_}x{t_}, V {v_}, L {l_}, {dtype})", typed, ref_t)
+            grid = [torch.round(args[0] * 2).div(2).to(dtype)] + list(args[1:])  # ties
+            ref_g = cuda_viterbi.viterbi_paths_plain(*grid)
+            for route in both:
+                check_viterbi_route(route, f"{label}, ties on a grid of 0.5 ({b_}x{t_}, L {l_}, {dtype})", grid,
+                                    ref_g)
+    if len(instances) != 8:
+        raise AssertionError(f"K3: the cases cover {sorted(instances)}, not all 8 instances of the warp route")
+    # trellises without the CTC layout, which the "warp" route runs without its fast path: any label
+    # at any state, valid states with holes, skips into even states, final states past the valid ones
+    for (b_, t_, v_, l_), dtypes in (((37, 130, 12, 9), (torch.float32, torch.float64, torch.bfloat16, torch.float16)),
+                                     ((29, 300, 40, 100), (torch.float32,))):
+        lp, _, il, _ = alignment_inputs(rng, b_, t_, v_, l_, dev)
+        s_ = 2 * l_ + 1
+        labels = torch.as_tensor(rng.integers(0, v_, (b_, s_)), device=dev)
+        valid = torch.as_tensor(rng.random((b_, s_)) < 0.8, device=dev)
+        skip = torch.as_tensor(rng.random((b_, s_)) < 0.5, device=dev) & (torch.arange(s_, device=dev) >= 2)
+        s_last = torch.as_tensor(rng.integers(0, s_ + 2, (b_,)), device=dev)
+        for dtype in dtypes:
+            args = (lp.to(dtype), labels, skip, valid, il, s_last)
+            for route in both:
+                check_viterbi_route(route, f"general trellis ({b_}x{t_}, V {v_}, S {s_}, {dtype})", args)
+    # float16 with whole -inf columns (a target token's, the blank's) and float32 emissions of -inf
+    # below the sentinel, which step the walk off state 0 (held there)
+    lp, tgt, il, tl = alignment_inputs(rng, 8, 60, 7, 6, dev)
+    lp = lp.clone()
+    lp[0, :, int(tgt[0, 0])] = -math.inf
+    lp[1, :, 0] = -math.inf
+    lp[2, 0, 0] = -math.inf
+    lp[3, :2, int(tgt[3, 0])] = -math.inf
+    lp[3, 0, 0] = -math.inf
+    for dtype in (torch.float16, torch.float32):
+        args = k3_inputs(lp.to(dtype), tgt, il, tl)
+        for route in both:
+            check_viterbi_route(route, f"-inf columns (8x60, V 7, L 6, {dtype})", args)
+    # past the warp route's cap (S 257), past 1024 threads (S 1201), and a float64 front past 48 KB of
+    # shared memory (S 3201, in a global scratch): the block route, through the wrapper
+    for b_, t_, l_, dtypes in ((6, 300, 128, (torch.float32, torch.bfloat16)),
+                               (3, 1300, 600, (torch.float32, torch.bfloat16)), (2, 3300, 1600, (torch.float64,))):
+        args = k3_inputs(*alignment_inputs(rng, b_, t_, 9, l_, dev))
+        if cuda_viterbi.kernel_route(2 * l_ + 1, torch.float32) != "block":
+            raise AssertionError(f"K3: S {2 * l_ + 1} should take the block route")
+        for dtype in dtypes:
+            typed = [args[0].to(dtype)] + list(args[1:])
+            before = cuda_viterbi.route_launches["block"]
+            got = cuda_viterbi.viterbi_paths(*typed)
+            torch.cuda.synchronize()
+            if cuda_viterbi.route_launches["block"] != before + 1:
+                raise AssertionError(f"K3: S {2 * l_ + 1} did not launch the block route")
+            check_equal(f"K3 viterbi [block] S {2 * l_ + 1} ({b_}x{t_}, V 9, L {l_}, {dtype})", got,
+                        cuda_viterbi.viterbi_paths_plain(*typed))
+    # a non-contiguous view of the log-probs, through the wrapper, on each route
+    for l_ in (9, 130):
+        lp, tgt, il, tl = alignment_inputs(rng, 11, 2 * l_ + 40, 12, l_, dev)
+        view = lp.transpose(1, 2).contiguous().transpose(1, 2)
+        args = k3_inputs(view, tgt, il, tl)
+        route = cuda_viterbi.kernel_route(2 * l_ + 1, torch.float32)
+        before = cuda_viterbi.route_launches[route]
+        got = cuda_viterbi.viterbi_paths(*args)
+        torch.cuda.synchronize()
+        if view.is_contiguous() or cuda_viterbi.route_launches[route] != before + 1:
+            raise AssertionError("K3: the non-contiguous case did not run as intended")
+        check_equal(f"K3 viterbi [{route}] non-contiguous log_probs (11x{2 * l_ + 40}, L {l_})", got,
+                    cuda_viterbi.viterbi_paths_plain(*args))
+
+
 def check_fallback_routes(dev) -> None:
     """The public functions outside their kernels' limits take the plain versions on the card, as
     the JAX package computes outside its kernels' gates; each call against the same call on the CPU,
     launching no kernel (MelSpectrogram at power 1 composes the magnitude spectrogram, which K2
     takes, with the mel product: K2 alone).  Tolerances: the spectrograms 5e-4 of the peak (the JAX
     spectrogram tests'), the filters 1e-6 of the peak in float64 and 2e-4 + 1e-4 |ref| in float32
-    (check_iir's), the predictor step 1e-4 in float32."""
+    (check_iir's), the predictor step 1e-4 in float32.  Then forced_align in bfloat16, float16 and
+    float64 and at L = 600, which K3 now takes (paths equal, scores exactly), and the tanh-joiner
+    search's row statistics on float16 rows, which take the plain version, and at V 58,114, past the
+    columns K6 keeps in shared memory, which take K6's route "global"."""
     import torch
 
     import audio_tpu_torch.functional as F
     from audio_tpu_torch.models import RNNTBeamSearch, emformer_rnnt_model
+    from audio_tpu_torch.ops import cuda_rnnt_lps
     from audio_tpu_torch.transforms import MelSpectrogram
 
     rng = np.random.default_rng(11)
@@ -925,6 +1086,48 @@ def check_fallback_routes(dev) -> None:
     for i, (g, r) in enumerate(zip(got, ref)):
         check_close(f"the search's predictor at H 640, output {i}, on the card against the CPU (no K7 launch)",
                     g.cpu(), r, 1e-4, 1e-4)
+
+    # forced_align in the types past float32 and at L = 600 (S = 1201): K3 on the route kernel_route
+    # names; paths equal to the CPU's, scores (gathered log-probs) exactly
+    for dtype, l_, t_, want in ((torch.bfloat16, 9, 130, "warp"), (torch.float16, 9, 130, "warp"),
+                                (torch.float64, 9, 130, "warp"), (torch.float32, 600, 1300, "block")):
+        lp, tgt, il, tl = alignment_inputs(rng, 3, t_, 12, l_, torch.device("cpu"))
+        lp = lp.to(dtype)
+        reset_kernel_counts()
+        paths, scores = F.forced_align(lp.to(dev), tgt.to(dev), il.to(dev), tl.to(dev))
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in kernel_counts().items() if c}
+        expect = {"viterbi": 1, f"viterbi_{want}": 1}
+        if launched != expect:
+            raise AssertionError(f"forced_align {dtype}, L {l_}: launched {launched}, where the route launches {expect}")
+        ref_paths, ref_scores = F.forced_align(lp, tgt, il, tl)
+        check_equal(f"forced_align {dtype}, L {l_} on the card against the CPU (launches {expect})", paths.cpu(),
+                    ref_paths)
+        check_close(f"forced_align {dtype}, L {l_} scores on the card against the CPU", scores.cpu(), ref_scores,
+                    0.0, 0.0)
+    # the tanh-joiner search's row statistics on float16 rows, outside K6's types (the plain version
+    # on the card, no K6 launch), and at V 58,114, past the 58,112 columns K6 keeps in shared memory
+    # (its route "global"); indices and raw values exactly, lse to 1e-5 (the JAX kernel tests')
+    dec = RNNTBeamSearch(model, blank=32)
+    for dtype, v_, want in ((torch.float16, 33, {}),
+                            (torch.float32, 58114, {"row_stats_topk": 1, "row_stats_topk_global": 1}),
+                            (torch.bfloat16, 58114, {"row_stats_topk": 1, "row_stats_topk_global": 1})):
+        route = cuda_rnnt_lps.row_stats_route(dtype, v_ - 1)
+        if route != ("global" if want else None):
+            raise AssertionError(f"row_stats_route gives {dtype} rows of V {v_} the route {route!r}")
+        raw = torch.as_tensor(rng.standard_normal((3, 4, v_)).astype(np.float32) * 4).to(dtype)
+        reset_kernel_counts()
+        got = dec._row_stats(raw.to(dev), 4)
+        torch.cuda.synchronize()
+        launched = {k: c for k, c in kernel_counts().items() if c}
+        if launched != want:
+            raise AssertionError(f"_row_stats {dtype}, V {v_} launched {launched}, where its route launches {want}")
+        ref = dec._row_stats(raw, 4)
+        label = f"the tanh-joiner search's _row_stats, {dtype}, V {v_}, on the card against the CPU (launches {want})"
+        check_close(f"{label}: lse", got[0].cpu(), ref[0], 1e-5, 0.0)
+        check_close(f"{label}: blank logit", got[1].cpu(), ref[1], 0.0, 0.0)
+        check_close(f"{label}: top-k values", got[2][0].cpu(), ref[2][0], 0.0, 0.0)
+        check_equal(f"{label}: top-k indices", got[2][1].cpu(), ref[2][1])
 
 
 def check_lattice_stats(rng, dev, card: str, shape, label: str) -> dict:
@@ -1014,7 +1217,7 @@ def time_attention(rng, dev, shape, errs: dict, launches: dict) -> list:
 
 # ------------------------------------------------------------------ slice 2: the streaming search
 def kernel_counts() -> dict:
-    """The launch counters of all ten kernel entries, and of the routes of K1, K2, K4, K5, K7 and K8."""
+    """The launch counters of all ten kernel entries, and of the routes of K1 to K8."""
     from audio_tpu_torch.ops import (cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
                                      cuda_viterbi)
 
@@ -1026,7 +1229,9 @@ def kernel_counts() -> dict:
             **{f"lstm_gate_step_{r}": c for r, c in cuda_lstm.route_launches.items()},
             **{f"iir_{r}": c for r, c in cuda_iir.iir_route_launches.items()},
             **{f"lfilter_{r}": c for r, c in cuda_iir.lfilter_route_launches.items()},
-            **{f"lattice_row_stats_{r}": c for r, c in cuda_rnnt_lps.lattice_route_launches.items()}}
+            **{f"lattice_row_stats_{r}": c for r, c in cuda_rnnt_lps.lattice_route_launches.items()},
+            **{f"row_stats_topk_{r}": c for r, c in cuda_rnnt_lps.row_stats_route_launches.items()},
+            **{f"viterbi_{r}": c for r, c in cuda_viterbi.route_launches.items()}}
 
 
 def reset_kernel_counts() -> None:
@@ -1039,7 +1244,8 @@ def reset_kernel_counts() -> None:
     for counters in (cuda_rnnt_lps.launches, cuda_attention.launches, cuda_attention.route_launches,
                      cuda_spectrogram.route_launches, cuda_rnnt_lps.join_route_launches, cuda_lstm.route_launches,
                      cuda_iir.iir_route_launches, cuda_iir.lfilter_route_launches,
-                     cuda_rnnt_lps.lattice_route_launches):
+                     cuda_rnnt_lps.lattice_route_launches, cuda_rnnt_lps.row_stats_route_launches,
+                     cuda_viterbi.route_launches):
         for name in counters:
             counters[name] = 0
 
@@ -1455,8 +1661,6 @@ def main(argv=None) -> int:
     from audio_tpu_torch.models import emformer_rnnt_base
     from audio_tpu_torch.ops import (_build, cuda_attention, cuda_iir, cuda_lstm, cuda_rnnt_lps, cuda_spectrogram,
                                      cuda_viterbi)
-    from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
-
     dev = torch.device("cuda", 0)
     # ---------------------------------------------------------------- phase 1
     card = card_line()
@@ -1552,26 +1756,26 @@ def main(argv=None) -> int:
         raise AssertionError("K2: two runs at the main shape gave different bits")
     del ref_main, dft_main, again
 
-    # K3 ragged (shared-memory and global backpointers) and main: paths equal
-    def k3_inputs(lp, tgt, il, tl):
-        s = 2 * tgt.shape[1] + 1
-        labels = _state_labels(tgt, 0, s)
-        valid, skip = _state_masks(tgt, tl, s)
-        return lp, labels, skip, valid, il, 2 * tl
-
-    def k3_check(name, args):
-        got = cuda_viterbi.viterbi_paths(*args)
-        torch.cuda.synchronize()
-        return check_equal(name, got, cuda_viterbi.viterbi_paths_plain(*args))
-
-    k3_check("K3 viterbi (37x130, V 12, L 9)", k3_inputs(*alignment_inputs(rng, 37, 130, 12, 9, dev)))
-    k3_check("K3 viterbi, global backpointers (5x1500, V 12, L 20)",
-             k3_inputs(*alignment_inputs(rng, 5, 1500, 12, 20, dev)))
+    # K3 on both routes: ragged shapes in every type, ties, -inf columns, S past the warp route's cap
+    # and past 1024, a non-contiguous view; then the main shape, and its bits over two runs
+    check_viterbi_routes(rng, dev)
     em_main = torch.log_softmax(torch.log1p(mel_main) @ proj, -1)
     tl_main = torch.full((B,), L, dtype=torch.int32, device=dev)
     il_main = torch.full((B,), em_main.shape[1], dtype=torch.int32, device=dev)
     k3_args = k3_inputs(em_main, targets, il_main, tl_main)
-    k3_err = k3_check("K3 viterbi main (8192x101, V 32, L 50)", k3_args)
+    k3_ref = cuda_viterbi.viterbi_paths_plain(*k3_args)
+    k3_route = cuda_viterbi.kernel_route(2 * L + 1, em_main.dtype)
+    k3_err = check_viterbi_route(k3_route, "main (8192x101, V 32, L 50)", k3_args, k3_ref)
+    check_viterbi_route("block", "main (8192x101, V 32, L 50)", k3_args, k3_ref)
+    for route in ("warp", "block"):
+        one, two = (cuda_viterbi._launch(route, *k3_args) for _ in range(2))
+        torch.cuda.synchronize()
+        print(f"  K3 bits [{route}] (8192x101): equal over two runs: {torch.equal(one, two)}")
+        if not torch.equal(one, two):
+            raise AssertionError(f"K3: two runs of route {route!r} at the main shape gave different bits")
+    print(f"  K3 launches by route in phase 3: {cuda_viterbi.route_launches}")
+    if min(cuda_viterbi.route_launches.values()) < 1:
+        raise AssertionError(f"K3: a route was never held against the plain version: {cuda_viterbi.route_launches}")
 
     # K5-K8: ragged small shapes (N off the warp and row-block sizes, V = 33 and 4097,
     # k = 1, 3, 10, H = 64 and 96, bf16 rows with forced ties), then the main shape
@@ -1656,6 +1860,7 @@ def main(argv=None) -> int:
     require_launches("one chain step", launches, ["lfilter", "power_spectrogram", "viterbi"])
     require_route("one chain step", launches, "power_spectrogram", "fft")
     require_route("one chain step", launches, "lfilter", "chunked")
+    require_route("one chain step", launches, "viterbi", "warp")
     n_frames = 1 + T // HOP
     if tuple(mel.shape) != (B, n_frames, N_MELS) or tuple(paths.shape) != (B, n_frames):
         raise AssertionError(f"chain shapes: mel {tuple(mel.shape)}, paths {tuple(paths.shape)}")
@@ -1745,8 +1950,9 @@ def main(argv=None) -> int:
                                       "lattice_row_stats")
     require_route("expansion='approx' through K8 (S=32)", route_launches, "lattice_row_stats", "stream")
     model.joiner.activation = "tanh"
-    route_launches.update(row_stats_topk=compare_with_cpu("tanh joiner through K6 (S=32)", model, 32, "exact",
-                                                          "row_stats_topk")["row_stats_topk"])
+    k6_launches = compare_with_cpu("tanh joiner through K6 (S=32)", model, 32, "exact", "row_stats_topk")
+    require_route("tanh joiner through K6 (S=32)", k6_launches, "row_stats_topk", "row")
+    route_launches.update(row_stats_topk=k6_launches["row_stats_topk"])
     model.joiner.activation = "relu"
 
     # ---------------------------------------------------------------- phase 7
@@ -1869,7 +2075,10 @@ def main(argv=None) -> int:
                         bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft"))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
+    k3_block_ms = cuda_ms(lambda: cuda_viterbi._launch("block", *k3_args), 20)
     k3_plain = cuda_ms(lambda: cuda_viterbi.viterbi_paths_plain(*k3_args), 3)
+    print(f"  K3 viterbi at the main shape: route {k3_route} {k3_ms:.4f} ms, route block (the kernel it replaced) "
+          f"{k3_block_ms:.4f} ms on {card}")
     s = 2 * L + 1
     frames_run = int(il_main.clamp(max=n_frames).sum())
     k3_bound = bound_ms(4 * em_main.numel() + B * s * (4 + 2) + 8 * B + 4 * B * n_frames,
@@ -1877,7 +2086,7 @@ def main(argv=None) -> int:
     kernels.append(dict(name="viterbi", route="cuda", source="audio_tpu_torch/csrc/viterbi.cu",
                         replaces="audio_tpu/ops/pallas_viterbi.py:142", launches=launches["viterbi"],
                         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound[0],
-                        bound_by=k3_bound[1], library_ms=None))
+                        bound_by=k3_bound[1], library_ms=None, kernel_route=k3_route, block_ms=k3_block_ms))
     # K5-K8 at the main shape in bf16, K5's and K7's weights as the search passes them (a
     # Linear's layout); launches from the runs of the paths that take them
     inp = slice2_kernel_inputs(np.random.default_rng(2), dev, n_main, RNNT_D, RNNT_V, RNNT_H, torch.bfloat16)
@@ -1917,6 +2126,11 @@ def main(argv=None) -> int:
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
     kernels[-4]["kernel_route"] = "wgmma"  # K5
+    # K6: the route the wrapper takes past 58,112 columns, timed at the tick's shape beside "row"
+    kernels[-3].update(kernel_route=cuda_rnnt_lps.row_stats_route(torch.bfloat16, RNNT_BLANK), global_ms=cuda_ms(
+        lambda: cuda_rnnt_lps._row_stats_launch("global", inp["logits"], RNNT_BLANK, RNNT_BEAM), 10))
+    print(f"  K6 row_stats_topk at the tick's shape: route row {kernels[-3]['ms']:.4f} ms, route global "
+          f"{kernels[-3]['global_ms']:.4f} ms on {card}")
     kernels[-2]["kernel_route"] = "wgmma"  # K7
     # K8: the route it replaced at the tick's shape (its 42 MB fit in L2), and both routes on the
     # train step's lattices, which do not
@@ -1975,7 +2189,7 @@ def main(argv=None) -> int:
                        "train_step": train, "k2_dft_ms": k2_dft_ms, "k2_power_ms": k2_power_ms, "k5_wmma_ms": k5_wmma_ms,
                        "k5_linear_ms": k5_linear_ms, "k7_wmma_ms": k7_wmma_ms, "k7_linear_ms": k7_linear_ms,
                        "k4_serial_ms": k4_serial_ms, "k1_serial_ms": k1_serial_ms, "k1_orders": k1_orders,
-                       "k8_row_ms": k8_row_ms, "k8_train": k8_train,
+                       "k8_row_ms": k8_row_ms, "k8_train": k8_train, "k3_block_ms": k3_block_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()}}, f, indent=1)
     print(json.dumps(result))

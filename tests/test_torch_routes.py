@@ -6,23 +6,28 @@ rule on type and shape, never a caught error.  Here, on the CPU, each rule is
 held on both sides of each limit, and each result against the JAX package on
 the same numpy inputs: spectrograms to 5e-4 of their peak (the JAX package's
 spectrogram tolerance), filters to 1e-5 in float32 and 1e-10 in float64, the
-predictor step to 1e-4 (the port's RNN-T tests).
+predictor step to 1e-4 (the port's RNN-T tests), the tanh-joiner search's row
+statistics exactly (lse to 1e-5) and its beams as the port's decoder tests
+compare them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import audio_tpu.functional as JF
 from audio_tpu import transforms as jax_transforms
+from audio_tpu.ops.pallas_rnnt_lps import row_stats_topk_reference
 
 import audio_tpu_torch.functional as TF
 from audio_tpu_torch import transforms as port_transforms
 from audio_tpu_torch.functional import _filtering, _spectral
 from audio_tpu_torch.models import RNNTBeamSearch
-from audio_tpu_torch.ops import cuda_lstm
+from audio_tpu_torch.models import rnnt_decoder as port_decoder
+from audio_tpu_torch.ops import cuda_lstm, cuda_rnnt_lps
 from audio_tpu_torch.ops.cuda_spectrogram import spectrogram_supported
 
 from .test_torch_rnnt import CFG, shared_models
@@ -141,3 +146,98 @@ def test_predictor_takes_k7_only_where_a_route_takes_its_hidden_size(hidden, fas
     for got_hc, ref_hc in zip(new_state, ref_state):
         for g, r in zip(got_hc, ref_hc):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------------ the tanh-joiner search and K6's limits
+@pytest.mark.parametrize("dtype,blank,want", [
+    (torch.float32, 58111, "row"), (torch.bfloat16, 58111, "row"), (torch.float32, 58112, "global"),
+    (torch.bfloat16, 58112, "global"), (torch.float16, 32, None), (torch.float64, 32, None), (torch.float32, 32, "row"),
+    (torch.float16, 58112, None),
+])
+def test_row_stats_route_on_both_sides_of_k6s_limits(dtype, blank, want):
+    """K6 takes float32 and bfloat16 rows: on route "row" while their columns [0, blank] fit a warp's
+    shared memory (58,112 float32), on route "global" past that."""
+    assert cuda_rnnt_lps.row_stats_route(dtype, blank) == want
+
+
+def global_route_topk(x: torch.Tensor, k: int):
+    """K6's route "global" top-k, one row at a time: round j takes the best (value, lowest index)
+    pair among those ranking after round j-1's, from the row itself, which it never masks."""
+    vals, idx = torch.empty(x.shape[0], k), torch.empty(x.shape[0], k, dtype=torch.int32)
+    for r, row in enumerate(x.tolist()):
+        pv, pi = float("inf"), -1
+        for j in range(k):
+            bv, bi = float("-inf"), None
+            for c, v in enumerate(row):
+                if (v < pv or (v == pv and c > pi)) and v > bv:
+                    bv, bi = v, c
+            bi = 0 if bi is None else bi  # nothing above -inf is left
+            vals[r, j], idx[r, j] = bv, bi
+            pv, pi = bv, bi
+    return vals, idx
+
+
+@pytest.mark.parametrize("k", [1, 5, 12])
+def test_k6_global_route_rounds_equal_top_k(k):
+    """The rule that lets route "global" take rounds without masking the row gives top_k's answer
+    (descending, ties to the lowest index) on rows with repeated values, +inf and -inf."""
+    rng = np.random.default_rng(30 + k)
+    x = torch.from_numpy(np.round(rng.standard_normal((6, 40)), 1).astype(np.float32))
+    x[0, [3, 17, 30]] = float("inf")
+    x[1, ::3] = float("-inf")
+    x[2] = x[2, 0]  # one value throughout
+    vals, idx = global_route_topk(x, k)
+    ref_vals, ref_idx = cuda_rnnt_lps.top_k(x, k)
+    np.testing.assert_array_equal(vals.numpy(), ref_vals.numpy())
+    np.testing.assert_array_equal(idx.numpy(), ref_idx.numpy())
+
+
+@pytest.fixture
+def row_stats_calls(monkeypatch):
+    """Records which of K6's wrapper and its plain version the search's ``_row_stats`` called."""
+    seen = []
+    for name in ("row_stats_topk", "row_stats_topk_plain"):
+        real = getattr(port_decoder, name)
+        monkeypatch.setattr(port_decoder, name, lambda *a, _real=real, _name=name: seen.append(_name) or _real(*a))
+    return seen
+
+
+def test_tanh_joiner_row_stats_in_float16_match_jax(row_stats_calls):
+    """float16 rows are outside K6's types: the plain statistics, equal to the JAX search's reference
+    (indices and raw values exactly, lse to 1e-5)."""
+    _, _, port = shared_models(dict(CFG, transformer_num_layers=1, num_lstm_layers=1), seed=6)
+    port.joiner.activation = "tanh"
+    t_dec = RNNTBeamSearch(port, blank=CFG["num_symbols"] - 1)
+    raw = (np.random.default_rng(6).standard_normal((3, 4, CFG["num_symbols"])) * 4).astype(np.float16)
+    lse, blank_raw, (vals, idx) = t_dec._row_stats(torch.from_numpy(raw), 4)
+    assert row_stats_calls == ["row_stats_topk_plain"]
+    ref = row_stats_topk_reference(jnp.asarray(raw), CFG["num_symbols"] - 1, 4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref[0]), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(blank_raw.numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[3]))
+
+
+def test_tanh_joiner_search_past_k6s_columns_matches_jax(row_stats_calls):
+    """V = 58,114: the join's rows are past the 58,112 columns K6 keeps in shared memory, so the
+    search takes K6's route "global" (here, on CPU tensors, its plain version); its beams equal the
+    JAX search's (counts, tokens, fingerprints; scores to 1e-3)."""
+    from audio_tpu.models.rnnt_decoder import RNNTBeamSearch as JaxBeamSearch
+
+    from .test_torch_rnnt_decoder import assert_beams_match
+
+    v = 58114
+    cfg = dict(CFG, num_symbols=v, transformer_num_layers=1, num_lstm_layers=1)
+    jmodel, params, port = shared_models(cfg, seed=7)
+    jmodel = jmodel.clone(joiner=jmodel.joiner.clone(activation="tanh"))
+    port.joiner.activation = "tanh"
+    kw = dict(blank=v - 1, step_max_tokens=2, max_tokens=12)
+    j_dec, t_dec = JaxBeamSearch(jmodel, params, **kw), RNNTBeamSearch(port, **kw)
+    assert not t_dec._can_fuse_join() and cuda_rnnt_lps.row_stats_route(torch.float32, v - 1) == "global"
+    x = np.random.default_rng(7).standard_normal((cfg["segment_length"] + cfg["right_context_length"],
+                                                   cfg["input_dim"])).astype(np.float32)
+    with torch.no_grad():
+        got = t_dec.forward(torch.from_numpy(x), torch.tensor(x.shape[0]), 3)
+    assert row_stats_calls and set(row_stats_calls) == {"row_stats_topk"}
+    ref = jax.jit(lambda inp, n: j_dec.forward(inp, n, 3))(jnp.asarray(x), jnp.asarray(x.shape[0]))
+    assert_beams_match(got, ref, "tanh joiner, V 58114")
