@@ -7,18 +7,39 @@
 //   K6 row_stats_topk     the same four outputs from logits that exist already;
 //   K8 lattice_row_stats  per row the logsumexp over all V columns, x[blank], x[tgt].
 // Top-k is descending with ties to the lowest index: every comparison is on
-// (value, index) pairs, never on the value alone.
+// (value, index) pairs, never on the value alone.  In K6 a value of -inf ranks like any
+// other, so a row with fewer than k candidates above -inf takes its missing ranks from the
+// lowest -inf columns not yet taken, as top_k does (the TPU kernel repeats column 0 there);
+// NaN is never taken.
 //
 // Bound on the H100.  K6 and K8 by bytes: each row is read once (42 MB at N = 5120,
-// V = 4097, f32; the train step's full lattice, (32, 128, 65, 4097) bf16, 2.18 GB).
-// K6: one warp owns a row.  Route "row" (columns [0, blank] within 58,112): the warp copies
-// the row into shared memory as f32 while taking the maximum, sums the exponentials, and then
-// runs k rounds of (best pair, mask it out) over the copy; a lane only ever touches the
-// columns congruent to its index, so the rounds need no barrier.  Route "global" (any V):
-// the same, over the row in device memory, which it cannot mask: the maximum, then the sum
-// (both lane by lane in the same order as route "row", so the two give the same bits), then
-// k rounds, each taking the best pair that ranks after the last one taken; k + 2 reads of
-// the row.
+// V = 4097, bf16; the train step's full lattice, (32, 128, 65, 4097) bf16, 2.18 GB).
+// K6: one warp owns a row, on one of three routes (ops/cuda_rnnt_lps.py: row_stats_route).
+// Route "stream" (f32 or bf16, k <= 32, any V): the warp reads columns [0, blank] once, as
+// K8's route "stream" does: the candidates [0, blank) as a scalar head up to the row's first
+// 16-byte boundary, 16-byte vectors (batches of four a lane, the next in flight while this one is
+// worked on, past L1) and a scalar tail, folded into K8's online (maximum, rescaled sum) in log2
+// units; lane 0 reads x[blank].  Each
+// lane keeps its k best (value, column) pairs in registers, as unsigned keys whose order is the
+// pairs' (32 bits for bf16 rows below 65,536 columns, else 64): a descending list of KC in {4,
+// 8, 16, 32} slots (the least that holds k; compile-time indexing only) whose last slot is the
+// lane's k-th, and a pair enters only if it ranks before it, by a min-max network.  To keep the
+// insertions few, each batch first bounds the row's k-th candidate from below by the k-th
+// greatest of the 32 lanes' batch maxima (a bitonic sort across the warp: k distinct columns
+// are at least that large); a vector whose maximum reaches neither that bound nor the lane's
+// k-th holds no candidate (one compare a vector), and only the elements of the others that do
+// go into the list.  The head and the tail go last, against the row's bound.  Then k rounds
+// merge the lists: the warp takes the greatest of the lanes' first keys by a reduction, and
+// the lane that held it drops it.  Every pair of the row's k best is among some lane's k best,
+// so the merge is exact.  The sums go through a fixed butterfly: every run gives the same bits.
+// Route "row" (the first kernel; columns [0, blank] within 58,112): the warp copies the row into
+// shared memory as f32 while taking the maximum, sums the exponentials, then runs k rounds over
+// the copy, each taking the best pair and marking its column NaN (which no round takes; a mark
+// of -inf would tie with an untaken -inf); a lane only ever touches the columns congruent to its
+// index, so the rounds need no barrier.  Route "global" (any V): the row in device memory, which
+// it cannot mark, so round j takes the best pair that ranks after round j - 1's; the maximum
+// and the sum lane by lane in route "row"'s order (the two give the same bits); k + 2 reads of
+// the row.  Both take k past 32, and stay for timing.
 // K8, route "stream": one warp owns a row and reads it once, keeping nothing of it.  A row of
 // odd V starts anywhere on the 16-byte grid, so it splits into a scalar head up to the first
 // 16-byte boundary, 16-byte vectors, and a scalar tail; each lane folds its head and tail
@@ -119,27 +140,40 @@ __device__ float warp_load_lse(const T* __restrict__ x_row, float* row, int n_co
   return m + logf(warp_sum(s));
 }
 
-// The warp's best (value, index) pair: the greatest value, the lowest index among equals.
-// A lane with nothing above -inf holds (-inf, INT_MAX); the pair is then (-inf, 0).
+// (v, c) ranks before (bv, bi): a greater value, or the same value at a lower column; the
+// order of every k-best list (K5, K6).  -inf ranks like any other value; NaN before nothing.
+__device__ __forceinline__ bool ranks_before(float v, int c, float bv, int bi) {
+  return v > bv || (v == bv && c < bi);
+}
+
+// The warp's best (value, column) pair: the greatest value, the lowest column among equals.
+// A lane with nothing to offer holds (-inf, INT_MAX).
 __device__ __forceinline__ void warp_best_pair(float& bv, int& bi) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const float ov = __shfl_xor_sync(kFull, bv, o);
     const int oi = __shfl_xor_sync(kFull, bi, o);
-    if (ov > bv || (ov == bv && oi < bi)) {
+    if (ranks_before(ov, oi, bv, bi)) {
       bv = ov;
       bi = oi;
     }
   }
-  if (bi == INT_MAX) bi = 0;  // nothing above -inf is left
 }
 
-// k rounds of (greatest value, lowest index among equals, mask out) over row[0, n).
-__device__ void warp_topk(float* row, int n, int k, float* __restrict__ vals, int* __restrict__ idx, int lane) {
+// The column written for a rank: INT_MAX (no pair left, which only NaN can cause when
+// k <= blank) becomes 0.
+__device__ __forceinline__ int rank_column(int bi) { return bi == INT_MAX ? 0 : bi; }
+
+// K6, route "row": k rounds over the row's shared-memory copy, row[0, n), each taking the warp's best
+// pair; the lane that scans a taken column marks it NaN, which no round takes again, so an untaken
+// -inf still ranks like any other value: a round that finds nothing above -inf takes the lowest
+// -inf column left.  Lane 0 writes the pairs.
+__device__ void warp_topk_marking(float* row, int n, int k, float* __restrict__ vals, int* __restrict__ idx,
+                                  int lane) {
   for (int j = 0; j < k; ++j) {
     float bv = -INFINITY;
     int bi = INT_MAX;
-    for (int c = lane; c < n; c += 32) {  // increasing c: strict > keeps the lowest index
+    for (int c = lane; c < n; c += 32) {  // increasing c: strict > keeps the lowest column
       const float v = row[c];
       if (v > bv) {
         bv = v;
@@ -147,11 +181,20 @@ __device__ void warp_topk(float* row, int n, int k, float* __restrict__ vals, in
       }
     }
     warp_best_pair(bv, bi);
+    if (bi == INT_MAX) {  // the same on every lane
+      for (int c = lane; c < n; c += 32) {
+        if (row[c] == -INFINITY) {
+          bi = c;
+          break;
+        }
+      }
+      warp_best_pair(bv, bi);
+    }
     if (lane == 0) {
       vals[j] = bv;
-      idx[j] = bi;
+      idx[j] = rank_column(bi);
     }
-    if ((bi & 31) == lane) row[bi] = -INFINITY;  // the lane that scans this column
+    if (bi != INT_MAX && (bi & 31) == lane) row[bi] = NAN;
   }
 }
 
@@ -170,12 +213,11 @@ __global__ void row_stats_topk_kernel(const T* __restrict__ x, long long n, int 
     lse[r] = l;
     blank_out[r] = row[blank];
   }
-  warp_topk(row, blank, k, vals + r * k, idx + r * k, lane);
+  warp_topk_marking(row, blank, k, vals + r * k, idx + r * k, lane);
 }
 
-// K6, route "global": the row stays in device memory.  Round j takes the best pair among
-// those ranking after round j-1's (a smaller value, or the same value at a higher index):
-// what route "row" finds once it has masked the pairs taken, NaN never taken on either.
+// K6, route "global": the row stays in device memory, read k + 2 times.  It cannot mark a taken
+// column, so round j takes the best pair among those ranking after round j - 1's.
 template <typename T>
 __global__ void row_stats_topk_global_kernel(const T* __restrict__ x, long long n, int ld, int blank, int k,
                                              float* __restrict__ lse, float* __restrict__ blank_out,
@@ -199,9 +241,9 @@ __global__ void row_stats_topk_global_kernel(const T* __restrict__ x, long long 
   for (int j = 0; j < k; ++j) {
     float bv = -INFINITY;
     int bi = INT_MAX;
-    for (int c = lane; c < blank; c += 32) {  // increasing c: strict > keeps the lowest index
+    for (int c = lane; c < blank; c += 32) {
       const float v = to_f32(row[c]);
-      if ((v < pv || (v == pv && c > pi)) && v > bv) {
+      if ((v < pv || (v == pv && c > pi)) && ranks_before(v, c, bv, bi)) {
         bv = v;
         bi = c;
       }
@@ -209,7 +251,7 @@ __global__ void row_stats_topk_global_kernel(const T* __restrict__ x, long long 
     warp_best_pair(bv, bi);
     if (lane == 0) {
       vals[r * k + j] = bv;
-      idx[r * k + j] = bi;
+      idx[r * k + j] = rank_column(bi);
     }
     pv = bv;
     pi = bi;
@@ -338,6 +380,229 @@ __global__ void __launch_bounds__(kStreamWarps * 32)
     lse[r] = wb == INFINITY || wb == -INFINITY ? wb : wb * kLn2 + logf(total);
     blank_out[r] = blank_v;
     label_out[r] = label_v;
+  }
+}
+
+// ------------------------------------------------------------------- K6, route "stream"
+// A (value, column) pair as one unsigned key whose order is the pairs' rank order: the value's bits
+// mapped to an order-preserving unsigned (-0 as +0) above the column's complement.  Bf16 rows whose
+// candidates lie below column 65,535 take 32-bit keys (16 bits of value, 16 of column), other
+// rows 64-bit keys.  Key 0 ranks after every pair (an empty slot); all ones before every pair.
+// NaN is never keyed: it fails every test that lets a value in.
+template <typename K>
+struct PairKey;
+template <>
+struct PairKey<uint32_t> {
+  __device__ static __forceinline__ uint32_t make(float v, int c) {  // v: a bf16 value
+    uint32_t b = __float_as_uint(v) >> 16;
+    b = b == 0x8000u ? 0u : b;
+    return ((b & 0x8000u ? ~b & 0xffffu : b | 0x8000u) << 16) | (0xffffu - static_cast<uint32_t>(c));
+  }
+  __device__ static __forceinline__ float value(uint32_t key) {
+    const uint32_t o = key >> 16;
+    return __uint_as_float((o & 0x8000u ? o & 0x7fffu : ~o & 0xffffu) << 16);
+  }
+  __device__ static __forceinline__ int column(uint32_t key) { return static_cast<int>(0xffffu - (key & 0xffffu)); }
+  // the warp's greatest key
+  __device__ static __forceinline__ uint32_t warp_max(uint32_t key) { return __reduce_max_sync(kFull, key); }
+};
+template <>
+struct PairKey<unsigned long long> {
+  __device__ static __forceinline__ unsigned long long make(float v, int c) {
+    uint32_t b = __float_as_uint(v);
+    b = b == 0x80000000u ? 0u : b;
+    const uint32_t o = b & 0x80000000u ? ~b : b | 0x80000000u;
+    return (static_cast<unsigned long long>(o) << 32) | (0xffffffffu - static_cast<uint32_t>(c));
+  }
+  __device__ static __forceinline__ float value(unsigned long long key) {
+    const uint32_t o = static_cast<uint32_t>(key >> 32);
+    return __uint_as_float(o & 0x80000000u ? o & 0x7fffffffu : ~o);
+  }
+  __device__ static __forceinline__ int column(unsigned long long key) {
+    return static_cast<int>(0xffffffffu - static_cast<uint32_t>(key));
+  }
+  __device__ static __forceinline__ unsigned long long warp_max(unsigned long long key) {
+    const uint32_t hi = __reduce_max_sync(kFull, static_cast<uint32_t>(key >> 32));
+    const uint32_t lo = __reduce_max_sync(kFull, static_cast<uint32_t>(key >> 32) == hi ? static_cast<uint32_t>(key) : 0u);
+    return (static_cast<unsigned long long>(hi) << 32) | lo;
+  }
+};
+
+// A lane's k best keys, descending, in the last k of KC register slots (compile-time indexing
+// only).  The first KC - k slots hold all ones, which nothing passes, so the last slot is the
+// k-th key and a key enters only if it is greater.
+template <typename K, int KC>
+struct LaneTopK {
+  K key[KC];
+
+  __device__ __forceinline__ void init(int k) {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) key[j] = j < KC - k ? ~K(0) : K(0);
+  }
+
+  // the k-th value, -inf while the lane has fewer than k pairs
+  __device__ __forceinline__ float kth() const { return key[KC - 1] ? PairKey<K>::value(key[KC - 1]) : -INFINITY; }
+
+  // a sorted insertion by a min-max network: slot j takes min(slot j - 1, max(slot j, key))
+  __device__ __forceinline__ void offer(float v, int c) {
+    const K kv = PairKey<K>::make(v, c);
+    if (kv <= key[KC - 1]) return;
+#pragma unroll
+    for (int j = KC - 1; j > 0; --j) key[j] = min(key[j - 1], max(key[j], kv));
+    key[0] = max(key[0], kv);
+  }
+
+  // drops the KC - k slots of all ones: the k keys move to the front
+  __device__ __forceinline__ void unpin(int k) {
+    const int shift = KC - k;
+#pragma unroll
+    for (int b = 1; b < KC; b <<= 1) {
+      if (shift & b) {
+#pragma unroll
+        for (int j = 0; j < KC; ++j) key[j] = j + b < KC ? key[j + b] : K(0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int j = 0; j + 1 < KC; ++j) key[j] = key[j + 1];
+    key[KC - 1] = K(0);
+  }
+};
+
+// The k-th greatest of the warp's 32 values, 1 <= k <= 32: a bitonic sort across the lanes,
+// descending.
+__device__ __forceinline__ float warp_kth_greatest(float m, int k, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float o = __shfl_xor_sync(kFull, m, stride);
+      m = (((lane & size) == 0) == ((lane & stride) == 0)) ? fmaxf(m, o) : fminf(m, o);
+    }
+  }
+  return __shfl_sync(kFull, m, k - 1);
+}
+
+// 16-byte loads a lane issues at once, by list capacity, and the blocks of 8 warps an SM must hold
+// (two: at most 128 registers a thread).  A lane keeps two batches in flight: it loads the next
+// while it works on this one.  Uncapped, a batch of eight left room for one block an SM, and it
+// spilled under the cap of 128; batches of four capped at 80 registers for three blocks an SM
+// spilled in the k = 10 instance, and batches of two, which fit three blocks, ran slower.
+// Batches of four keep 16 warps an SM resident with 4 KB of loads in flight each, the k = 10
+// instance without a spill.
+template <int KC>
+struct TopStreamBatch {
+  static constexpr int value = KC <= 16 ? 4 : 2;
+};
+constexpr int kTopStreamMinBlocks = 2;
+
+template <typename T, typename K, int KC>
+__global__ void __launch_bounds__(kStreamWarps * 32, kTopStreamMinBlocks)
+    row_stats_topk_stream_kernel(const T* __restrict__ x, long long n, int ld, int blank, int k,
+                                 float* __restrict__ lse, float* __restrict__ blank_out,
+                                 float* __restrict__ vals, int* __restrict__ idx) {
+  using V16 = Vec16<T>;
+  constexpr int E = V16::kElems;
+  constexpr int kBatch = TopStreamBatch<KC>::value;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = static_cast<long long>(blockIdx.x) * kStreamWarps + warp;
+  if (r >= n) return;
+  const T* row = x + r * ld;
+  // the candidates [0, blank): a head up to the row's first 16-byte boundary, vectors, a tail
+  int head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / sizeof(T));
+  head = head < blank ? head : blank;
+  const int nvec = (blank - head) / E;
+  const int tail0 = head + nvec * E;
+  LaneTopK<K, KC> top;
+  top.init(k);
+  float base = -INFINITY, s = 0.f;
+  const float blank_v = lane == 0 ? to_f32(row[blank]) : -INFINITY;
+  const float h = lane < head ? to_f32(row[lane]) : -INFINITY;
+  const float t = tail0 + lane < blank ? to_f32(row[tail0 + lane]) : -INFINITY;
+  fold<3>(base, s, fmaxf(fmaxf(h, t), blank_v), [&](int j) { return j == 0 ? h : j == 1 ? t : blank_v; });
+  const uint4* vec = reinterpret_cast<const uint4*>(row + head);
+  float bound = -INFINITY;  // k distinct candidates seen so far are at least this large
+  // the next batch's loads go out before this batch's sort, fold and insertions
+  uint4 next[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    const int j = 32 * u + lane;
+    next[u] = j < nvec ? ld_stream(vec + j) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int j0 = 0; j0 < nvec; j0 += 32 * kBatch) {
+    uint4 raw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      raw[u] = next[u];
+      const int j = j0 + 32 * (kBatch + u) + lane;
+      next[u] = j < nvec ? ld_stream(vec + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    // vectors past the row's last read as -inf, and are never candidates
+    auto live = [&](int u) { return j0 + 32 * u + lane < nvec; };
+    auto value = [&](int i) { return live(i / E) ? V16::get(raw[i / E], i % E) : -INFINITY; };
+    float vmax[kBatch];  // each vector's maximum
+    float mb = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      vmax[u] = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < E; ++e) vmax[u] = fmaxf(vmax[u], value(u * E + e));
+      mb = fmaxf(mb, vmax[u]);
+    }
+    bound = fmaxf(bound, warp_kth_greatest(mb, k, lane));
+    // a vector holds candidates only if its maximum reaches the larger of the bound and the
+    // lane's k-th: one compare a vector; its elements then go through the list one by one
+    const float thr = fmaxf(bound, top.kth());
+    unsigned vcand = 0;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) vcand |= live(u) && vmax[u] >= thr ? 1u << u : 0u;
+    fold<kBatch * E>(base, s, mb, value);
+    while (vcand) {
+      const int u = __ffs(vcand) - 1;
+      vcand &= vcand - 1;
+      uint4 w = raw[0];
+#pragma unroll
+      for (int uu = 1; uu < kBatch; ++uu) {
+        if (uu == u) w = raw[uu];
+      }
+      const int col0 = head + (j0 + 32 * u + lane) * E;
+      unsigned ecand = 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) ecand |= V16::get(w, e) >= thr ? 1u << e : 0u;
+      while (ecand) {
+        const int e = __ffs(ecand) - 1;
+        ecand &= ecand - 1;
+        top.offer(V16::get(w, e), col0 + e);
+      }
+    }
+  }
+  // the head and the tail last, against the bound of the whole row
+  if (lane < head && h >= bound) top.offer(h, lane);
+  if (tail0 + lane < blank && t >= bound) top.offer(t, tail0 + lane);
+  top.unpin(k);
+  const float wb = warp_max(base);
+  const float total = warp_sum(base == -INFINITY ? 0.f : s * ex2(base - wb));
+  // k rounds: the warp takes the greatest of the lanes' first keys, and the lane that held it
+  // drops it; lane j keeps rank j
+  float out_v = 0.f;
+  int out_c = 0;
+  for (int j = 0; j < k; ++j) {
+    const K best = PairKey<K>::warp_max(top.key[0]);
+    if (top.key[0] == best) top.pop();
+    if (lane == j) {
+      out_v = best ? PairKey<K>::value(best) : -INFINITY;
+      out_c = best ? PairKey<K>::column(best) : 0;  // no pair left: only NaN leaves none when k <= blank
+    }
+  }
+  if (lane == 0) {
+    lse[r] = wb == INFINITY || wb == -INFINITY ? wb : wb * kLn2 + logf(total);
+    blank_out[r] = blank_v;
+  }
+  if (lane < k) {
+    vals[r * k + lane] = out_v;
+    idx[r * k + lane] = out_c;
   }
 }
 
@@ -474,11 +739,6 @@ constexpr int kStages = 3;       // W tiles in flight or in use
 constexpr int kApad = 8;         // padding of the act rows, in elements
 constexpr int kBld = kTK + 8;    // row stride of a W tile [kTN][kBld], in elements: 80 bytes
 constexpr int kCld = kTN + 4;    // row stride of the logits tile, in floats
-
-// (value, index) order of the k-best list: greater value first, lower index among equals
-__device__ __forceinline__ bool ranks_before(float v, int i, float ov, int oi) {
-  return v > ov || (v == ov && i < oi);
-}
 
 // W is read as it lies in a torch Linear: (V, D), column v of the product contiguous over
 // the depth, row stride ldw; d is a multiple of 8 and every row 16-byte aligned.
@@ -1075,6 +1335,25 @@ int launch_row_stats_topk_global(const void* x, long long n, int ld, int blank, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename K, int KC>
+int launch_row_stats_topk_stream_kc(const void* x, long long n, int ld, int blank, int k, float* lse,
+                                    float* blank_out, float* vals, int* idx, cudaStream_t stream) {
+  const long long blocks = (n + kStreamWarps - 1) / kStreamWarps;
+  row_stats_topk_stream_kernel<T, K, KC><<<static_cast<unsigned>(blocks), kStreamWarps * 32, 0, stream>>>(
+      static_cast<const T*>(x), n, ld, blank, k, lse, blank_out, vals, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance whose list capacity is the least of 4, 8, 16 and 32 that holds k
+template <typename T, typename K>
+int launch_row_stats_topk_stream(const void* x, long long n, int ld, int blank, int k, float* lse,
+                                 float* blank_out, float* vals, int* idx, cudaStream_t s) {
+  if (k <= 4) return launch_row_stats_topk_stream_kc<T, K, 4>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+  if (k <= 8) return launch_row_stats_topk_stream_kc<T, K, 8>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+  if (k <= 16) return launch_row_stats_topk_stream_kc<T, K, 16>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+  return launch_row_stats_topk_stream_kc<T, K, 32>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+}
+
 template <typename T>
 int launch_lattice_stream(const void* x, const int* tgt, long long n, int v, int blank, float* lse,
                           float* blank_out, float* label_out, cudaStream_t stream) {
@@ -1143,8 +1422,23 @@ bool join_stats_topk_tensor_cores(int d, int k, int bf16, long long ldw, const v
 // Every entry returns the cudaError_t of its launch.  `bf16` selects __nv_bfloat16
 // inputs, else float32; outputs are float32 and int32.  1 <= k <= blank.
 
-// K6, route "row".  x: (n, ld) rows of which columns [0, blank] are read, blank + 1 <= 58,112
-// (a row of f32 a warp in shared memory); lse, blank_out: (n,); vals, idx: (n, k).
+// K6, route "stream".  x: (n, ld) rows of which columns [0, blank] are read, any blank;
+// 1 <= k <= 32; lse, blank_out: (n,); vals, idx: (n, k).
+extern "C" int row_stats_topk_stream(const void* x, long long n, int ld, int blank, int k, int bf16, float* lse,
+                                     float* blank_out, float* vals, int* idx, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > 32 || k > blank || blank >= ld) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  using K32 = uint32_t;
+  using K64 = unsigned long long;
+  if (!bf16) return launch_row_stats_topk_stream<float, K64>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+  return blank <= 0xffff ? launch_row_stats_topk_stream<B, K32>(x, n, ld, blank, k, lse, blank_out, vals, idx, s)
+                         : launch_row_stats_topk_stream<B, K64>(x, n, ld, blank, k, lse, blank_out, vals, idx, s);
+}
+
+// K6, route "row".  As route "stream", any k <= blank, blank + 1 <= 58,112 (a row of f32 a warp
+// in shared memory).
 extern "C" int row_stats_topk(const void* x, long long n, int ld, int blank, int k, int bf16, float* lse,
                               float* blank_out, float* vals, int* idx, void* stream) {
   if (n <= 0) return 0;

@@ -234,8 +234,8 @@ class RNNTBeamSearch:
 
     def _row_stats(self, raw, beam_width: int):
         """(lse, blank logit, each row's top-k) of the join (kernel K6 where ``row_stats_route``
-        takes the rows: float32 or bfloat16, any V; else the plain version, as the JAX search
-        leaves its kernel there).
+        takes the rows: float32 or bfloat16, any V, on route "stream" at a beam of 32 or less;
+        else the plain version, as the JAX search leaves its kernel there).
 
         Each (stream, hypothesis) row's ``beam_width`` best non-blank logits
         are the only entries the selection over the stream's pool can pick
@@ -246,7 +246,8 @@ class RNNTBeamSearch:
         """
         if self.temperature == 1.0:
             blank = raw.shape[-1] - 1
-            stats = row_stats_topk if row_stats_route(raw.dtype, blank) is not None else row_stats_topk_plain
+            kernel = row_stats_route(raw.dtype, blank, beam_width) is not None
+            stats = row_stats_topk if kernel else row_stats_topk_plain
             lse, blank_raw, vals, idx = stats(raw, blank, beam_width)
             return lse, blank_raw, (vals, idx)
         lse, blank_raw = self._lse_blank(raw)

@@ -7,10 +7,11 @@ CUDA C++ in ``csrc/rnnt_lps.cu``, replacing the TPU kernels of
   the logsumexp over columns <= blank, the blank logit and the top-k of
   columns [0, blank); the (N, V) logits never reach device memory;
 * K6 ``row_stats_topk``: the same four outputs from logits that exist, on
-  the route :func:`row_stats_route` names: ``"row"`` (the row in shared
-  memory, columns [0, blank] within 58,112) or ``"global"`` (the row read
-  from device memory k + 2 times, any V); ``row_stats_route_launches`` counts
-  each route's launches;
+  the route :func:`row_stats_route` names: ``"stream"`` (one read of each
+  row, the top-k in registers, k <= 32, any V), or past k = 32 ``"row"``
+  (the row in shared memory, columns [0, blank] within 58,112) or
+  ``"global"`` (the row read from device memory k + 2 times, any V);
+  ``row_stats_route_launches`` counts each route's launches;
 * K8 ``lattice_row_stats``: per row the logsumexp over all V columns, the
   blank logit and the logit at a per-row target, on route ``"stream"`` (one
   read of each row, any V); the first kernel stays as route ``"row"`` (the row in
@@ -27,8 +28,10 @@ TMA, the columns split over :func:`join_column_splits` blocks a row block),
 ``"wmma"`` and ``"simt"``; ``join_route_launches`` counts each route's launches.
 
 Top-k everywhere is ``jax.lax.top_k``'s: descending, ties to the lowest
-index.  ``torch.topk`` promises no order among equal values, so the plain
-versions use :func:`top_k`, a stable descending sort.
+index; in K6, -inf ranks like any other value, so a row with fewer than k
+candidates above -inf fills its last ranks with its lowest -inf columns.
+``torch.topk`` promises no order among equal values, so the plain versions
+use :func:`top_k`, a stable descending sort.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ __all__ = [
 launches = {"join_stats_topk": 0, "row_stats_topk": 0, "lattice_row_stats": 0}
 join_route_launches = {"wgmma": 0, "wmma": 0, "simt": 0}
 lattice_route_launches = {"stream": 0, "row": 0}
-row_stats_route_launches = {"row": 0, "global": 0}
+row_stats_route_launches = {"stream": 0, "row": 0, "global": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW_ARGTYPES = [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P]
@@ -77,6 +80,8 @@ _MAX_SMEM = 232448
 # shared memory a block can opt in to on sm_90: a row kernel (K6, K8's route "row") keeps one
 # f32 row a warp
 _MAX_ROW_COLS = 232448 // 4
+# K6's route "stream" keeps a lane's k best pairs in registers: k <= 32
+_STREAM_MAX_K = 32
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -146,13 +151,16 @@ def _stats_outputs(lead, k: int, device):
     return lse, blank_raw, vals, idx
 
 
-def row_stats_route(dtype: torch.dtype, blank: int) -> Optional[str]:
-    """K6's route for rows of ``dtype`` whose columns [0, blank] it reads: ``"row"`` while they fit
-    a warp's shared memory (blank + 1 <= 58,112), ``"global"`` past that; None for a type other than
-    float32 or bfloat16, where a caller on CUDA takes :func:`row_stats_topk_plain`, as the JAX
-    package's search leaves its kernel there."""
+def row_stats_route(dtype: torch.dtype, blank: int, k: int) -> Optional[str]:
+    """K6's route for rows of ``dtype`` whose columns [0, blank] it reads, top-k ``k``: ``"stream"``
+    (one read of the row, k <= 32, any V); past k = 32 ``"row"`` while the columns fit a warp's shared
+    memory (blank + 1 <= 58,112), ``"global"`` past that; None for a type other than float32 or
+    bfloat16, where a caller on CUDA takes :func:`row_stats_topk_plain`, as the JAX package's search
+    leaves its kernel there."""
     if dtype not in _DTYPES:
         return None
+    if k <= _STREAM_MAX_K:
+        return "stream"
     return "row" if blank + 1 <= _MAX_ROW_COLS else "global"
 
 
@@ -171,12 +179,12 @@ def row_stats_topk(x: torch.Tensor, blank: int, k: int):
         return row_stats_topk_plain(x, blank, k)
     _check_logits("row_stats_topk", x, blank, 0)
     _check_k("row_stats_topk", blank, k)
-    return _row_stats_launch(row_stats_route(x.dtype, blank), x, blank, k)
+    return _row_stats_launch(row_stats_route(x.dtype, blank, k), x, blank, k)
 
 
 def _row_stats_launch(route: str, x: torch.Tensor, blank: int, k: int):
-    """One launch of K6 on ``route`` (the wrapper's checks done); "row" keeps columns [0, blank]
-    in shared memory and takes blank + 1 <= 58,112."""
+    """One launch of K6 on ``route`` (the wrapper's checks done); "stream" takes k <= 32, "row"
+    keeps columns [0, blank] in shared memory and takes blank + 1 <= 58,112."""
     if route == "row":
         _check_logits("row_stats_topk", x, blank, blank + 1)
     v = x.shape[-1]
@@ -185,7 +193,7 @@ def _row_stats_launch(route: str, x: torch.Tensor, blank: int, k: int):
     if x2.shape[0] == 0:
         return outs
     lse, blank_raw, vals, idx = outs
-    symbol = "row_stats_topk" if route == "row" else "row_stats_topk_global"
+    symbol = {"stream": "row_stats_topk_stream", "row": "row_stats_topk", "global": "row_stats_topk_global"}[route]
     with torch.cuda.device(x.device):
         fn = _build.bind("rnnt_lps", symbol, _ROW_ARGTYPES)
         err = fn(x2.data_ptr(), x2.shape[0], v, blank, k, int(x.dtype == torch.bfloat16), lse.data_ptr(),

@@ -24,7 +24,14 @@ Phases, each of which raises on failure:
    and 128; K8 on its "stream" route in f32 and bf16 at V 1, 2, 7, 8, 9, 33,
    4097 and 65537, every row start off the 16-byte grid, the blank and the
    targets at 0 and V - 1, rows whose first columns are -inf, the train
-   step's full lattice and pruned band, bitwise equal over two runs; K2 on both of its
+   step's full lattice and pruned band, bitwise equal over two runs; K6 on its
+   "stream" route in f32 and bf16 at V 33, 4097, 58,114 and 65,537 and k 1, 8,
+   10, 16 and 32 (each list capacity), every row start off the 16-byte grid, rows
+   with exact ties and rows with fewer than k candidates above -inf (some -inf
+   apart from the blank), bitwise equal over two runs, and on its "row" and
+   "global" routes on the same rows and at every K5-K8 shape; K5's three
+   routes on rows with fewer than k candidates above -inf, recorded against
+   top_k's ranks, not a gate; K2 on both of its
    routes: mel, power and magnitude at n_fft 400, 512, 1024 and 2048 on "fft"
    and at 398 on "dft", the main shape on both, bitwise equal over two runs;
    K5 on its "wgmma" route at N 1, 40, 63, 65, 5120 and 5121, V 33 to 4097,
@@ -48,7 +55,8 @@ Phases, each of which raises on failure:
    (spectrogram at n_fft 4096 and at power 3, mel_spectrogram at hop 16,
    lfilter and filtfilt in float64 and lfilter with 130 taps, MelSpectrogram
    at power 1, the search's predictor at H 640, the tanh-joiner search's row
-   statistics on float16 rows and at V 58,114) against the CPU, and
+   statistics on float16 rows (no K6 launch) and at V 58,114 (K6 on
+   "stream")) against the CPU, and
    forced_align in bfloat16, float16 and float64 and at L = 600, which now
    launch K3, against the CPU;
 4. run the first main path, bench.py's chain, at full width (B=8192 streams
@@ -67,10 +75,14 @@ Phases, each of which raises on failure:
    ticks of ``RNNTBeamSearch.infer_batch`` from ``init_beams`` with carried
    state.  The counters of K5 and K7 must move, each only on its "wgmma" route;
    the beams must be well formed.  Time the tick for both forms of the inner
-   loop and profile one;
+   loop and profile one.  Then the same model with a tanh joiner
+   (``joiner.activation = "tanh"``), whose (S, K, V) logits exist: four ticks
+   from ``init_beams``, K6 must move, only on "stream", and K5 not at all; the
+   beams must be well formed; time the tick (early exit) and profile one;
 6. the same search in f32 on the card against the CPU (which runs the plain
-   versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move) and
-   ``expansion="approx"`` (K8 must move, only on "stream") at S=32, two ticks each;
+   versions): the ReLU joiner (K5) at S=4, a tanh joiner (K6 must move, only
+   on "stream") and ``expansion="approx"`` (K8 must move, only on "stream") at
+   S=32, two ticks each;
 7. the pipeline: seeded noise -> streaming feature extractor (K2 must move)
    -> ``infer`` segment by segment (K5 must move);
 8. the third main path, the Emformer RNN-T train step of
@@ -87,11 +99,12 @@ Phases, each of which raises on failure:
    only on "fft", K4 backward must move, only on "chunked"), against the CPU at B=4.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
-and its library call; for K1, K2, K3, K4, K5, K7 and K8 also the route each
-replaced ("serial", "dft", "block", "serial", "wmma", "wmma", "row"), K1 at orders 8 and
-12 on both routes, K8 on the train step's full lattice and pruned band, for K2
-the power spectra without the mel product and, for K5 and K7, the product
-alone (``torch.nn.functional.linear``).
+and its library call; for K1 to K8 also the route each replaced ("serial",
+"dft", "block", "serial", "wmma", "row", "wmma", "row"), for K6 also its route
+"global", K1 at orders 8 and 12 on both routes, K8 on the train step's full
+lattice and pruned band, for K2 the power spectra without the mel product,
+for K5 and K7 the product alone (``torch.nn.functional.linear``) and for K6
+``torch.topk`` of the candidates alone.
 Prints one JSON line of per-kernel numbers, then, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
@@ -191,9 +204,9 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
 
 def template_args(mangled: str) -> list:
     """A kernel's template arguments from their mangled form: types, integers and booleans."""
-    names = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16", "6__half": "half"}
+    names = {"f": "float", "d": "double", "j": "uint32", "y": "uint64", "13__nv_bfloat16": "bf16", "6__half": "half"}
     return [m.group(1) or {"0": "false", "1": "true"}.get(m.group(2)) or names[m.group(0)]
-            for m in re.finditer(r"Li(\d+)E?|Lb([01])E?|13__nv_bfloat16|6__half|[fd]", mangled)]
+            for m in re.finditer(r"Li(\d+)E?|Lb([01])E?|13__nv_bfloat16|6__half|[fdjy]", mangled)]
 
 
 def ptxas_entries(log: str) -> list:
@@ -348,12 +361,14 @@ def sum_tol(base: float, depth: int) -> float:
     return base * max(1.0, math.sqrt(depth / 64.0))
 
 
-def check_row_topk(name: str, got, ref, tol: float) -> float:
-    """K6: lse, blank and values within ``tol`` (atol + rtol), indices equal, ties included."""
+def check_row_topk(name: str, got, ref, tol: float, quiet: bool = False, finite: bool = True) -> float:
+    """K6: lse, blank and values within ``tol`` (atol + rtol), indices equal, ties included;
+    ``finite=False`` for rows with -inf candidates, whose values agree on -inf."""
     err = 0.0
     for part, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
-        err = max(err, check_close(f"{name} {part}", g, r, tol, tol))
-    check_equal(f"{name} idx", got[3], ref[3])
+        err = max(err, check_close(f"{name} {part}", g, r, tol, tol, quiet=quiet, finite=finite))
+    if not quiet or not bool((got[3] == ref[3]).all()):
+        check_equal(f"{name} idx", got[3], ref[3])
     return err
 
 
@@ -434,18 +449,20 @@ def check_slice2_kernels(rng, dev, n: int, d: int, v: int, hd: int, k: int, dtyp
     if bf16:  # force exact ties inside rows: repeated values at scattered columns
         x = x.clone()
         x[:, 1::7] = x[:, :1]
+    before = dict(cuda_rnnt_lps.row_stats_route_launches)
     got = cuda_rnnt_lps.row_stats_topk(x, blank, k)
     torch.cuda.synchronize()
+    if cuda_rnnt_lps.row_stats_route_launches["stream"] != before["stream"] + 1:
+        raise AssertionError(f"K6 {label}: the wrapper did not launch route 'stream'")
     ref = cuda_rnnt_lps.row_stats_topk_plain(x, blank, k)
-    errs["row_stats_topk"] = check_row_topk(f"K6 row_stats_topk {label}", got, ref, tol)
-    # K6's route "global" (the row in device memory, which the wrapper takes past 58,112 columns)
-    # on the same rows
-    before = cuda_rnnt_lps.row_stats_route_launches["global"]
-    glob = cuda_rnnt_lps._row_stats_launch("global", x, blank, k)
-    torch.cuda.synchronize()
-    if cuda_rnnt_lps.row_stats_route_launches["global"] != before + 1:
-        raise AssertionError(f"K6 {label}: route 'global' was not counted")
-    check_row_topk(f"K6 row_stats_topk [global] {label}", glob, ref, tol)
+    errs["row_stats_topk"] = check_row_topk(f"K6 row_stats_topk [stream] {label}", got, ref, tol)
+    # K6's routes "row" and "global" (the wrapper's past k = 32) on the same rows
+    for route in ("row", "global"):
+        got = cuda_rnnt_lps._row_stats_launch(route, x, blank, k)
+        torch.cuda.synchronize()
+        if cuda_rnnt_lps.row_stats_route_launches[route] != before[route] + 1:
+            raise AssertionError(f"K6 {label}: route {route!r} was not counted")
+        check_row_topk(f"K6 row_stats_topk [{route}] {label}", got, ref, tol)
     got = cuda_rnnt_lps.lattice_row_stats(x, inp["tgt"], blank)
     torch.cuda.synchronize()
     ref = cuda_rnnt_lps.lattice_row_stats_plain(x, inp["tgt"], blank)
@@ -875,6 +892,108 @@ def check_lattice_stream(rng, dev) -> None:
         raise AssertionError(f"K8: two runs gave different bits {same}")
 
 
+def few_candidate_rows(rng, n: int, v: int):
+    """Rows (n, v) whose candidates [0, v - 1) are -inf but at a few scattered columns: a third of
+    the rows keep none (-inf apart from the blank), the others one to eight, some tied."""
+    x = np.full((n, v), -np.inf, np.float32)
+    x[:, -1] = rng.standard_normal(n)
+    for r in range(n):
+        if r % 3:
+            cols = rng.choice(v - 1, size=min(v - 1, 1 + r % 8), replace=False)
+            x[r, cols] = np.round(rng.standard_normal(len(cols)), 1)
+    return x
+
+
+def check_row_stats_stream(rng, dev) -> None:
+    """K6's route "stream" through the wrapper, against the plain version (indices equal; lse, blank
+    and values within 1e-5 in f32 and 1e-2 in bf16, the JAX kernel tests'): V 33, 4097, 58,114 and
+    65,537 at k 1, 8, 10, 16 and 32 (every list capacity; 32-bit keys for bf16 below 65,536 columns,
+    64-bit keys above and for f32), dense rows with exact ties and rows
+    with fewer than k candidates above -inf (a third -inf apart from the blank), each row start at
+    every offset from the 16-byte grid; routes "row" (within its 58,112 columns) and "global" on
+    the same rows; then the same bits over two runs."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        elems = 16 // (4 if dtype == torch.float32 else 2)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        for v in (33, 4097, 58114, 65537):
+            n = 9 if v > 5000 else 37
+            dense = (2.0 * rng.standard_normal((n, v))).astype(np.float32)
+            dense[:, 1::7] = dense[:, :1]
+            x = torch.as_tensor(np.concatenate([dense, few_candidate_rows(rng, n, v)]), device=dev).to(dtype)
+            for k in (1, 8, 10, 16, 32):
+                if k > v - 1:
+                    continue
+                ref = cuda_rnnt_lps.row_stats_topk_plain(x, v - 1, k)
+                err = 0.0
+                for offset in range(elems):
+                    buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+                    xo = buf[offset:].view(x.shape)
+                    xo.copy_(x)
+                    before = cuda_rnnt_lps.row_stats_route_launches["stream"]
+                    got = cuda_rnnt_lps.row_stats_topk(xo, v - 1, k)
+                    torch.cuda.synchronize()
+                    if cuda_rnnt_lps.row_stats_route_launches["stream"] != before + 1:
+                        raise AssertionError("K6: the stream route's counter did not move")
+                    err = max(err, check_row_topk(f"K6 row_stats_topk [stream] {tag} V {v}, k {k}, offset {offset}",
+                                                  got, ref, tol, quiet=True, finite=False))
+                routes = ("row", "global") if v <= 58112 else ("global",)
+                for route in routes:
+                    got = cuda_rnnt_lps._row_stats_launch(route, x, v - 1, k)
+                    torch.cuda.synchronize()
+                    check_row_topk(f"K6 row_stats_topk [{route}] {tag} V {v}, k {k}", got, ref, tol, quiet=True,
+                                   finite=False)
+                print(f"  K6 row_stats_topk [stream] {tag} V {v}, k {k} ({n} dense rows, {n} with at most 8 "
+                      f"candidates above -inf, a third none; every row start mod {elems}): max_abs_err {err:.3e} "
+                      f"(limit {tol:.0e} + {tol:.0e}·|ref|), indices equal; routes {', '.join(routes)} on the same "
+                      "rows: equal too")
+    x = torch.as_tensor(rng.standard_normal((RNNT_S * RNNT_BEAM + 1, RNNT_V)).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    x[:, 1::7] = x[:, :1]
+    one, two = (cuda_rnnt_lps.row_stats_topk(x[1:], RNNT_BLANK, RNNT_BEAM) for _ in range(2))
+    same = [torch.equal(a, b) for a, b in zip(one, two)]
+    print(f"  K6 bits ({RNNT_S * RNNT_BEAM} rows of V {RNNT_V}, bf16 with ties, rows off the 16-byte grid): equal "
+          f"over two runs: {same}")
+    if not all(same):
+        raise AssertionError(f"K6: two runs gave different bits {same}")
+
+
+def observe_join_few_candidates(rng, dev) -> dict:
+    """K5 on rows whose bias leaves fewer than k candidates above -inf (3 of them, k 10), on each of
+    its three routes, against top_k's ranks.  A record for the next change to K5, not a gate: it
+    prints what each route gives and raises on nothing."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    n, d, v, k = 70, 64, 300, RNNT_BEAM
+    act = torch.as_tensor(np.maximum(rng.standard_normal((n, d)), 0.0).astype(np.float32), device=dev)
+    w = torch.as_tensor((rng.standard_normal((d, v)) / math.sqrt(d)).astype(np.float32), device=dev)
+    b = np.full(v, -np.inf, np.float32)
+    b[[7, 150, 298]] = 0.0
+    b[-1] = 4.0
+    act, w, b = act.to(torch.bfloat16), w.to(torch.bfloat16), torch.as_tensor(b, device=dev).to(torch.bfloat16)
+    ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, v - 1, k)
+    w_linear = w.t().contiguous().t()
+    outs = {}
+    for route in ("wgmma", "wmma", "simt"):
+        out = cuda_rnnt_lps._stats_outputs((n,), k, dev)
+        cuda_rnnt_lps._join_launch(route, act, w if route == "simt" else w_linear, b, v - 1, k, out)
+        torch.cuda.synchronize()
+        same_idx = bool((out[3] == ref[3]).all())
+        finite_close = bool(((out[2] - ref[2]).abs() <= 2e-2 + 2e-2 * ref[2].abs()).logical_or(out[2] == ref[2]).all())
+        lse_close = bool(((out[0] - ref[0]).abs() <= 2e-2 + 2e-2 * ref[0].abs()).all())
+        outs[route] = dict(indices_equal=same_idx, values_close=finite_close, lse_close=lse_close,
+                           row0_idx=out[3][0].tolist(), ref_row0_idx=ref[3][0].tolist())
+        print(f"  K5 join_stats_topk [{route}] on rows with 3 candidates above -inf, k {k}: indices equal to "
+              f"top_k's: {same_idx}, values within 2e-2: {finite_close}, lse within 2e-2: {lse_close}; row 0 "
+              f"{out[3][0].tolist()} against {ref[3][0].tolist()} (recorded, not a gate)")
+    return outs
+
+
 def k3_inputs(lp, tgt, il, tl):
     """K3's arguments for emissions ``lp`` (B, T, V) and targets ``tgt`` (B, L) of lengths il and tl."""
     from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
@@ -1013,7 +1132,7 @@ def check_fallback_routes(dev) -> None:
     (check_iir's), the predictor step 1e-4 in float32.  Then forced_align in bfloat16, float16 and
     float64 and at L = 600, which K3 now takes (paths equal, scores exactly), and the tanh-joiner
     search's row statistics on float16 rows, which take the plain version, and at V 58,114, past the
-    columns K6 keeps in shared memory, which take K6's route "global"."""
+    columns K6's route "row" keeps in shared memory, which take K6's route "stream"."""
     import torch
 
     import audio_tpu_torch.functional as F
@@ -1106,14 +1225,15 @@ def check_fallback_routes(dev) -> None:
         check_close(f"forced_align {dtype}, L {l_} scores on the card against the CPU", scores.cpu(), ref_scores,
                     0.0, 0.0)
     # the tanh-joiner search's row statistics on float16 rows, outside K6's types (the plain version
-    # on the card, no K6 launch), and at V 58,114, past the 58,112 columns K6 keeps in shared memory
-    # (its route "global"); indices and raw values exactly, lse to 1e-5 (the JAX kernel tests')
+    # on the card, no K6 launch), and at V 58,114, past the 58,112 columns K6's route "row" keeps in
+    # shared memory (route "stream", which reads any V); indices and raw values exactly, lse to 1e-5
+    # (the JAX kernel tests')
     dec = RNNTBeamSearch(model, blank=32)
     for dtype, v_, want in ((torch.float16, 33, {}),
-                            (torch.float32, 58114, {"row_stats_topk": 1, "row_stats_topk_global": 1}),
-                            (torch.bfloat16, 58114, {"row_stats_topk": 1, "row_stats_topk_global": 1})):
-        route = cuda_rnnt_lps.row_stats_route(dtype, v_ - 1)
-        if route != ("global" if want else None):
+                            (torch.float32, 58114, {"row_stats_topk": 1, "row_stats_topk_stream": 1}),
+                            (torch.bfloat16, 58114, {"row_stats_topk": 1, "row_stats_topk_stream": 1})):
+        route = cuda_rnnt_lps.row_stats_route(dtype, v_ - 1, 4)
+        if route != ("stream" if want else None):
             raise AssertionError(f"row_stats_route gives {dtype} rows of V {v_} the route {route!r}")
         raw = torch.as_tensor(rng.standard_normal((3, 4, v_)).astype(np.float32) * 4).to(dtype)
         reset_kernel_counts()
@@ -1796,6 +1916,12 @@ def main(argv=None) -> int:
     # K8 on its route "stream" at ragged shapes, then at the train step's shapes: the full loss's
     # lattice and the pruned loss's band
     check_lattice_stream(rng, dev)
+    # K6 on its route "stream" at ragged shapes and rows with fewer than k candidates above -inf,
+    # with routes "row" and "global" on the same rows; then K5's three routes on such rows, recorded.
+    # Generators of their own, so that the later checks see the inputs they saw before
+    check_row_stats_stream(np.random.default_rng(12), dev)
+    print(f"  K6 launches by route in phase 3: {cuda_rnnt_lps.row_stats_route_launches}")
+    k5_few = observe_join_few_candidates(np.random.default_rng(13), dev)
     t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
     k8_train = {}
     for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
@@ -1940,6 +2066,33 @@ def main(argv=None) -> int:
         ticks[static] = dict(ms=tick_ms, runs_ms=tick_runs, streams=streams, launches_per_tick=per_tick)
         ticks[static]["profile"] = profile_chain(tick, tick_ms, reps=2)
     dec.static_expansion = False
+
+    # the same model with a tanh joiner: the join's (S, K, V) logits are written, and K6 reduces them
+    model.joiner.activation = "tanh"
+    what = f"{RNNT_TICKS} ticks of infer_batch, tanh joiner"
+    hypos, state = dec.init_beams(RNNT_BEAM, RNNT_S), None
+    reset_kernel_counts()
+    for f in feats:
+        hypos, state = dec.infer_batch(f, lengths, RNNT_BEAM, state, hypos)
+    torch.cuda.synchronize()
+    tanh_launches = kernel_counts()
+    require_launches(what, tanh_launches, ["row_stats_topk", "lstm_gate_step"])
+    require_route(what, tanh_launches, "row_stats_topk", "stream")
+    require_route(what, tanh_launches, "lstm_gate_step", "wgmma")
+    if tanh_launches["join_stats_topk"]:
+        raise AssertionError(f"{what}: K5 launched {tanh_launches['join_stats_topk']} times")
+    check_beams("infer_batch, tanh joiner", hypos.tokens, hypos.counts, hypos.scores)
+    reset_kernel_counts()
+    tanh_ms, tanh_runs, tick = time_tick(dec, feats[0], lengths, state, hypos)
+    require_route("the timed tanh-joiner ticks", kernel_counts(), "row_stats_topk", "stream")
+    per_tick = {n: c / 6 for n, c in kernel_counts().items() if c}  # a warm-up and 5 timed ticks
+    tanh_tick = dict(ms=tanh_ms, runs_ms=tanh_runs, streams=RNNT_S * RNNT_SEG_SECONDS * 0.1 / (tanh_ms / 1e3),
+                     launches_per_tick=per_tick)
+    print(f"  tick, tanh joiner: median {tanh_ms:.3f} ms (runs {[round(m, 3) for m in tanh_runs]}); "
+          f"{tanh_tick['streams']:.1f} streams at RTF 0.1; K6 launches a tick {per_tick['row_stats_topk']:g}, "
+          f"all on 'stream'; launches a tick {per_tick} on {card}")
+    tanh_tick["profile"] = profile_chain(tick, tanh_ms, reps=2)
+    model.joiner.activation = "relu"
     del model, dec, hypos, state, tick
 
     # ---------------------------------------------------------------- phase 6
@@ -1951,8 +2104,7 @@ def main(argv=None) -> int:
     require_route("expansion='approx' through K8 (S=32)", route_launches, "lattice_row_stats", "stream")
     model.joiner.activation = "tanh"
     k6_launches = compare_with_cpu("tanh joiner through K6 (S=32)", model, 32, "exact", "row_stats_topk")
-    require_route("tanh joiner through K6 (S=32)", k6_launches, "row_stats_topk", "row")
-    route_launches.update(row_stats_topk=k6_launches["row_stats_topk"])
+    require_route("tanh joiner through K6 (S=32)", k6_launches, "row_stats_topk", "stream")
     model.joiner.activation = "relu"
 
     # ---------------------------------------------------------------- phase 7
@@ -2106,7 +2258,7 @@ def main(argv=None) -> int:
             lambda: cuda_rnnt_lps.row_stats_topk_plain(inp["logits"], RNNT_BLANK, RNNT_BEAM),
             # per element a maximum, an exponential and a sum, and a compare for the top-k
             bound_ms(2 * n_main * RNNT_V + k_outputs, 4 * n_main * RNNT_V),
-            "audio_tpu/ops/pallas_rnnt_lps.py:150", route_launches["row_stats_topk"]),
+            "audio_tpu/ops/pallas_rnnt_lps.py:150", tanh_launches["row_stats_topk"]),
         "lstm_gate_step": (
             lambda: cuda_lstm.lstm_gate_step(**ls, eps=1e-3),
             lambda: cuda_lstm.lstm_gate_step_plain(**ls, eps=1e-3),
@@ -2126,11 +2278,28 @@ def main(argv=None) -> int:
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
     kernels[-4]["kernel_route"] = "wgmma"  # K5
-    # K6: the route the wrapper takes past 58,112 columns, timed at the tick's shape beside "row"
-    kernels[-3].update(kernel_route=cuda_rnnt_lps.row_stats_route(torch.bfloat16, RNNT_BLANK), global_ms=cuda_ms(
-        lambda: cuda_rnnt_lps._row_stats_launch("global", inp["logits"], RNNT_BLANK, RNNT_BEAM), 10))
-    print(f"  K6 row_stats_topk at the tick's shape: route row {kernels[-3]['ms']:.4f} ms, route global "
-          f"{kernels[-3]['global_ms']:.4f} ms on {card}")
+    # K6: the routes it replaced on this path ("row") and past k = 32 ("row", "global"), timed at the
+    # tick's shape beside "stream", and torch.topk of the candidates alone (it computes less: no
+    # statistics, and its order among equal values is unspecified), a yardstick, not the library call
+    k6_row_ms, k6_global_ms = (cuda_ms(lambda r=r: cuda_rnnt_lps._row_stats_launch(
+        r, inp["logits"], RNNT_BLANK, RNNT_BEAM), 10) for r in ("row", "global"))
+    k6_topk_ms = cuda_ms(lambda: torch.topk(inp["logits"][:, :RNNT_BLANK], RNNT_BEAM), 10)
+    # and past route "row"'s columns: the 12 rows of V 58,114 that check_fallback_routes hands the search
+    wide = torch.as_tensor(np.random.default_rng(14).standard_normal((12, 58114)).astype(np.float32) * 4,
+                           device=dev).to(torch.bfloat16)
+    k6_wide = {r: cuda_ms(lambda r=r: cuda_rnnt_lps._row_stats_launch(r, wide, 58113, RNNT_BEAM), 20)
+               for r in ("stream", "global")}
+    print(f"  K6 row_stats_topk at (12, 58114) bf16, k {RNNT_BEAM}: route stream {k6_wide['stream']:.4f} ms, route "
+          f"global {k6_wide['global']:.4f} ms on {card}")
+    kernels[-3].update(kernel_route=cuda_rnnt_lps.row_stats_route(torch.bfloat16, RNNT_BLANK, RNNT_BEAM),
+                       row_ms=k6_row_ms, global_ms=k6_global_ms, topk_ms=k6_topk_ms, v58114_ms=k6_wide)
+    k6_tick = tanh_tick["launches_per_tick"]["row_stats_topk"]
+    tanh_tick["k6_saving_ms"] = k6_tick * (k6_row_ms - kernels[-3]["ms"])
+    print(f"  K6 row_stats_topk at the tick's shape: route stream {kernels[-3]['ms']:.4f} ms, route row (the kernel "
+          f"it replaced) {k6_row_ms:.4f} ms, route global {k6_global_ms:.4f} ms, torch.topk of the candidates alone "
+          f"{k6_topk_ms:.4f} ms; {k6_tick:g} launches a tanh-joiner tick x (row - stream) = "
+          f"{tanh_tick['k6_saving_ms']:.4f} ms a tick, against the tick's busy time "
+          f"{tanh_tick['profile']['busy_ms']:.3f} ms on {card}")
     kernels[-2]["kernel_route"] = "wgmma"  # K7
     # K8: the route it replaced at the tick's shape (its 42 MB fit in L2), and both routes on the
     # train step's lattices, which do not
@@ -2186,6 +2355,7 @@ def main(argv=None) -> int:
                        "chain_runs_ms": step_ms, "streams_rtf0.1": chain_streams, "launches": launches,
                        "profile": breakdown, "rnnt_launches": rnnt_launches,
                        "rnnt_tick": {("static" if k else "early_exit"): v for k, v in ticks.items()},
+                       "rnnt_tick_tanh": tanh_tick, "rnnt_tanh_launches": tanh_launches, "k5_few_candidates": k5_few,
                        "train_step": train, "k2_dft_ms": k2_dft_ms, "k2_power_ms": k2_power_ms, "k5_wmma_ms": k5_wmma_ms,
                        "k5_linear_ms": k5_linear_ms, "k7_wmma_ms": k7_wmma_ms, "k7_linear_ms": k7_linear_ms,
                        "k4_serial_ms": k4_serial_ms, "k1_serial_ms": k1_serial_ms, "k1_orders": k1_orders,

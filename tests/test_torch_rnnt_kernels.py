@@ -68,6 +68,40 @@ def test_row_stats_topk_ignores_columns_past_blank():
         assert torch.equal(g, r)
 
 
+def _few_candidate_rows(rng) -> np.ndarray:
+    """(8, 40) rows, blank 39: rows 0-3 finite only at columns 5, 9 and the blank, row 4 only at
+    the blank, rows 5-7 at one, two and three scattered candidates."""
+    x = np.full((8, 40), -np.inf, np.float32)
+    x[:, 39] = rng.standard_normal(8)
+    x[:4, [5, 9]] = rng.standard_normal((4, 2))
+    for r, cols in zip((5, 6, 7), ([38], [0, 20], [2, 30, 31])):
+        x[r, cols] = rng.standard_normal(len(cols))
+    return x
+
+
+def test_row_stats_topk_plain_on_rows_with_fewer_than_k_finite_candidates():
+    """Past a row's last candidate above -inf the ranks go to its lowest -inf columns not yet taken,
+    as lax.top_k gives them: the plain version equals the JAX reference exactly."""
+    x = _few_candidate_rows(np.random.default_rng(40))
+    ref = jk.row_stats_topk_reference(jnp.asarray(x), 39, 4)
+    got = cuda_rnnt_lps.row_stats_topk(torch.from_numpy(x), 39, 4)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert got[3][0].tolist()[2:] == [0, 1] and got[3][4].tolist() == [0, 1, 2, 3]
+
+
+def test_k6_tpu_kernel_repeats_column_0_past_a_rows_last_finite_candidate():
+    """The divergence ROADMAP.md section C keeps: the TPU kernel masks a taken column with -inf, so
+    past a row's last candidate above -inf it takes column 0 again and again, where the reference
+    (and the port, on every route) takes the lowest -inf columns not yet taken."""
+    x = _few_candidate_rows(np.random.default_rng(40))
+    tpu_idx = np.asarray(jk.row_stats_topk(jnp.asarray(x), 39, 4, interpret=True)[3])
+    ref_idx = np.asarray(jk.row_stats_topk_reference(jnp.asarray(x), 39, 4)[3])
+    np.testing.assert_array_equal(tpu_idx[:4, :2], ref_idx[:4, :2])  # the two finite candidates agree
+    assert (tpu_idx[:4, 2:] == 0).all() and (ref_idx[:4, 2:] == [0, 1]).all()
+    assert tpu_idx[4].tolist() == [0, 0, 0, 0] and ref_idx[4].tolist() == [0, 1, 2, 3]
+
+
 def test_top_k_breaks_ties_by_lowest_index():
     x = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0, -1.0e30, -1.0e30], [0.5, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5]])
     vals, idx = cuda_rnnt_lps.top_k(x, 5)
@@ -168,6 +202,129 @@ def test_lattice_stream_fold_matches_the_interpreted_tpu_kernel(v, bf16, start):
     elems = 8 if bf16 else 4
     got = np.array([float(stream_lse_emulation(xt[r].float(), start + r * v, elems)) for r in range(n)])
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+# K6's route "stream" (csrc/rnnt_lps.cu): a warp a row; the candidates [0, blank) as K8's head,
+# vectors and tail, lane 0 reading the blank; each lane's k best (value, column) pairs in a sorted
+# list of KC slots, empty ones (-inf, INT_MAX); each batch bounds the row's k-th candidate by the
+# k-th greatest of the lanes' batch maxima (so far), and a vector's elements go into the list only
+# if its maximum reaches the larger of that bound and the lane's k-th value, each element only if it
+# does; the head and the tail last, against the row's bound; then k rounds, each taking the best
+# of the lanes' first pairs and dropping it there
+TOP_BATCH = {4: 4, 8: 4, 16: 4, 32: 2}  # the 16-byte loads of a lane's batch, by capacity KC
+INT_MAX = 2**31 - 1
+NEG_INF = float("-inf")
+
+
+def _ranks_before(a, b) -> bool:
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _offer(pairs: list, pair, k: int) -> None:
+    """LaneTopK::offer: a sorted insertion if the pair ranks before the k-th; the last slot drops."""
+    if _ranks_before(pair, pairs[k - 1]):
+        pairs.insert(next(j for j, q in enumerate(pairs) if _ranks_before(pair, q)), pair)
+        pairs.pop()
+
+
+def _max(values) -> float:
+    """fmaxf over values: NaN ignored, -inf for none."""
+    return max((v for v in values if v == v), default=NEG_INF)
+
+
+def stream_topk_emulation(row: torch.Tensor, blank: int, k: int, start: int, elems: int):
+    """The route's (lse, x[blank], values, columns) for one float32 row whose first element lies
+    ``start`` elements past a 16-byte boundary, ``elems`` elements a 16-byte vector, lane by lane."""
+    kc = next(c for c in (4, 8, 16, 32) if c >= k)
+    batch = TOP_BATCH[kc]
+    x = row.tolist()
+    head = min((elems - start % elems) % elems, blank)
+    nvec = (blank - head) // elems
+    tail0 = head + nvec * elems
+    lists = [[(NEG_INF, INT_MAX)] * kc for _ in range(32)]
+    ninf = torch.full((32,), NEG_INF)
+    h, t, b = ninf.clone(), ninf.clone(), ninf.clone()
+    h[:head], t[: blank - tail0], b[0] = row[:head], row[tail0:blank], row[blank]
+    base, s = _stream_fold(ninf.clone(), torch.zeros(32), torch.stack([h, t, b], dim=-1))
+    bound, per = NEG_INF, 32 * batch
+    for j0 in range(0, nvec, per):
+        # lane L's vectors of a batch: j0 + 32 u + L, in order of u
+        vecs = [[[head + j * elems + e for e in range(elems)] for j in range(j0 + lane, min(j0 + per, nvec), 32)]
+                for lane in range(32)]
+        vals = torch.tensor([[x[c] for v in vs for c in v] + [NEG_INF] * (batch * elems - len(vs) * elems)
+                             for vs in vecs])
+        maxima = sorted((_max(x[c] for v in vs for c in v) for vs in vecs), reverse=True)
+        bound = max(bound, maxima[k - 1])
+        for lane, vs in enumerate(vecs):
+            thr = max(bound, lists[lane][k - 1][0])
+            for v in vs:
+                if _max(x[c] for c in v) >= thr:
+                    for c in v:
+                        if x[c] >= thr:
+                            _offer(lists[lane], (x[c], c), k)
+        base, s = _stream_fold(base, s, vals)
+    for lane in range(32):
+        for c in ([lane] if lane < head else []) + ([tail0 + lane] if tail0 + lane < blank else []):
+            if x[c] >= bound:
+                _offer(lists[lane], (x[c], c), k)
+    wb = base.max()
+    total = torch.where(base == -np.inf, torch.zeros(32), s * torch.exp2(base - wb)).sum()
+    lse = wb if torch.isinf(wb) else wb * LN2 + torch.log(total)
+    out = []
+    for _ in range(k):
+        best = max(range(32), key=lambda lane: (lists[lane][0][0], -lists[lane][0][1]))
+        out.append(lists[best][0])
+        lists[best] = lists[best][1:] + [(NEG_INF, INT_MAX)]
+    return (float(lse), x[blank], [v for v, _ in out], [0 if c == INT_MAX else c for _, c in out])
+
+
+def _stream_rows(rng, n: int, v: int, bf16: bool, sparse: bool) -> np.ndarray:
+    """Seeded rows of ``v`` columns, the blank last; bf16 rows repeat their first value at every
+    seventh column (exact ties); ``sparse`` rows keep few candidates above -inf (none in row 1)."""
+    x = (2.0 * rng.standard_normal((n, v))).astype(np.float32)
+    if bf16:
+        x[:, 1::7] = x[:, :1]
+    if sparse:
+        keep = rng.random((n, v - 1)) < 4.0 / v
+        keep[1] = False
+        x[:, :-1] = np.where(keep, x[:, :-1], -np.inf)
+    return x
+
+
+def _check_stream(x: np.ndarray, bf16: bool, k: int, ref, start: int = 0) -> None:
+    """Route "stream"'s emulation of every row, each row starting ``start`` + r V elements past
+    the 16-byte grid, against ``ref`` = (lse, blank, vals, idx): indices and values exactly."""
+    xt = _pair(x, bf16)[1].float()
+    n, v = x.shape
+    elems = 8 if bf16 else 4
+    got = [stream_topk_emulation(xt[r], v - 1, k, start + r * v, elems) for r in range(n)]
+    tol = 1e-2 if bf16 else 1e-5
+    np.testing.assert_allclose([g[0] for g in got], np.asarray(ref[0]), atol=tol, rtol=tol)
+    np.testing.assert_array_equal([g[1] for g in got], np.asarray(ref[1]))
+    np.testing.assert_array_equal([g[2] for g in got], np.asarray(ref[2]))
+    np.testing.assert_array_equal([g[3] for g in got], np.asarray(ref[3]))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 10, 32])  # list capacities 4, 8, 16 and 32
+def test_k6_stream_emulation_matches_the_interpreted_tpu_kernel(k, bf16):
+    """Rows of V = 263 (odd: each row starts at another offset from the 16-byte grid), every one with
+    at least k candidates above -inf; bf16 rows with exact ties."""
+    x = _stream_rows(np.random.default_rng(50 + k), 6, 263, bf16, sparse=False)
+    ref = jk.row_stats_topk(_pair(x, bf16)[0], 262, k, interpret=True)
+    _check_stream(x, bf16, k, ref, start=3)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k,v", [(1, 263), (4, 263), (10, 263), (16, 263), (32, 263), (10, 2305), (32, 2305)])
+def test_k6_stream_emulation_matches_the_reference(k, v, bf16):
+    """Dense rows and rows with fewer than k candidates above -inf (one with none), V = 263 and 2,305
+    (two or more batches a lane), against row_stats_topk_reference: the ranks past a row's last
+    finite candidate are its lowest -inf columns not yet taken."""
+    rng = np.random.default_rng(60 + k + v)
+    x = np.concatenate([_stream_rows(rng, 3, v, bf16, sparse=False), _stream_rows(rng, 3, v, bf16, sparse=True)])
+    ref = jk.row_stats_topk_reference(_pair(x, bf16)[0], v - 1, k)
+    _check_stream(x, bf16, k, ref, start=5)
 
 
 # ------------------------------------------------------------------ K5

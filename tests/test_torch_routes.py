@@ -152,44 +152,118 @@ def test_predictor_takes_k7_only_where_a_route_takes_its_hidden_size(hidden, fas
 @pytest.mark.parametrize("dtype,blank,want", [
     (torch.float32, 58111, "row"), (torch.bfloat16, 58111, "row"), (torch.float32, 58112, "global"),
     (torch.bfloat16, 58112, "global"), (torch.float16, 32, None), (torch.float64, 32, None), (torch.float32, 32, "row"),
-    (torch.float16, 58112, None),
+    (torch.float16, 58112, None), (torch.bfloat16, 4096, "row"), (torch.float32, 65536, "global"),
+    (torch.bfloat16, 65536, "global"), (torch.float64, 4096, None),
 ])
 def test_row_stats_route_on_both_sides_of_k6s_limits(dtype, blank, want):
-    """K6 takes float32 and bfloat16 rows: on route "row" while their columns [0, blank] fit a warp's
-    shared memory (58,112 float32), on route "global" past that."""
-    assert cuda_rnnt_lps.row_stats_route(dtype, blank) == want
+    """K6 takes float32 and bfloat16 rows: on route "stream" at k <= 32, any V; past k = 32 (``want``)
+    on route "row" while their columns [0, blank] fit a warp's shared memory (58,112 float32), on
+    route "global" past that."""
+    for k in (1, 10, 16, 32):
+        assert cuda_rnnt_lps.row_stats_route(dtype, blank, k) == (None if want is None else "stream")
+    for k in (33, 100):
+        assert cuda_rnnt_lps.row_stats_route(dtype, blank, k) == want
 
 
 def global_route_topk(x: torch.Tensor, k: int):
-    """K6's route "global" top-k, one row at a time: round j takes the best (value, lowest index)
-    pair among those ranking after round j-1's, from the row itself, which it never masks."""
+    """K6's route "global" top-k, one row at a time: round j takes the best (value, lowest index) pair
+    among those ranking after round j-1's, from the row itself, which it never masks; -inf ranks like
+    any other value."""
     vals, idx = torch.empty(x.shape[0], k), torch.empty(x.shape[0], k, dtype=torch.int32)
+    int_max = 2**31 - 1
     for r, row in enumerate(x.tolist()):
         pv, pi = float("inf"), -1
         for j in range(k):
-            bv, bi = float("-inf"), None
+            bv, bi = float("-inf"), int_max
             for c, v in enumerate(row):
-                if (v < pv or (v == pv and c > pi)) and v > bv:
+                if (v < pv or (v == pv and c > pi)) and (v > bv or (v == bv and c < bi)):
                     bv, bi = v, c
-            bi = 0 if bi is None else bi  # nothing above -inf is left
-            vals[r, j], idx[r, j] = bv, bi
+            vals[r, j], idx[r, j] = bv, 0 if bi == int_max else bi  # no pair left: only NaN leaves none
             pv, pi = bv, bi
     return vals, idx
 
 
-@pytest.mark.parametrize("k", [1, 5, 12])
-def test_k6_global_route_rounds_equal_top_k(k):
-    """The rule that lets route "global" take rounds without masking the row gives top_k's answer
-    (descending, ties to the lowest index) on rows with repeated values, +inf and -inf."""
+def row_route_topk(x: torch.Tensor, k: int):
+    """K6's route "row" top-k, one row at a time: round j takes the greatest value of the row's copy at
+    its lowest index or, where nothing above -inf is left, the lowest -inf column, then marks the
+    column NaN, which no later round takes (so an untaken -inf ranks like any other value)."""
+    vals, idx = torch.empty(x.shape[0], k), torch.empty(x.shape[0], k, dtype=torch.int32)
+    int_max = 2**31 - 1
+    for r, row in enumerate(x.tolist()):
+        for j in range(k):
+            bv, bi = float("-inf"), int_max
+            for c, v in enumerate(row):
+                if v > bv:
+                    bv, bi = v, c
+            if bi == int_max:
+                bi = next((c for c, v in enumerate(row) if v == float("-inf")), int_max)
+            vals[r, j], idx[r, j] = bv, 0 if bi == int_max else bi
+            if bi != int_max:
+                row[bi] = float("nan")
+    return vals, idx
+
+
+def _sparse_candidate_rows(rng, n: int, v: int) -> np.ndarray:
+    """Rows whose candidates [0, v - 1) are -inf but at a few columns: columns 5 and 9 (the
+    blank's own column finite), none at all, one at the last candidate, three at scattered
+    columns, and repeated values among them."""
+    x = np.full((n, v), -np.inf, np.float32)
+    x[:, -1] = rng.standard_normal(n)
+    for r in range(n):
+        cols = ([5, 9], [], [v - 2], [0, 17, v - 2], [3, 4])[r % 5]
+        x[r, cols] = np.round(rng.standard_normal(len(cols)), 1) if r % 5 != 4 else 0.5
+    return x
+
+
+@pytest.mark.parametrize("k,rows", [
+    pytest.param(1, "dense", id="1"), pytest.param(5, "dense", id="5"), pytest.param(12, "dense", id="12"),
+    pytest.param(1, "sparse", id="sparse-1"), pytest.param(4, "sparse", id="sparse-4"),
+    pytest.param(12, "sparse", id="sparse-12"), pytest.param(39, "sparse", id="sparse-39"),
+])
+def test_k6_global_route_rounds_equal_top_k(k, rows):
+    """The rule that lets routes "row" and "global" take rounds without masking the row gives top_k's
+    answer (descending, ties to the lowest index) on rows with repeated values, +inf and -inf, and on
+    rows with fewer than k candidates above -inf (their last ranks: the lowest -inf columns not yet
+    taken), where it equals the JAX package's reference too."""
     rng = np.random.default_rng(30 + k)
-    x = torch.from_numpy(np.round(rng.standard_normal((6, 40)), 1).astype(np.float32))
-    x[0, [3, 17, 30]] = float("inf")
-    x[1, ::3] = float("-inf")
-    x[2] = x[2, 0]  # one value throughout
+    if rows == "dense":
+        x = torch.from_numpy(np.round(rng.standard_normal((6, 40)), 1).astype(np.float32))
+        x[0, [3, 17, 30]] = float("inf")
+        x[1, ::3] = float("-inf")
+        x[2] = x[2, 0]  # one value throughout
+    else:  # the candidates of rows whose blank is column 39
+        x = torch.from_numpy(_sparse_candidate_rows(rng, 8, 40)[:, :39])
     vals, idx = global_route_topk(x, k)
     ref_vals, ref_idx = cuda_rnnt_lps.top_k(x, k)
     np.testing.assert_array_equal(vals.numpy(), ref_vals.numpy())
     np.testing.assert_array_equal(idx.numpy(), ref_idx.numpy())
+    if rows == "sparse":
+        _, _, jvals, jidx = row_stats_topk_reference(jnp.asarray(np.pad(x.numpy(), ((0, 0), (0, 1)))), 39, k)
+        np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+@pytest.mark.parametrize("k,rows", [(1, "dense"), (5, "dense"), (12, "dense"), (1, "sparse"), (4, "sparse"),
+                                    (12, "sparse"), (39, "sparse")])
+def test_k6_row_route_rounds_equal_top_k(k, rows):
+    """Route "row"'s rounds, which mark a taken column NaN in the row's copy, give top_k's answer on
+    the same rows as route "global"'s, and equal the JAX package's reference on rows with fewer than
+    k candidates above -inf."""
+    rng = np.random.default_rng(30 + k)
+    if rows == "dense":
+        x = torch.from_numpy(np.round(rng.standard_normal((6, 40)), 1).astype(np.float32))
+        x[0, [3, 17, 30]] = float("inf")
+        x[1, ::3] = float("-inf")
+        x[2] = x[2, 0]
+    else:
+        x = torch.from_numpy(_sparse_candidate_rows(rng, 8, 40)[:, :39])
+    vals, idx = row_route_topk(x, k)
+    ref_vals, ref_idx = cuda_rnnt_lps.top_k(x, k)
+    np.testing.assert_array_equal(vals.numpy(), ref_vals.numpy())
+    np.testing.assert_array_equal(idx.numpy(), ref_idx.numpy())
+    if rows == "sparse":
+        _, _, jvals, jidx = row_stats_topk_reference(jnp.asarray(np.pad(x.numpy(), ((0, 0), (0, 1)))), 39, k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
 
 
 @pytest.fixture
@@ -219,9 +293,9 @@ def test_tanh_joiner_row_stats_in_float16_match_jax(row_stats_calls):
 
 
 def test_tanh_joiner_search_past_k6s_columns_matches_jax(row_stats_calls):
-    """V = 58,114: the join's rows are past the 58,112 columns K6 keeps in shared memory, so the
-    search takes K6's route "global" (here, on CPU tensors, its plain version); its beams equal the
-    JAX search's (counts, tokens, fingerprints; scores to 1e-3)."""
+    """V = 58,114: the join's rows are past the 58,112 columns K6's route "row" keeps in shared memory,
+    and the search takes K6's route "stream", which reads any V (here, on CPU tensors, its plain
+    version); its beams equal the JAX search's (counts, tokens, fingerprints; scores to 1e-3)."""
     from audio_tpu.models.rnnt_decoder import RNNTBeamSearch as JaxBeamSearch
 
     from .test_torch_rnnt_decoder import assert_beams_match
@@ -233,7 +307,7 @@ def test_tanh_joiner_search_past_k6s_columns_matches_jax(row_stats_calls):
     port.joiner.activation = "tanh"
     kw = dict(blank=v - 1, step_max_tokens=2, max_tokens=12)
     j_dec, t_dec = JaxBeamSearch(jmodel, params, **kw), RNNTBeamSearch(port, **kw)
-    assert not t_dec._can_fuse_join() and cuda_rnnt_lps.row_stats_route(torch.float32, v - 1) == "global"
+    assert not t_dec._can_fuse_join() and cuda_rnnt_lps.row_stats_route(torch.float32, v - 1, 3) == "stream"
     x = np.random.default_rng(7).standard_normal((cfg["segment_length"] + cfg["right_context_length"],
                                                    cfg["input_dim"])).astype(np.float32)
     with torch.no_grad():
