@@ -7,10 +7,10 @@
 //   K6 row_stats_topk     the same four outputs from logits that exist already;
 //   K8 lattice_row_stats  per row the logsumexp over all V columns, x[blank], x[tgt].
 // Top-k is descending with ties to the lowest index: every comparison is on
-// (value, index) pairs, never on the value alone.  In K6 a value of -inf ranks like any
-// other, so a row with fewer than k candidates above -inf takes its missing ranks from the
-// lowest -inf columns not yet taken, as top_k does (the TPU kernel repeats column 0 there);
-// NaN is never taken.
+// (value, index) pairs, never on the value alone.  In K5 and K6 a value of -inf ranks like
+// any other, so a row with fewer than k candidates above -inf takes its missing ranks from the
+// lowest -inf columns not yet taken, as top_k does (the TPU kernels repeat column 0 there);
+// NaN is never taken, and a rank that nothing is left for (only NaN can cause it) gets column 0.
 //
 // Bound on the H100.  K6 and K8 by bytes: each row is read once (42 MB at N = 5120,
 // V = 4097, bf16; the train step's full lattice, (32, 128, 65, 4097) bf16, 2.18 GB).
@@ -636,7 +636,7 @@ __global__ void __launch_bounds__(kJoinThreads)
   if (tid < kBM) {
     for (int j = 0; j < k; ++j) {
       topv[j * kBM + tid] = -INFINITY;
-      topi[j * kBM + tid] = 0;
+      topi[j * kBM + tid] = INT_MAX;
     }
   }
 
@@ -696,25 +696,32 @@ __global__ void __launch_bounds__(kJoinThreads)
       float tm = -INFINITY;
       for (int j = 0; j < nc; ++j) tm = fmaxf(tm, c[j]);
       const float nm = fmaxf(run_m, tm);
+      // a row whose columns so far are all -inf subtracts 0, not -inf, and so adds no NaN
+      const float base = nm > -INFINITY ? nm : 0.f;
       float s = 0.f;
-      for (int j = 0; j < nc; ++j) s += expf(c[j] - nm);
-      run_s = run_s * expf(run_m - nm) + s;
+      for (int j = 0; j < nc; ++j) s += expf(c[j] - base);
+      run_s = run_s * expf(run_m - base) + s;
       run_m = nm;
       if (blank >= col0 && blank < col0 + kBN) blank_v = c[blank - col0];
       const int n_cand = min(nc, blank - col0);  // columns below the blank
-      float kth = topv[(k - 1) * kBM + tid];
+      // pairs compared by ranks_before; the columns rise, so an equal value at a higher column
+      // stays behind, and a -inf column ranks before the list's (-inf, INT_MAX) start
+      float kth_v = topv[(k - 1) * kBM + tid];
+      int kth_i = topi[(k - 1) * kBM + tid];
       for (int j = 0; j < n_cand; ++j) {
         const float x = c[j];
-        if (x > kth) {  // strictly: an equal value at a higher column stays out
+        const int gc = col0 + j;
+        if (ranks_before(x, gc, kth_v, kth_i)) {
           int p = k - 1;
-          while (p > 0 && topv[(p - 1) * kBM + tid] < x) {  // behind every equal value
+          while (p > 0 && ranks_before(x, gc, topv[(p - 1) * kBM + tid], topi[(p - 1) * kBM + tid])) {
             topv[p * kBM + tid] = topv[(p - 1) * kBM + tid];
             topi[p * kBM + tid] = topi[(p - 1) * kBM + tid];
             --p;
           }
           topv[p * kBM + tid] = x;
-          topi[p * kBM + tid] = col0 + j;
-          kth = topv[(k - 1) * kBM + tid];
+          topi[p * kBM + tid] = gc;
+          kth_v = topv[(k - 1) * kBM + tid];
+          kth_i = topi[(k - 1) * kBM + tid];
         }
       }
     }
@@ -726,7 +733,7 @@ __global__ void __launch_bounds__(kJoinThreads)
     blank_out[r] = blank_v;
     for (int j = 0; j < k; ++j) {
       vals[r * k + j] = topv[j * kBM + tid];
-      idx[r * k + j] = topi[j * kBM + tid];
+      idx[r * k + j] = rank_column(topi[j * kBM + tid]);
     }
   }
 }
@@ -856,12 +863,14 @@ __global__ void __launch_bounds__(kJoinThreads)
     tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, 1));
     tm = fmaxf(tm, __shfl_xor_sync(kFull, tm, 2));
     const float nm = fmaxf(run_m, tm);
+    // a row whose columns so far are all -inf subtracts 0, not -inf, and so adds no NaN
+    const float base = nm > -INFINITY ? nm : 0.f;
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTN / 4; ++j) s += expf(x[j] - nm);
+    for (int j = 0; j < kTN / 4; ++j) s += expf(x[j] - base);
     s += __shfl_xor_sync(kFull, s, 1);
     s += __shfl_xor_sync(kFull, s, 2);
-    run_s = run_s * expf(run_m - nm) + s;
+    run_s = run_s * expf(run_m - base) + s;
     run_m = nm;
     if (row0 + r < n && blank >= col0 && blank < col0 + kTN && ((blank - col0) & 3) == q)
       blank_out[row0 + r] = blank_x;
@@ -906,7 +915,7 @@ __global__ void __launch_bounds__(kJoinThreads)
     if (q == 0) lse[row] = run_m + logf(run_s);
     for (int j = q; j < k; j += 4) {
       vals[row * k + j] = topv[j * kTM + r];
-      idx[row * k + j] = topi[j * kTM + r];
+      idx[row * k + j] = rank_column(topi[j * kTM + r]);
     }
   }
 }
@@ -1113,7 +1122,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
       int picks = 0;
       while (true) {
         // the thread's best candidate: its columns rise with the slot, so in each pair of the
-        // tree the right one wins only if it is greater (ties keep the lower column)
+        // tree the right one wins only if it is greater (ties keep the lower column).  A slot that
+        // is no candidate enters as -inf, so a -inf best says only that every candidate left is
+        // -inf: then the best pair is the lowest candidate slot (the lowest set bit of cand), and
+        // with none left the thread offers (-inf, INT_MAX)
         float v[kWCols / 4];
         int slot[kWCols / 4];
 #pragma unroll
@@ -1127,7 +1139,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
         tree_level<2>(v, slot);
         tree_level<1>(v, slot);
         float bv = v[0];
-        int bi = bv == -INFINITY ? INT_MAX : col0 + (slot[0] >> 1) * 8 + 2 * q + (slot[0] & 1);
+        int s0 = slot[0];
+        if (bv == -INFINITY) s0 = cand != 0 ? __ffs(cand) - 1 : -1;
+        int bi = s0 < 0 ? INT_MAX : col0 + (s0 >> 1) * 8 + 2 * q + (s0 & 1);
         const int own = bi;
 #pragma unroll
         for (int o = 1; o < 4; o <<= 1) {
@@ -1139,7 +1153,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
           }
         }
         if (bi == INT_MAX || !ranks_before(bv, bi, kth_v, kth_i)) break;  // the same for the quad
-        if (own == bi) cand &= ~(1u << slot[0]);
+        if (own == bi) cand &= ~(1u << s0);
         if (q == 0) {
           pickv[picks * kWRows + r] = bv;
           picki[picks * kWRows + r] = bi;
@@ -1201,7 +1215,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
       if (owns_blank) a.blank_out[row] = blank_x[h];
       for (int j = q; j < a.k; j += 4) {
         a.vals[row * a.k + j] = topv[j * kWRows + r];
-        a.idx[row * a.k + j] = topi[j * kWRows + r];
+        a.idx[row * a.k + j] = rank_column(topi[j * kWRows + r]);
       }
     }
     return;
@@ -1283,7 +1297,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
     }
     for (int j = 0; j < a.k; ++j) {
       a.vals[row * a.k + j] = topv[j * kWRows + r];
-      a.idx[row * a.k + j] = topi[j * kWRows + r];
+      a.idx[row * a.k + j] = rank_column(topi[j * kWRows + r]);
     }
   }
   if (tid == 0) a.counters[blockIdx.y] = 0;

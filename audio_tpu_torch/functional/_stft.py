@@ -1,8 +1,9 @@
-"""Short-time Fourier transform (``torch.stft`` semantics).
+"""Short-time Fourier transform and its inverse (``torch.stft`` / ``torch.istft`` semantics).
 
 Same contract as ``audio_tpu.functional._stft``: center padding, framing by
 hop, windowing, and a one-sided or full DFT, with the frequency axis before
-the time axis in the output.
+the time axis in the output; the inverse by the inverse DFT, the window and
+an overlap-add of the frames divided by that of the squared window.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["frame_signal", "stft", "num_frames"]
+__all__ = ["frame_signal", "stft", "istft", "num_frames"]
 
 _PAD_MODES = {"reflect": "reflect", "constant": "constant", "replicate": "replicate", "circular": "circular"}
 
@@ -75,3 +76,64 @@ def stft(
     if normalized:
         spec = spec * (1.0 / math.sqrt(n_fft))
     return spec.transpose(-1, -2)
+
+
+def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Sum frames (..., n_frames, n) placed ``hop_length`` apart: (..., n + hop (n_frames - 1))."""
+    lead, (n_frames, n) = frames.shape[:-2], frames.shape[-2:]
+    out_len = n + hop_length * (n_frames - 1)
+    cols = frames.reshape(-1, n_frames, n).transpose(1, 2)  # (rows, n, n_frames)
+    y = F.fold(cols, output_size=(1, out_len), kernel_size=(1, n), stride=(1, hop_length))
+    return y.reshape(lead + (out_len,))
+
+
+def istft(
+    spec: torch.Tensor,
+    n_fft: int,
+    hop_length: Optional[int] = None,
+    win_length: Optional[int] = None,
+    window: Optional[torch.Tensor] = None,
+    center: bool = True,
+    normalized: bool = False,
+    onesided: bool = True,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT via windowed overlap-add; torch.istft semantics.
+
+    ``spec`` is (..., n_freq, n_frames) complex; returns (..., T).
+    """
+    hop_length = hop_length or n_fft // 4
+    win_length = win_length or n_fft
+    real_dtype = spec.real.dtype if spec.is_complex() else spec.dtype
+    window = _prepare_window(window, n_fft, win_length, real_dtype, spec.device)
+
+    frames_f = spec.transpose(-1, -2)  # (..., n_frames, n_freq)
+    if normalized:
+        frames_f = frames_f * math.sqrt(n_fft)
+    if onesided:
+        frames = torch.fft.irfft(frames_f, n=n_fft, dim=-1)
+    else:
+        frames = torch.fft.ifft(frames_f, dim=-1).real
+    frames = frames * window  # (..., n_frames, n_fft)
+
+    n_frames = frames.shape[-2]
+    y = _overlap_add(frames, hop_length)
+    norm = _overlap_add((window * window).expand(n_frames, n_fft), hop_length)
+    out_len = y.shape[-1]
+
+    if center:
+        start = n_fft // 2
+        end = out_len - n_fft // 2
+    else:
+        start, end = 0, out_len
+    y = y[..., start:end]
+    norm = norm[start:end]
+    if length is not None:
+        if y.shape[-1] < length:
+            y = F.pad(y, (0, length - y.shape[-1]))
+            norm = F.pad(norm, (0, length - norm.shape[-1]))
+        else:
+            y = y[..., :length]
+            norm = norm[:length]
+    norm = torch.where(norm > 1e-11, norm, 1.0)
+    return y / norm

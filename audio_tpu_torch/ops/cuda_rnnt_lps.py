@@ -28,10 +28,11 @@ TMA, the columns split over :func:`join_column_splits` blocks a row block),
 ``"wmma"`` and ``"simt"``; ``join_route_launches`` counts each route's launches.
 
 Top-k everywhere is ``jax.lax.top_k``'s: descending, ties to the lowest
-index; in K6, -inf ranks like any other value, so a row with fewer than k
-candidates above -inf fills its last ranks with its lowest -inf columns.
-``torch.topk`` promises no order among equal values, so the plain versions
-use :func:`top_k`, a stable descending sort.
+index; -inf ranks like any other value, so a row with fewer than k candidates
+above -inf fills its last ranks with its lowest -inf columns, on every route
+of K5 and K6 (the TPU kernels repeat column 0 there).  ``torch.topk``
+promises no order among equal values, so the plain versions use
+:func:`top_k`, a stable descending sort.
 """
 
 from __future__ import annotations

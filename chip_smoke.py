@@ -30,8 +30,9 @@ Phases, each of which raises on failure:
    with exact ties and rows with fewer than k candidates above -inf (some -inf
    apart from the blank), bitwise equal over two runs, and on its "row" and
    "global" routes on the same rows and at every K5-K8 shape; K5's three
-   routes on rows with fewer than k candidates above -inf, recorded against
-   top_k's ranks, not a gate; K2 on both of its
+   routes on rows with fewer than k candidates above -inf (three, one and
+   none, at V 300 and 4097): indices equal to top_k's and inside the row,
+   lse, blank and values within 2e-2; K2 on both of its
    routes: mel, power and magnitude at n_fft 400, 512, 1024 and 2048 on "fft"
    and at 398 on "dft", the main shape on both, bitwise equal over two runs;
    K5 on its "wgmma" route at N 1, 40, 63, 65, 5120 and 5121, V 33 to 4097,
@@ -96,7 +97,22 @@ Phases, each of which raises on failure:
 9. the fourth main path, lfilter's gradient: the gradients of
    mean(log1p(mel_spectrogram(lfilter(x, a, b)))) with respect to x, a and b at
    B=8192 and orders 2, 8 and 12 (K1 and K2 forward, K1 only on "chunked", K2
-   only on "fft", K4 backward must move, only on "chunked"), against the CPU at B=4.
+   only on "fft", K4 backward must move, only on "chunked"), against the CPU at B=4;
+10. the sox effects and the Griffin-Lim vocoder: gain -> contrast -> dcshift ->
+   overdrive -> phaser -> dither on B=8192 rows of 1 s at 16 kHz (K4 must move
+   in overdrive, only on "chunked"), flanger on (4096, 2, 16000) at its defaults
+   (a gather, no time loop) and at regen 50 with quadratic interpolation, and
+   the other branches (dcshift below zero, the triangular phaser, RPDF and GPDF
+   dither from a CUDA generator); phaser and flanger under
+   ``torch.cuda.set_sync_debug_mode("error")``; each effect's first rows
+   against the CPU; each effect and the chain timed, one phaser call on 4,000
+   samples and the flanger's loop on 1,000 profiled.  Then the TTS bundle's vocoder
+   (22,050 Hz, n_fft 1024, hop 256, 32 iterations, momentum 0.99): griffinlim
+   from random phases on 32 spectrograms of 5 s clips (the rebuilt magnitude's
+   correlation at least 0.98 on every clip), in float64 at B=2 against the
+   CPU, the inverse spectrogram, the phase vocoder at rate 1.3, decibels there
+   and back, and the spectral centroid (K2 must move, only on "fft"), each
+   against the CPU; griffinlim and the centroid timed.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -961,37 +977,49 @@ def check_row_stats_stream(rng, dev) -> None:
         raise AssertionError(f"K6: two runs gave different bits {same}")
 
 
-def observe_join_few_candidates(rng, dev) -> dict:
-    """K5 on rows whose bias leaves fewer than k candidates above -inf (3 of them, k 10), on each of
-    its three routes, against top_k's ranks.  A record for the next change to K5, not a gate: it
-    prints what each route gives and raises on nothing."""
+def check_join_few_candidates(rng, dev) -> dict:
+    """K5 on rows with fewer than k candidates above -inf, on each of its three routes, against the
+    plain version: indices equal to top_k's (past a row's last finite candidate the lowest -inf
+    columns not yet taken) and inside [0, blank); lse, blank and values within check_join_topk's bf16
+    tolerance (2e-2, -inf equal to -inf).  Biases of -inf but at three columns (in different column
+    splits of the wgmma route), at one column, and at none (every candidate -inf, only the blank
+    finite), at (N 70, D 64, V 300) and (N 40, D 1024, V 4097: eight column splits), k 10."""
     import torch
 
     from audio_tpu_torch.ops import cuda_rnnt_lps
 
-    n, d, v, k = 70, 64, 300, RNNT_BEAM
-    act = torch.as_tensor(np.maximum(rng.standard_normal((n, d)), 0.0).astype(np.float32), device=dev)
-    w = torch.as_tensor((rng.standard_normal((d, v)) / math.sqrt(d)).astype(np.float32), device=dev)
-    b = np.full(v, -np.inf, np.float32)
-    b[[7, 150, 298]] = 0.0
-    b[-1] = 4.0
-    act, w, b = act.to(torch.bfloat16), w.to(torch.bfloat16), torch.as_tensor(b, device=dev).to(torch.bfloat16)
-    ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, v - 1, k)
-    w_linear = w.t().contiguous().t()
-    outs = {}
-    for route in ("wgmma", "wmma", "simt"):
-        out = cuda_rnnt_lps._stats_outputs((n,), k, dev)
-        cuda_rnnt_lps._join_launch(route, act, w if route == "simt" else w_linear, b, v - 1, k, out)
-        torch.cuda.synchronize()
-        same_idx = bool((out[3] == ref[3]).all())
-        finite_close = bool(((out[2] - ref[2]).abs() <= 2e-2 + 2e-2 * ref[2].abs()).logical_or(out[2] == ref[2]).all())
-        lse_close = bool(((out[0] - ref[0]).abs() <= 2e-2 + 2e-2 * ref[0].abs()).all())
-        outs[route] = dict(indices_equal=same_idx, values_close=finite_close, lse_close=lse_close,
-                           row0_idx=out[3][0].tolist(), ref_row0_idx=ref[3][0].tolist())
-        print(f"  K5 join_stats_topk [{route}] on rows with 3 candidates above -inf, k {k}: indices equal to "
-              f"top_k's: {same_idx}, values within 2e-2: {finite_close}, lse within 2e-2: {lse_close}; row 0 "
-              f"{out[3][0].tolist()} against {ref[3][0].tolist()} (recorded, not a gate)")
-    return outs
+    k, out = RNNT_BEAM, {}
+    for n, d, v in ((70, 64, 300), (40, RNNT_D, RNNT_V)):
+        act = torch.as_tensor(np.maximum(rng.standard_normal((n, d)), 0.0).astype(np.float32), device=dev)
+        w = torch.as_tensor((rng.standard_normal((d, v)) / math.sqrt(d)).astype(np.float32), device=dev)
+        act, w = act.to(torch.bfloat16), w.to(torch.bfloat16)
+        w_linear = w.t().contiguous().t()
+        for label, cols in (("three", [7, v // 2, v - 2]), ("one", [v // 3]), ("none", [])):
+            b = np.full(v, -np.inf, np.float32)
+            b[cols] = np.round(rng.standard_normal(len(cols)), 1)
+            b[-1] = 4.0
+            b = torch.as_tensor(b, device=dev).to(torch.bfloat16)
+            ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, v - 1, k)
+            for route in ("wgmma", "wmma", "simt"):
+                name = f"K5 join_stats_topk [{route}] (N {n}, D {d}, V {v}, k {k}) with {label} candidates above -inf"
+                got = cuda_rnnt_lps._stats_outputs((n,), k, dev)
+                before = cuda_rnnt_lps.join_route_launches[route]
+                cuda_rnnt_lps._join_launch(route, act, w if route == "simt" else w_linear, b, v - 1, k, got)
+                torch.cuda.synchronize()
+                if cuda_rnnt_lps.join_route_launches[route] != before + 1:
+                    raise AssertionError(f"{name}: the {route} route's counter did not move")
+                inside = bool(((got[3] >= 0) & (got[3] < v - 1)).all())
+                if not inside:
+                    raise AssertionError(f"{name}: an index outside [0, {v - 1}): {got[3][0].tolist()}")
+                check_equal(f"{name}, indices against top_k's", got[3].cpu(), ref[3].cpu())
+                err = 0.0
+                for part, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+                    err = max(err, check_close(f"{name} {part}", g, r, 2e-2, 2e-2, quiet=True, finite=False))
+                out[f"{route} N{n} V{v} {label}"] = dict(max_abs_err=err, row0_idx=got[3][0].tolist())
+            print(f"  K5 (N {n}, D {d}, V {v}) with {label} candidates above -inf: the three routes give top_k's "
+                  f"indices (row 0 {ref[3][0].tolist()}), all inside [0, {v - 1}); lse, blank and values within "
+                  "2e-2 + 2e-2·|ref|")
+    return out
 
 
 def k3_inputs(lp, tgt, il, tl):
@@ -1764,6 +1792,258 @@ def run_filter_grad(rng, dev, card: str, wav, fb, window, order: int, reps: int)
     return dict(ms=step_ms, runs_ms=runs, launches=counts, a=a, b=b)
 
 
+# ------------------------------------------------------------------ phase 10: effects and the vocoder
+FX_B, FX_FLANGER_B = 8192, 4096  # the effects chain at phase 4's width; flanger's (batch, 2 channels)
+VOC_SR, VOC_N_FFT, VOC_HOP, VOC_ITERS, VOC_MOMENTUM = 22050, 1024, 256, 32, 0.99  # the TTS bundle's
+VOC_B, VOC_T = 32, 5 * 22050
+
+
+def median_call_ms(fn, reps: int = 5):
+    """Median ms of ``fn()`` over ``reps`` calls (CUDA events around each) after a warm-up, and the
+    calls; the outputs are dropped."""
+    ms, runs, _ = timed_steps(lambda: (fn(), None)[1], 1, reps)
+    return ms, runs
+
+
+def no_host_sync(fn):
+    """``fn`` run under torch.cuda.set_sync_debug_mode("error"): a host read inside it raises."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return run
+
+
+PROFILED_STEPS = 4000  # the delay lines' profiles cover this many of their steps (phaser; flanger a quarter)
+
+
+def profile_call(name: str, fn, call_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler: its kernel launches, device busy time and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_kernel_rows(prof, 1)
+    busy, n = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    print(f"  profile of one {name} call: {n:g} kernel launches, device busy {busy:.3f} ms against a "
+          f"{call_ms:.3f} ms call (idle share {1 - busy / call_ms:.3f})")
+    return {"launches": n, "busy_ms": busy, "idle_share": 1 - busy / call_ms}
+
+
+def run_effects(dev, card: str) -> dict:
+    """Phase 10 (a): gain -> contrast -> dcshift -> overdrive -> phaser -> dither through the public
+    functions on B = 8192 rows of 1 s of seeded noise at 16 kHz, then flanger on (4096, 2, 16000) at
+    its defaults and with feedback, and the other branches (dcshift below zero, the triangular
+    phaser, RPDF and GPDF from a CUDA generator).  K4 must launch in overdrive, only on "chunked";
+    phaser and flanger run with host reads made errors.  Each effect's first 4 rows against the
+    port's CPU result on the same inputs; each effect and the chain timed (median of 5)."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.functional._filtering import _dither_noise
+
+    x = torch.as_tensor(np.random.default_rng(30).standard_normal((FX_B, T)).astype(np.float32) * 0.3, device=dev)
+    try:  # the guard is live: a host read under it raises
+        no_host_sync(lambda: float(x[0, 0]))()
+        raise AssertionError("torch.cuda.set_sync_debug_mode('error') let a host read through")
+    except RuntimeError:
+        print("  a host read under set_sync_debug_mode('error') raises: phaser and flanger run under it")
+    recurrence = (1e-5, 1e-4)  # the JAX overdrive test's atol and rtol
+    stages = [("gain 6 dB", lambda y: F.gain(y, 6.0), (1e-5, 0.0)),
+              ("contrast 75", lambda y: F.contrast(y, 75.0), (1e-5, 0.0)),
+              ("dcshift 0.2, limiter 0.05", lambda y: F.dcshift(y, 0.2, 0.05), (1e-5, 0.0)),
+              ("overdrive 20, 20", lambda y: F.overdrive(y, 20.0, 20.0), recurrence),
+              ("phaser", no_host_sync(lambda y: F.phaser(y, SR)), recurrence),
+              ("dither TPDF", lambda y: F.dither(y), None)]
+    out, y = {}, x
+    for name, fn, tol in stages:
+        if name == "phaser":
+            phaser_in = y
+        if name.startswith("overdrive"):
+            reset_kernel_counts()
+        z = fn(y)
+        torch.cuda.synchronize()
+        if name.startswith("overdrive"):
+            counts = kernel_counts()
+            require_launches("overdrive (phase 10)", counts, ["iir"])
+            require_route("overdrive (phase 10)", counts, "iir", "chunked")
+            out["overdrive_launches"] = {"iir": counts["iir"], "iir_chunked": counts["iir_chunked"]}
+        ref = fn(y[:4].cpu())
+        if tol is None:
+            if not torch.equal(z[:4].cpu(), ref):
+                raise AssertionError(f"{name}: the card's first 4 rows differ from the CPU's")
+            print(f"  {name} (first 4 of {FX_B} rows): equal to the CPU's")
+            err = 0.0
+        else:
+            err = check_close(f"{name} (first 4 of {FX_B} rows) against the CPU", z[:4].cpu(), ref, *tol)
+        ms, runs = median_call_ms(lambda: fn(y))
+        out[name] = {"ms": ms, "runs_ms": runs, "max_abs_err": err}
+        print(f"  {name} at ({FX_B}, {T}) f32: {ms:.3f} ms on {card}")
+        y = z
+
+    def chain(w):
+        for _, fn, _ in stages:
+            w = fn(w)
+        return w
+
+    out["chain_ms"], out["chain_runs_ms"] = median_call_ms(lambda: chain(x))
+    print(f"  effects chain (gain -> contrast -> dcshift -> overdrive -> phaser -> dither) at ({FX_B}, {T}) f32: "
+          f"{out['chain_ms']:.3f} ms on {card}")
+    # one phaser call profiled on the first 4,000 samples of its rows: the profiler's own work grows
+    # with the launches (32,000 a full call), the launches a step and the idle share do not
+    head = phaser_in[:, :PROFILED_STEPS].contiguous()
+    phaser_head = lambda: stages[4][1](head)  # noqa: E731
+    out["phaser_profile"] = profile_call(f"phaser on ({FX_B}, {PROFILED_STEPS})", phaser_head,
+                                         median_call_ms(phaser_head, 3)[0])
+
+    # the other branches
+    neg = F.dcshift(x, -0.3, 0.05)
+    check_close("dcshift -0.3, limiter 0.05 (first 4 rows) against the CPU", neg[:4].cpu(),
+                F.dcshift(x[:4].cpu(), -0.3, 0.05), 1e-5, 0.0)
+    triangle = no_host_sync(lambda y: F.phaser(y, SR, sinusoidal=False))
+    check_close("phaser triangular (first 4 rows) against the CPU", triangle(x)[:4].cpu(),
+                triangle(x[:4].cpu()), *recurrence)
+    for density in ("RPDF", "GPDF"):
+        got = F.dither(x, density, generator=torch.Generator(device=dev).manual_seed(5))
+        noise = _dither_noise(density, torch.Generator(device=dev).manual_seed(5), torch.float32, dev)
+        want = torch.round(x * (2**15 - 2) + noise) / 2**15
+        q = got.double() * 2**15
+        if not (torch.equal(got, want) and torch.equal(q, torch.round(q))):
+            raise AssertionError(f"dither {density}: not round(x (2^15 - 2) + n) / 2^15 with the drawn n")
+        print(f"  dither {density} from a CUDA generator (n = {float(noise):.6f}): on the 2^-15 grid and equal to "
+              "round(x (2^15 - 2) + n) / 2^15")
+
+    xf = torch.as_tensor(np.random.default_rng(32).standard_normal((FX_FLANGER_B, 2, T)).astype(np.float32) * 0.3,
+                         device=dev)
+    for label, kw in (("flanger (defaults: no feedback)", {}),
+                      ("flanger (regen 50, quadratic)", dict(regen=50.0, interpolation="quadratic"))):
+        fn = no_host_sync(lambda w, kw=kw: F.flanger(w, SR, **kw))
+        got = fn(xf)
+        torch.cuda.synchronize()
+        err = check_close(f"{label} (first 4 of {FX_FLANGER_B} rows) against the CPU", got[:4].cpu(),
+                          fn(xf[:4].cpu()), *recurrence)
+        ms, runs = median_call_ms(lambda: fn(xf))
+        out[label] = {"ms": ms, "runs_ms": runs, "max_abs_err": err}
+        print(f"  {label} at ({FX_FLANGER_B}, 2, {T}) f32: {ms:.3f} ms on {card}")
+    head = xf[..., :PROFILED_STEPS // 4].contiguous()
+    loop = lambda: F.flanger(head, SR, regen=50.0, interpolation="quadratic")  # noqa: E731
+    out["flanger_loop_profile"] = profile_call(
+        f"flanger (regen 50, quadratic) on ({FX_FLANGER_B}, 2, {PROFILED_STEPS // 4})", loop, median_call_ms(loop, 3)[0])
+    return out
+
+
+def vocoder_clips(rng, b: int, n: int, sr: int) -> np.ndarray:
+    """Clips of seeded sums of two to five decaying tones (80 Hz - 4 kHz)."""
+    t = np.arange(n) / sr
+    x = np.zeros((b, n))
+    for i in range(b):
+        for _ in range(rng.integers(2, 6)):
+            f, a, d, ph = rng.uniform(80, 4000), rng.uniform(0.05, 0.3), rng.uniform(0.2, 3.0), rng.uniform(0, 6.283)
+            x[i] += a * np.sin(2 * np.pi * f * t + ph) * np.exp(-d * t)
+    return x.astype(np.float32)
+
+
+def run_vocoder(dev, card: str) -> dict:
+    """Phase 10 (b): the TTS bundle's Griffin-Lim vocoder (22,050 Hz, n_fft 1024, hop 256, Hann,
+    power 1, 32 iterations, momentum 0.99) from random phases on 32 magnitude spectrograms of 5 s
+    clips: the rebuilt magnitude spectrogram's correlation with the target at least 0.98 on every
+    clip (the JAX test's criterion).  Then at B = 2 in float64 without random phases the card
+    against the CPU (1e-6 of the peak); the inverse spectrogram of the complex one (1e-5); the
+    phase vocoder at rate 1.3; decibels there and back; the spectral centroid, which must launch K2,
+    only on "fft" (1e-4 relative).  griffinlim and spectral_centroid timed (median of 5)."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch._internal.windows import hann_window
+
+    out = {}
+    x = torch.as_tensor(vocoder_clips(np.random.default_rng(31), VOC_B, VOC_T, VOC_SR), device=dev)
+    w = hann_window(VOC_N_FFT, device=dev)
+    kw = dict(n_fft=VOC_N_FFT, hop_length=VOC_HOP, win_length=VOC_N_FFT)
+    spec = F.spectrogram(x, window=w, power=1.0, **kw)
+
+    def vocoder():
+        return F.griffinlim(spec, window=w, power=1.0, n_iter=VOC_ITERS, momentum=VOC_MOMENTUM, length=VOC_T,
+                            rand_init=True, generator=torch.Generator(device=dev).manual_seed(7), **kw)
+
+    rec = vocoder()
+    got = F.spectrogram(rec, window=w, power=1.0, **kw).flatten(1).double()
+    tgt = spec.flatten(1).double()
+    got, tgt = got - got.mean(1, keepdim=True), tgt - tgt.mean(1, keepdim=True)
+    corr = (got * tgt).sum(1) / (got.norm(dim=1) * tgt.norm(dim=1))
+    out["correlation_min"], out["correlation_median"] = float(corr.min()), float(corr.median())
+    print(f"  griffinlim ({VOC_B} clips of {VOC_T} samples, {tuple(spec.shape[1:])} bins x frames, {VOC_ITERS} "
+          f"iterations from random phases): magnitude correlation min {out['correlation_min']:.4f}, median "
+          f"{out['correlation_median']:.4f} (limit 0.98)")
+    if out["correlation_min"] < 0.98:
+        raise AssertionError(f"griffinlim: a clip's magnitude correlation {out['correlation_min']:.4f} < 0.98")
+    out["griffinlim_ms"], out["griffinlim_runs_ms"] = median_call_ms(vocoder)
+    print(f"  griffinlim at B {VOC_B}: {out['griffinlim_ms']:.3f} ms on {card}")
+
+    # float64, no random phases: the card against the CPU on the same spectrograms
+    w64 = w.double().cpu()
+    spec64 = F.spectrogram(x[:2].double().cpu(), window=w64, power=1.0, **kw)
+    args = dict(power=1.0, n_iter=VOC_ITERS, momentum=VOC_MOMENTUM, length=VOC_T, rand_init=False, **kw)
+    on_cpu = F.griffinlim(spec64, window=w64, **args)
+    on_card = F.griffinlim(spec64.to(dev), window=w64.to(dev), **args).cpu()
+    peak = float(on_cpu.abs().max())
+    out["griffinlim_f64_err"] = check_close("griffinlim f64, B 2, no random phases: card against the CPU", on_card,
+                                            on_cpu, 1e-6 * peak, 0.0)
+
+    cs = F.spectrogram(x, window=w, power=None, **kw)
+    back = F.inverse_spectrogram(cs, VOC_T, window=w, **kw)
+    covered = VOC_HOP * (VOC_T // VOC_HOP)  # the last frame's centre; past it the inverse is zero
+    out["inverse_err"] = check_close(f"inverse_spectrogram of spectrogram(power=None) against the waveform "
+                                     f"(first {covered} samples)", back[:, :covered], x[:, :covered], 1e-5, 0.0)
+
+    advance = torch.linspace(0, math.pi * VOC_HOP, VOC_N_FFT // 2 + 1, device=dev)[:, None]
+    stretched = F.phase_vocoder(cs, 1.3, advance)
+    want_frames = math.ceil(cs.shape[-1] / 1.3)
+    ref = F.phase_vocoder(cs[:2].cpu(), 1.3, advance.cpu())
+    err = (stretched[:2].cpu() - ref).abs()
+    frames = torch.arange(1, ref.shape[-1] + 1, dtype=torch.float64)
+    # the accumulated phase's float32 rounding grows with the frame (tests/test_torch_spectral_inverse.py)
+    bound = 1e-5 + 4 * ref.abs().double() * torch.finfo(torch.float32).eps * frames * (math.pi * VOC_HOP + 2 * math.pi)
+    ok = stretched.shape[-1] == want_frames and bool((err <= bound).all())
+    print(f"  phase_vocoder rate 1.3: {stretched.shape[-1]} frames (ceil({cs.shape[-1]} / 1.3) = {want_frames}); "
+          f"first 2 clips against the CPU: max_abs_err {float(err.max()):.3e}, within the float32 phase bound: {ok}")
+    if not ok:
+        raise AssertionError("phase_vocoder: frames or values differ from the CPU's")
+    out["phase_vocoder_err"] = float(err.max())
+
+    per_clip = spec[:, None]  # (clip, 1 channel, freq, time): top_db over each clip
+    db = F.amplitude_to_DB(per_clip, 20.0, 1e-10, 0.0, 80.0)
+    amp = F.DB_to_amplitude(db, 1.0, 0.5)
+    out["db_err"] = max(check_close("amplitude_to_DB (top_db 80) against the CPU", db.cpu(),
+                                    F.amplitude_to_DB(per_clip.cpu(), 20.0, 1e-10, 0.0, 80.0), 1e-5, 1e-5),
+                        check_close("DB_to_amplitude of it against the CPU", amp.cpu(),
+                                    F.DB_to_amplitude(db.cpu(), 1.0, 0.5), 1e-5, 1e-5))
+
+    def centroid(w_=w, x_=x):
+        return F.spectral_centroid(x_, VOC_SR, 0, w_, VOC_N_FFT, VOC_HOP, VOC_N_FFT)
+
+    reset_kernel_counts()
+    sc = centroid()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches("spectral_centroid (phase 10)", counts, ["power_spectrogram"])
+    require_route("spectral_centroid (phase 10)", counts, "power_spectrogram", "fft")
+    out["centroid_launches"] = {"power_spectrogram": counts["power_spectrogram"],
+                                "power_spectrogram_fft": counts["power_spectrogram_fft"]}
+    out["centroid_err"] = check_close("spectral_centroid (first 2 clips) against the CPU", sc[:2].cpu(),
+                                      centroid(w.cpu(), x[:2].cpu()), 0.0, 1e-4)
+    out["centroid_ms"], out["centroid_runs_ms"] = median_call_ms(centroid)
+    print(f"  spectral_centroid at ({VOC_B}, {VOC_T}): {out['centroid_ms']:.3f} ms on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -1917,11 +2197,11 @@ def main(argv=None) -> int:
     # lattice and the pruned loss's band
     check_lattice_stream(rng, dev)
     # K6 on its route "stream" at ragged shapes and rows with fewer than k candidates above -inf,
-    # with routes "row" and "global" on the same rows; then K5's three routes on such rows, recorded.
+    # with routes "row" and "global" on the same rows; then K5's three routes on such rows.
     # Generators of their own, so that the later checks see the inputs they saw before
     check_row_stats_stream(np.random.default_rng(12), dev)
     print(f"  K6 launches by route in phase 3: {cuda_rnnt_lps.row_stats_route_launches}")
-    k5_few = observe_join_few_candidates(np.random.default_rng(13), dev)
+    k5_few = check_join_few_candidates(np.random.default_rng(13), dev)
     t_out = TRAIN_T // 4  # frames after the time reduction; phase 8 holds the model's output to it
     k8_train = {}
     for shape, label in (((TRAIN_B_FULL, t_out, TRAIN_U + 1, RNNT_V), "full lattice"),
@@ -2166,6 +2446,15 @@ def main(argv=None) -> int:
     fg = filter_grad[2]
     fg["profile"] = profile_chain(lambda: filter_grad_step(wav, fg["a"], fg["b"], fb, window), fg["ms"], reps=1)
 
+    # ---------------------------------------------------------------- phase 10
+    print(f"phase 10: the effects chain (B={FX_B} x {T} samples) and the Griffin-Lim vocoder (B={VOC_B} x {VOC_T})")
+    t10 = time.perf_counter()
+    with torch.no_grad():
+        effects = run_effects(dev, card)
+        vocoder = run_vocoder(dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -2361,7 +2650,8 @@ def main(argv=None) -> int:
                        "k4_serial_ms": k4_serial_ms, "k1_serial_ms": k1_serial_ms, "k1_orders": k1_orders,
                        "k8_row_ms": k8_row_ms, "k8_train": k8_train, "k3_block_ms": k3_block_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
-                                       for o, r in filter_grad.items()}}, f, indent=1)
+                                       for o, r in filter_grad.items()},
+                       "effects": effects, "vocoder": vocoder}, f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

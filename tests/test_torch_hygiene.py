@@ -169,3 +169,40 @@ def test_the_port_reads_no_environment_variable_to_pick_a_path():
         named = re.findall(r'environ(?:\.get\(|\[)\s*"([A-Za-z_]+)"', text)
         assert len(named) == text.count("environ") and "getenv" not in text, f"{path.name} reads the environment"
         assert set(named) <= allowed, f"{path.name} reads {sorted(set(named) - allowed)}"
+
+
+def test_functional_exports_every_name_of_the_three_ported_modules():
+    """``audio_tpu_torch.functional`` exports every public name that ``audio_tpu.functional`` takes
+    from ``_filtering.py``, ``_stft.py`` and ``_spectral.py``."""
+    import audio_tpu.functional as jf
+    from audio_tpu.functional import _filtering, _spectral, _stft
+
+    import audio_tpu_torch.functional as tf
+
+    names = set(jf.__all__) & (set(_filtering.__all__) | set(_stft.__all__) | set(_spectral.__all__))
+    assert {"contrast", "dither", "flanger", "istft", "griffinlim", "phase_vocoder", "spectral_centroid"} <= names
+    assert not names - set(tf.__all__), sorted(names - set(tf.__all__))
+    assert all(callable(getattr(tf, n)) for n in tf.__all__)
+
+
+@pytest.mark.parametrize("name", ["contrast", "dcshift", "gain", "overdrive", "phaser", "flanger", "dither",
+                                  "istft", "inverse_spectrogram", "griffinlim", "amplitude_to_DB",
+                                  "DB_to_amplitude", "phase_vocoder", "spectral_centroid"])
+def test_ported_functions_keep_the_jax_signatures_with_a_generator_for_a_key(name):
+    """The same parameters, defaults and order as the JAX package, except that a ``key`` becomes a
+    ``generator`` (dither, griffinlim): no port function takes a key.  phaser and flanger draw
+    nothing and take neither, as in the JAX package."""
+    import inspect
+
+    import audio_tpu.functional as jf
+
+    import audio_tpu_torch.functional as tf
+
+    def params(fn):
+        return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    want = [("generator" if n == "key" else n, d) for n, d in params(getattr(jf, name))]
+    got = params(getattr(tf, name))
+    assert got == want
+    assert "key" not in dict(got)
+    assert ("generator" in dict(got)) == (name in ("dither", "griffinlim"))

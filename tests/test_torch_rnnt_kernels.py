@@ -10,6 +10,8 @@ in bf16 1e-2 for K6 and K8 and 2e-2 for K5 and K7 (atol and rtol, one bound:
 |got - ref| <= tol + tol |ref|).  Top-k indices must be equal, ties included.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -360,6 +362,45 @@ def test_join_stats_topk_plain_upcasts_before_the_product():
     assert float((got[2].double() - exact).abs().max()) < 1e-5
 
 
+def _few_candidate_join(rng, finite_cols):
+    """ROADMAP section C's probe: act (8, 16), w (16, 40), blank 39, a bias of -inf but at
+    ``finite_cols`` and the blank, so every row has only those candidates above -inf."""
+    act = rng.standard_normal((8, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 40)) * 0.2).astype(np.float32)
+    b = np.full(40, -np.inf, np.float32)
+    b[list(finite_cols) + [39]] = rng.standard_normal(len(finite_cols) + 1).astype(np.float32)
+    return act, w, b
+
+
+@pytest.mark.parametrize("finite_cols,want_row", [((5, 9), None), ((), [0, 1, 2, 3, 4, 5]), ((17,), None)],
+                         ids=["two_finite", "all_neg_inf", "one_finite"])
+def test_join_stats_topk_plain_on_rows_with_fewer_than_k_finite_candidates(finite_cols, want_row):
+    """Past a row's last candidate above -inf, K5's ranks are top_k's: the lowest -inf columns not yet
+    taken.  The plain version equals the JAX reference, indices exactly, at k 6."""
+    act, w, b = _few_candidate_join(np.random.default_rng(41), finite_cols)
+    ref = jk.join_stats_topk_reference(jnp.asarray(act), jnp.asarray(w), jnp.asarray(b), 39, 6)
+    got = cuda_rnnt_lps.join_stats_topk(torch.from_numpy(act), torch.from_numpy(w), torch.from_numpy(b), 39, 6)
+    for name, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
+        _close(g, r, 1e-5, name)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    rest = [c for c in range(39) if c not in finite_cols][: 6 - len(finite_cols)]
+    assert (got[3][:, len(finite_cols):] == torch.tensor(rest, dtype=torch.int32)).all()
+    assert want_row is None or got[3][0].tolist() == want_row
+
+
+def test_k5_tpu_kernel_repeats_column_0_past_a_rows_last_finite_candidate():
+    """The divergence ROADMAP.md section C keeps for K5 as for K6: the TPU kernel masks a taken column
+    with -inf, so past a row's last candidate above -inf it takes column 0 again and again, where the
+    reference (and the port, on every route) takes the lowest -inf columns not yet taken."""
+    act, w, b = _few_candidate_join(np.random.default_rng(41), (5, 9))
+    args = (jnp.asarray(act), jnp.asarray(w), jnp.asarray(b), 39, 6)
+    tpu_idx = np.asarray(jk.join_stats_topk(*args, interpret=True)[3])
+    ref_idx = np.asarray(jk.join_stats_topk_reference(*args)[3])
+    np.testing.assert_array_equal(tpu_idx[:, :2], ref_idx[:, :2])  # the two finite candidates agree
+    assert (np.sort(ref_idx[:, :2], axis=1) == [5, 9]).all()
+    assert (tpu_idx[:, 2:] == 0).all() and (ref_idx[:, 2:] == [0, 1, 2, 3]).all()
+
+
 # ------------------------------------------------------------------ K7
 @pytest.mark.parametrize("oracle", ORACLES)
 @pytest.mark.parametrize("n,hdim,bf16,seed", [(48, 64, False, 0), (32, 128, True, 2), (30, 64, False, 3)])
@@ -408,52 +449,144 @@ def test_cpu_tensors_launch_nothing():
 
 
 # ------------------------------------------------------------------ K5's "wgmma" route: host side
-def _split_merge(act, w, b, blank: int, k: int, splits: int):
+def _ranks_before(a, b) -> bool:
+    """csrc/rnnt_lps.cu's ranks_before on (value, column) pairs."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _thread_best(vals, cand, old_rule: bool):
+    """A thread's tree over its 32 slots, as the kernel's fold: values alone, the right entry of a
+    pair winning only if greater, a slot that holds no candidate entering as -inf.  A -inf best then
+    says only that every candidate left is -inf: the best is the lowest candidate slot, or None when
+    no candidate is left.  ``old_rule``: the fold before the repair took a -inf best as none left."""
+    v = [vals[i] if i in cand else -math.inf for i in range(32)]
+    slot = list(range(32))
+    width = 16
+    while width:
+        for i in range(width):
+            right = v[2 * i + 1] > v[2 * i]
+            v[i], slot[i] = (v[2 * i + 1], slot[2 * i + 1]) if right else (v[2 * i], slot[2 * i])
+        width //= 2
+    if v[0] == -math.inf:
+        return v[0], None if old_rule or not cand else min(cand)
+    return v[0], slot[0]
+
+
+def _fold_tile(x_row, col0: int, blank: int, k: int, top: list, old_rule: bool) -> list:
+    """The wgmma route's fold of one 128-column tile into a row's k-best list ``top`` (descending
+    (value, column) pairs, started at (-inf, INT_MAX)): thread q of the row's quad owns, in slot i,
+    column col0 + 8 (i >> 1) + 2 q + (i & 1); each round takes the quad's best candidate while it
+    ranks before the k-th pair of the list and the picks so far; then the picks merge in."""
+    cols = [[col0 + 8 * (i >> 1) + 2 * q + (i & 1) for i in range(32)] for q in range(4)]
+    vals = [[float(x_row[c]) if c < x_row.shape[0] else -math.inf for c in cols[q]] for q in range(4)]
+    kth = top[k - 1]
+    cand = [{i for i in range(32) if cols[q][i] < blank and _ranks_before((vals[q][i], cols[q][i]), kth)}
+            for q in range(4)]
+    picks = []
+    while True:
+        best = []
+        for q in range(4):
+            bv, bs = _thread_best(vals[q], cand[q], old_rule)
+            best.append((bv, INT_MAX if bs is None else cols[q][bs], q, bs))
+        bv, bi, q, bs = best[0]
+        for other in best[1:]:
+            if _ranks_before(other[:2], (bv, bi)):
+                bv, bi, q, bs = other
+        if bi == INT_MAX or not _ranks_before((bv, bi), kth):
+            break
+        cand[q].discard(bs)
+        picks.append((bv, bi))
+        n = len(picks)
+        kth = top[k - 1 - n] if n < k and _ranks_before((bv, bi), top[k - 1 - n]) else (bv, bi)
+    return sorted(top[: k - len(picks)] + picks, key=lambda p: (-p[0], p[1]))
+
+
+def _split_merge(act, w, b, blank: int, k: int, splits: int, old_rule: bool = False):
     """The wgmma route's column split in plain PyTorch: per split (its tiles of 128 columns,
     cut at the blank) the maximum, the sum of exponentials, the blank logit where it lies and
-    the k-best (value, index) pairs; then the merge in split order, pairs compared as
-    (greater value, lower index)."""
+    the k-best (value, index) pairs, folded tile by tile as the kernel folds them
+    (:func:`_fold_tile`); then the merge in split order, pairs compared as (greater value,
+    lower index), and INT_MAX (nothing left) written as column 0."""
     x = act.float() @ w.float() + b.float()
     parts = []
     for t0, t1 in cuda_rnnt_lps.join_split_tiles(blank + 1, splits):
         lo, hi = t0 * 128, min(t1 * 128, blank + 1)
         xs = x[:, lo:hi]
         m = xs.max(-1).values
-        cand = xs[:, : max(0, min(hi, blank) - lo)]
-        vals, idx = cuda_rnnt_lps.top_k(cand, min(k, cand.shape[1]))
-        parts.append((m, torch.exp(xs - m[:, None]).sum(-1), vals, idx + lo))
+        lists = []
+        for r in range(x.shape[0]):
+            top = [(-math.inf, INT_MAX)] * k
+            for tile in range(t0, t1):
+                top = _fold_tile(x[r, : blank + 1], tile * 128, blank, k, top, old_rule)
+            lists.append(top)
+        # a split that holds only -inf adds nothing to the sum (the kernel's rule), not inf - inf
+        total = torch.where(m == -math.inf, 0.0, torch.exp(xs - m[:, None]).sum(-1))
+        parts.append((m, total, lists))
     m = torch.stack([p[0] for p in parts]).max(0).values
     lse = m + torch.log(sum(p[1] * torch.exp(p[0] - m) for p in parts))
     vals, idx = [], []
     for r in range(x.shape[0]):
-        pairs = [(float(v), int(i)) for p in parts for v, i in zip(p[2][r], p[3][r])]
-        best = sorted(pairs, key=lambda vi: (-vi[0], vi[1]))[:k]
+        best = sorted([pair for p in parts for pair in p[2][r]], key=lambda vi: (-vi[0], vi[1]))[:k]
         vals.append([v for v, _ in best])
-        idx.append([i for _, i in best])
+        idx.append([0 if i == INT_MAX else i for _, i in best])
     return lse, x[:, blank], torch.tensor(vals), torch.tensor(idx, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("n,d,v,blank,k,splits,ties", [
-    (6, 32, 300, 299, 10, 2, False), (5, 16, 513, 512, 5, 3, True), (4, 24, 700, 650, 1, 4, True),
-    (3, 8, 257, 200, 7, 2, True),
-])
-def test_join_column_split_merge(n, d, v, blank, k, splits, ties):
-    """The column split and its merge give join_stats_topk_plain: indices exactly, ties to the lowest."""
-    rng = np.random.default_rng(n + v)
+def _join_case(n, d, v, blank, rows, seed):
+    """bf16 join inputs; ``rows``: "dense", "ties" (exact ties across the splits' boundaries: the
+    bias alone on a zero row, repeated), "few" (a bias of -inf but at three columns in different
+    splits and the blank) or "none" (-inf at every candidate)."""
+    rng = np.random.default_rng(seed)
     act = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).bfloat16()
     w = torch.from_numpy((rng.standard_normal((d, v)) * 0.2).astype(np.float32)).bfloat16()
     b = torch.from_numpy((rng.standard_normal((v,)) * 0.1).astype(np.float32)).bfloat16()
-    if ties:  # exact ties across the splits' boundaries: the bias alone on a zero row, repeated
+    if rows == "ties":
         act[0] = 0
         b[::37] = b.max() + 1
+    elif rows in ("few", "none"):
+        keep = b.clone()
+        b[:blank] = -math.inf
+        if rows == "few":
+            for c in (3, blank // 2, blank - 1):
+                b[c] = keep[c]
+    return act, w, b
+
+
+@pytest.mark.parametrize("n,d,v,blank,k,splits,rows", [
+    pytest.param(6, 32, 300, 299, 10, 2, "dense", id="6-32-300-299-10-2-False"),
+    pytest.param(5, 16, 513, 512, 5, 3, "ties", id="5-16-513-512-5-3-True"),
+    pytest.param(4, 24, 700, 650, 1, 4, "ties", id="4-24-700-650-1-4-True"),
+    pytest.param(3, 8, 257, 200, 7, 2, "ties", id="3-8-257-200-7-2-True"),
+    pytest.param(4, 32, 300, 299, 10, 3, "few", id="4-32-300-299-10-3-few"),
+    pytest.param(3, 16, 700, 650, 7, 4, "few", id="3-16-700-650-7-4-few"),
+    pytest.param(3, 16, 300, 299, 10, 2, "none", id="3-16-300-299-10-2-none"),
+    pytest.param(2, 8, 513, 512, 32, 3, "none", id="2-8-513-512-32-3-none"),
+])
+def test_join_column_split_merge(n, d, v, blank, k, splits, rows):
+    """The column split, the fold's pair rule and the merge give join_stats_topk_plain: indices
+    exactly, ties to the lowest, and past a row's last candidate above -inf top_k's ranks."""
+    act, w, b = _join_case(n, d, v, blank, rows, n + v)
     got = _split_merge(act, w, b, blank, k, splits)
     ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, blank, k)
     for name, g, r in zip(("lse", "blank", "vals"), got[:3], ref[:3]):
         _close(g, r.numpy(), 1e-5, name)
     np.testing.assert_array_equal(got[3].numpy(), ref[3].numpy())
-    if ties:  # the tied maxima below the blank come first, lowest index first
+    if rows == "ties":  # the tied maxima below the blank come first, lowest index first
         tied = [c for c in range(0, blank, 37)][:k]
         assert got[3][0].tolist()[: len(tied)] == tied
+    if rows == "none":
+        assert got[3].tolist() == [list(range(k))] * n
+
+
+def test_join_fold_before_the_pair_rule_wrote_int_max():
+    """The emulation sees the fault repaired: with values compared alone and a -inf best taken as
+    nothing left, rows with fewer than k candidates above -inf got INT_MAX (written out as is)."""
+    act, w, b = _join_case(3, 16, 300, 299, "few", 7)
+    ref = cuda_rnnt_lps.join_stats_topk_plain(act, w, b, 299, 10)
+    fixed = _split_merge(act, w, b, 299, 10, 2)[3]
+    old = _split_merge(act, w, b, 299, 10, 2, old_rule=True)[3]
+    assert torch.equal(fixed, ref[3])
+    assert torch.equal(old[:, :3], ref[3][:, :3]) and (old[:, 3:] == 0).all()  # INT_MAX, then column 0
 
 
 def test_join_split_tiles_partition_the_columns():
