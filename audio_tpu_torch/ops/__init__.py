@@ -9,5 +9,7 @@ Emformer attention, forward and backward).  Each holds a ``launches`` counter of
 its kernels: an integer (``cuda_iir`` has ``launches`` for K1 and
 ``iir_launches`` for K4), or in ``cuda_rnnt_lps`` and ``cuda_attention`` a dict
 by kernel name.  ``rnnt`` and ``rnnt_pruned`` hold the transducer losses' DP,
-which reads the lattice through K8.
+which reads the lattice through K8; ``ctc`` holds the CTC loss (the trellis's
+forward recurrence in the log semiring, differentiated by autograd) and the
+greedy decoder.
 """

@@ -112,7 +112,24 @@ Phases, each of which raises on failure:
    correlation at least 0.98 on every clip), in float64 at B=2 against the
    CPU, the inverse spectrogram, the phase vocoder at rate 1.3, decibels there
    and back, and the spectral centroid (K2 must move, only on "fft"), each
-   against the CPU; griffinlim and the centroid timed.
+   against the CPU; griffinlim and the centroid timed;
+11. the CTC augmentation front end at B=8192 rows of 1 s at 16 kHz: speed 1.1 with lengths ->
+   add_noise at per-row SNRs of 0-20 dB -> preemphasis -> deemphasis (K1) -> loudness
+   normalisation to -23 LUFS (K1) -> mel_spectrogram (K2) -> log1p -> sliding_window_cmn (600
+   frames, variance too) -> compute_deltas -> SpecAugment's frequency (27) and time (40) masks from
+   CUDA generators -> projection to the wav2letter recipe's 29 labels -> ctc_loss (mean) and its
+   backward -> ctc_greedy_decode.  K1 must move, only on "chunked", and K2, only on "fft"; each
+   stage's first rows against the CPU (masks against their formula on the generator's draws, the
+   decoded tokens equal), the projection's gradient against the CPU, the step and each stage timed,
+   one step and the loss alone profiled.  Then the other ported functions once each, the card
+   against the CPU, timed: resample 48 -> 16 kHz on (8192, 48000) and 16 -> 44.1 kHz (kaiser) with
+   their peak memory, and once with cuDNN's TF32 at PyTorch's default (the result must not move);
+   pitch_shift by an octave either way at full width and by 4 steps at B=64 with its host-built
+   resampling kernel timed apart; convolve (64 taps, again with cuDNN TF32 on) and fftconvolve
+   (8,000 taps); detect_pitch_frequency at (8192, 16000) under 8 GB; vad on three (2, 64000)
+   recordings (lengths equal); the beamformers on a (64, 6, 257, 200) complex64 STFT; the Frechet
+   distance at dimension 128; mu-law at full width (every code equal); ctc_loss at the recipe's
+   shape (8, 400, 29), L <= 150, against the CPU and against torch.nn.functional.ctc_loss, both timed.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -257,7 +274,7 @@ def check_close(name: str, got, ref, atol: float, rtol: float, quiet: bool = Fal
     count as no error)."""
     import torch
 
-    got, ref = got.double(), ref.double()
+    got, ref = got.detach().double(), ref.detach().double()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     if finite and not bool(torch.isfinite(got).all()):
@@ -2044,6 +2061,481 @@ def run_vocoder(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 11: the CTC augmentation front end
+FE_SPEED, FE_LUFS, FE_CMN = 1.1, -23.0, 600  # speed perturbation, loudness target (EBU R 128), CMN window
+FE_V, FE_L = 29, 20  # the wav2letter recipe's LABELS (examples/asr/wav2letter/train.py:37); targets a row
+FE_FREQ_MASK, FE_TIME_MASK = 27, 40  # SpecAugment's LibriSpeech policy F = 27; T scaled down to 101 frames
+FE_ROWS = 4  # rows held against the CPU
+CTC_B, CTC_T, CTC_L = 8, 400, 150  # the recipe's ctc_loss shape: batch, frames, targets up to
+F32_TOL = (1e-5, 1e-4)  # the port's float32 tolerance where the JAX package's tests give none
+PITCH_GB = 8.0  # detect_pitch_frequency's limit at (8192, 16000), its input included
+
+
+def voiced_rows(dev, b: int, n: int, seed: int):
+    """``b`` rows of ``n`` samples at 16 kHz made on the device from a generator seeded ``seed``: a
+    harmonic tone (100-300 Hz fundamental, five harmonics, random phases) in a little noise."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / SR
+    f0 = 100 + 200 * torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)
+    x = torch.zeros((b, n), device=dev, dtype=torch.float64)
+    for h in range(1, 6):
+        phase = 2 * math.pi * torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)
+        x += torch.sin(2 * math.pi * h * f0 * t + phase) / h
+    return (0.1 * x).float() + 0.01 * torch.randn((b, n), generator=g, device=dev)
+
+
+def peak_call(fn):
+    """``fn()`` and the device memory it held at its peak above what was allocated before it (GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+
+def front_end_state(dev, b: int) -> dict:
+    """The front end's inputs, made on the device: voiced rows, their lengths (12,000 to 16,000
+    samples), noise and per-row SNRs of 0-20 dB, targets of 5 to 20 labels of 1-28."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    return {"wav": voiced_rows(dev, b, T, 40),
+            "lengths": torch.randint(12000, T + 1, (b,), generator=g, device=dev),
+            "noise": 0.1 * torch.randn((b, T), generator=g, device=dev),
+            "snr": 20 * torch.rand((b,), generator=g, device=dev),
+            "targets": torch.randint(1, FE_V, (b, FE_L), generator=g, device=dev),
+            "target_lengths": torch.randint(5, FE_L + 1, (b,), generator=g, device=dev)}
+
+
+PARAMS = ("proj", "fb", "window")  # state entries that are not rows
+
+
+def rows_of(state: dict, n: int, dev) -> dict:
+    """The first ``n`` rows of every row tensor of ``state`` on ``dev``, the parameters whole."""
+    import torch
+
+    return {k: (v if k in PARAMS else v[:n]).to(dev) for k, v in state.items()
+            if isinstance(v, torch.Tensor) and v.dim()}
+
+
+def front_end_stages():
+    """Phase 11's front end as (name, stage, output key) triples; each stage maps the state dict to
+    the next: speed -> add_noise -> preemphasis -> deemphasis (K1) -> loudness normalisation (K1) ->
+    mel_spectrogram (K2) -> log1p + sliding_window_cmn -> compute_deltas -> two SpecAugment masks ->
+    projection to the wav2letter labels -> ctc_loss (mean) -> ctc_greedy_decode."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.ops.ctc import ctc_greedy_decode, ctc_loss
+
+    def speed(s):
+        y, lengths = F.speed(s["wav"], SR, FE_SPEED, s["lengths"])
+        return {**s, "wav": torch.nn.functional.pad(y, (0, T - y.shape[-1])), "lengths": lengths}
+
+    def loudness(s):
+        lufs = F.loudness(s["wav"][:, None], SR)
+        return {**s, "lufs": lufs, "wav": s["wav"] * (10 ** ((FE_LUFS - lufs) / 20))[:, None]}
+
+    def features(s):
+        feats = F.sliding_window_cmn(torch.log1p(s["mel"]), FE_CMN, norm_vars=True)  # (B, frames, 80)
+        return {**s, "feats": feats.transpose(1, 2)}  # (B, 80, frames)
+
+    def mask(param, axis, seed):
+        def run(s):
+            g = torch.Generator(device=s["spec"].device).manual_seed(seed)
+            return {**s, "spec": F.mask_along_axis_iid(s["spec"], param, 0.0, axis, generator=g)}
+        return run
+
+    def loss(s):
+        il = torch.clamp(s["lengths"] // HOP + 1, max=s["lp"].shape[1])
+        return {**s, "input_lengths": il, "loss": ctc_loss(s["lp"], s["targets"], il, s["target_lengths"])}
+
+    return [
+        ("speed 1.1", speed, "wav"),
+        ("add_noise 0-20 dB", lambda s: {**s, "wav": F.add_noise(s["wav"], s["noise"], s["snr"], s["lengths"])},
+         "wav"),
+        ("preemphasis 0.97", lambda s: {**s, "wav": F.preemphasis(s["wav"], 0.97)}, "wav"),
+        ("deemphasis 0.97", lambda s: {**s, "wav": F.deemphasis(s["wav"], 0.97)}, "wav"),
+        ("loudness to -23 LUFS", loudness, "wav"),
+        ("mel_spectrogram", lambda s: {**s, "mel": F.mel_spectrogram(
+            s["wav"], s["fb"], s["window"], N_FFT, HOP, N_FFT, power=2.0, time_major=True)}, "mel"),
+        ("log1p + sliding_window_cmn", features, "feats"),
+        ("compute_deltas", lambda s: {**s, "spec": torch.cat([s["feats"], F.compute_deltas(s["feats"])], dim=1)},
+         "spec"),
+        ("frequency mask", mask(FE_FREQ_MASK, 1, 42), "spec"),
+        ("time mask", mask(FE_TIME_MASK, 2, 43), "spec"),
+        ("projection + log_softmax",
+         lambda s: {**s, "lp": torch.log_softmax(s["spec"].transpose(1, 2) @ s["proj"], -1)}, "lp"),
+        ("ctc_loss", loss, "loss"),
+        ("ctc_greedy_decode", lambda s: {**s, "decoded": ctc_greedy_decode(s["lp"], s["input_lengths"])}, "decoded"),
+    ]
+
+
+def check_front_end_stage(name: str, key: str, stage, card_in: dict, card_out: dict) -> float:
+    """A stage's first FE_ROWS rows on the card against the same call on the CPU, on the card's
+    input rows: the float32 tolerances of the CPU parity tests (preemphasis the JAX test's 1e-7,
+    deltas 1e-6, K2's mel 5e-4 of the peak as phase 3), the masks equal to their formula on the
+    card generator's draws, the decoded tokens and counts and speed's lengths equal."""
+    import torch
+
+    from audio_tpu_torch.functional._misc import _mask_draws, _span_mask
+    from audio_tpu_torch.ops.ctc import ctc_loss
+
+    cpu_in = rows_of(card_in, FE_ROWS, "cpu")
+    label = f"{name} (first {FE_ROWS} rows) against the CPU"
+    if key == "decoded":
+        (tok, cnt), (tok_ref, cnt_ref) = card_out["decoded"], stage(cpu_in)["decoded"]
+        return float(check_equal(f"{label}: tokens", tok[:FE_ROWS].cpu(), tok_ref)
+                     + check_equal(f"{label}: counts", cnt[:FE_ROWS].cpu(), cnt_ref))
+    if key == "loss":  # the rows' own losses, and the mean over all rows finite
+        if not math.isfinite(float(card_out["loss"].detach())):
+            raise AssertionError(f"{name}: the mean loss {float(card_out['loss'].detach())} is not finite")
+        il = card_out["input_lengths"][:FE_ROWS]
+        got = ctc_loss(card_in["lp"][:FE_ROWS], card_in["targets"][:FE_ROWS], il,
+                       card_in["target_lengths"][:FE_ROWS], reduction="none")
+        ref = ctc_loss(cpu_in["lp"], cpu_in["targets"], il.cpu(), cpu_in["target_lengths"], reduction="none")
+        return check_close(label, got.cpu(), ref, *F32_TOL)
+    if name.endswith("mask"):
+        axis, seed = (1, 42) if name.startswith("frequency") else (2, 43)
+        param = FE_FREQ_MASK if axis == 1 else FE_TIME_MASK
+        spec = card_in["spec"]
+        shape = [1, 1, 1]
+        shape[axis] = spec.shape[axis]
+        u_value, u_min = _mask_draws(spec.shape[:1], torch.Generator(device=spec.device).manual_seed(seed),
+                                     spec.device)
+        m = _span_mask(u_value[:FE_ROWS, None, None].cpu(), u_min[:FE_ROWS, None, None].cpu(), param,
+                       spec.shape[axis], shape, "cpu")
+        if not torch.equal(card_out["spec"][:FE_ROWS].cpu(), torch.where(m, 0.0, cpu_in["spec"])):
+            raise AssertionError(f"{label}: not the mask of the generator's draws")
+        print(f"  {label}: equal to the mask of the CUDA generator's draws ({int(m.sum())} entries masked)")
+        return 0.0
+    ref = stage(cpu_in)
+    tol = {"preemphasis 0.97": (1e-7, 0.0), "compute_deltas": (1e-6, 1e-6)}.get(name, F32_TOL)
+    if key == "mel":
+        tol = (5e-4 * float(ref["mel"].abs().max()), 0.0)
+    if name.startswith("speed"):
+        check_equal(f"{label}: lengths", card_out["lengths"][:FE_ROWS].cpu(), ref["lengths"])
+    if name.startswith("loudness"):
+        check_close(f"{label}: LUFS", card_out["lufs"][:FE_ROWS].cpu(), ref["lufs"], 0.01, 0.0)  # the JAX test's
+    return check_close(label, card_out[key][:FE_ROWS].cpu(), ref[key], *tol)
+
+
+def run_front_end(dev, card: str, fb, window) -> dict:
+    """Phase 11 (a): the CTC augmentation front end at B = 8192 rows of 1 s at 16 kHz.  One step
+    (every stage, then the mean loss's backward to the projection) with the launch counters read
+    around it: K1 must move, only on "chunked", and K2, only on "fft".  Each stage's first rows
+    against the CPU; the step and each stage timed (median of 5), one step and the loss alone
+    profiled."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    proj = (0.1 * torch.randn((2 * N_MELS, FE_V), generator=gen, device=dev)).requires_grad_(True)
+    stages = front_end_stages()
+    by_name = {name: fn for name, fn, _ in stages}
+    s0 = {**front_end_state(dev, B), "proj": proj, "fb": fb, "window": window}
+
+    def step():
+        with torch.enable_grad():
+            proj.grad = None
+            s = s0
+            for _, fn, _ in stages:
+                s = fn(s)
+            s["loss"].backward()
+        return s
+
+    reset_kernel_counts()
+    final = step()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches("one front-end step (phase 11)", counts, ["lfilter", "power_spectrogram"])
+    require_route("one front-end step (phase 11)", counts, "lfilter", "chunked")
+    require_route("one front-end step (phase 11)", counts, "power_spectrogram", "fft")
+    out = {"launches": {k: counts[k] for k in ("lfilter", "lfilter_chunked", "power_spectrogram",
+                                               "power_spectrogram_fft")}}
+    grad = proj.grad
+    if grad is None or not bool(torch.isfinite(grad).all()) or float(grad.abs().max()) == 0:
+        raise AssertionError("front end: the projection has no finite, non-zero gradient")
+    out["loss"] = float(final["loss"])
+    print(f"  front end: mean CTC loss {out['loss']:.4f}, the projection's gradient finite (max |g| "
+          f"{float(grad.abs().max()):.3e}); {int(final['decoded'][1].sum())} tokens decoded over {B} rows")
+
+    # each stage on the card's own input, its first rows against the CPU, then timed
+    s, stage_ms = s0, {}
+    with torch.enable_grad():
+        for name, fn, key in stages:
+            nxt = fn(s)
+            err = check_front_end_stage(name, key, fn, s, nxt)
+            ms, runs = median_call_ms(lambda: fn(s))
+            stage_ms[name] = {"ms": ms, "runs_ms": runs, "max_abs_err": err}
+            print(f"  {name} at B={B}: {ms:.3f} ms on {card}")
+            s = nxt
+        # the gradient of the first rows' mean loss to the projection, card against CPU
+        grads = []
+        for dv in (dev, torch.device("cpu")):
+            st = {**rows_of(s, FE_ROWS, dv), "proj": proj.detach().to(dv).requires_grad_(True)}
+            by_name["ctc_loss"](by_name["projection + log_softmax"](st))["loss"].backward()
+            grads.append(st["proj"].grad.cpu())
+        out["grad_err"] = check_close(f"the projection's gradient of the first {FE_ROWS} rows' loss against the CPU",
+                                      grads[0], grads[1], *F32_TOL)
+    out["stages"] = stage_ms
+
+    out["step_ms"], out["step_runs_ms"] = median_call_ms(step)
+    print(f"  front-end step (forward and the loss's backward) at B={B}: {out['step_ms']:.3f} ms on {card}")
+    out["step_profile"] = profile_call(f"front-end step at B={B}", step, out["step_ms"])
+
+    def ctc_fwd_bwd():
+        with torch.enable_grad():
+            lp = s["lp"].detach().requires_grad_(True)
+            by_name["ctc_loss"]({**s, "lp": lp})["loss"].backward()
+
+    ctc_ms = median_call_ms(ctc_fwd_bwd)[0]
+    out["ctc_profile"] = profile_call(f"ctc_loss forward + backward at B={B}, T={s['lp'].shape[1]}", ctc_fwd_bwd,
+                                      ctc_ms)
+    out["ctc_fwd_bwd_ms"] = ctc_ms
+    return out
+
+
+def run_front_end_functions(dev, card: str) -> dict:
+    """Phase 11 (b): the other ported functions once each at the sizes their users run, the card
+    against the CPU on the first rows (the parity tests' tolerances), timed (median of 5)."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.functional._resample import get_sinc_resample_kernel
+    from audio_tpu_torch.ops.ctc import ctc_loss
+
+    out = {}
+
+    def timed(label, fn, **extra):
+        ms, runs = median_call_ms(fn)
+        out[label] = {"ms": ms, "runs_ms": runs, **extra}
+        print(f"  {label}: {ms:.3f} ms on {card}")
+        return ms
+
+    def with_cudnn_tf32(fn):
+        """``fn()`` with cuDNN's TF32 at PyTorch's default (on)."""
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    # resample: 48 -> 16 kHz on (8192, 48000), and 16 -> 44.1 kHz (kaiser) on the front end's rows
+    x48 = voiced_rows(dev, B, 48000, 50)
+    y, peak = peak_call(lambda: F.resample(x48, 48000, 16000))
+    err = check_close("resample 48 -> 16 kHz (first 2 rows) against the CPU", y[:2].cpu(),
+                      F.resample(x48[:2].cpu(), 48000, 16000), *F32_TOL)
+    tf32 = check_close("resample 48 -> 16 kHz with cuDNN TF32 at its default (on) against it off",
+                       with_cudnn_tf32(lambda: F.resample(x48, 48000, 16000)), y, *F32_TOL)
+    timed(f"resample 48 -> 16 kHz at ({B}, 48000)", lambda: F.resample(x48, 48000, 16000), peak_gb=peak,
+          max_abs_err=err, tf32_err=tf32)
+    print(f"    its peak device memory above its input: {peak:.3f} GB")
+    del x48, y
+    x16 = voiced_rows(dev, B, T, 51)
+    kw = dict(resampling_method="sinc_interp_kaiser")
+    y, peak = peak_call(lambda: F.resample(x16, 16000, 44100, **kw))
+    err = check_close("resample 16 -> 44.1 kHz kaiser (first 2 rows) against the CPU", y[:2].cpu(),
+                      F.resample(x16[:2].cpu(), 16000, 44100, **kw), *F32_TOL)
+    timed(f"resample 16 -> 44.1 kHz kaiser at ({B}, {T})", lambda: F.resample(x16, 16000, 44100, **kw),
+          peak_gb=peak, max_abs_err=err)
+    del y
+
+    # pitch_shift: an octave either way at full width; 4 steps at B = 64 with the host's kernel build apart
+    hop = 512 // 4
+    for steps in (12, -12):
+        y, peak = peak_call(lambda: F.pitch_shift(x16, SR, steps))
+        ref = F.pitch_shift(x16[:2].cpu(), SR, steps)
+        frames = 2 * T // hop + 2  # the float32 phase accumulation bound of the parity test
+        bound = 4 * float(torch.finfo(torch.float32).eps) * frames * (math.pi * hop + 2 * math.pi) * float(
+            x16[:2].abs().max())
+        err = check_close(f"pitch_shift {steps:+d} steps (first 2 rows) against the CPU", y[:2].cpu(), ref, bound, 0.0)
+        timed(f"pitch_shift {steps:+d} steps at ({B}, {T})", lambda: F.pitch_shift(x16, SR, steps), peak_gb=peak,
+              max_abs_err=err)
+        del y
+    x64 = x16[:64]
+    y = F.pitch_shift(x64, SR, 4)
+    err = check_close("pitch_shift +4 steps (first 2 of 64 rows) against the CPU", y[:2].cpu(),
+                      F.pitch_shift(x64[:2].cpu(), SR, 4), 4 * float(torch.finfo(torch.float32).eps) * (2 * T // hop)
+                      * (math.pi * hop + 2 * math.pi) * float(x64[:2].abs().max()), 0.0)
+    rate = 2.0 ** (-4 / 12)
+    t0 = time.perf_counter()
+    kernel, _ = get_sinc_resample_kernel(int(SR / rate), SR, dtype=torch.float32)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    F.pitch_shift(x64, SR, 4)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    out["pitch_shift +4 steps at (64, 16000)"] = {"call_s": call_s, "kernel_build_s": build_s,
+                                                  "kernel_shape": list(kernel.shape), "max_abs_err": err}
+    print(f"  pitch_shift +4 steps at (64, {T}): {call_s * 1e3:.1f} ms a call (host clock); building its "
+          f"{tuple(kernel.shape)} resampling kernel on the host alone, in another call, {build_s * 1e3:.1f} ms "
+          f"on {card}")
+    del kernel, y
+
+    # convolve with a 64-tap FIR (cuDNN TF32 off and at its default), fftconvolve with a 0.5 s room response
+    g = torch.Generator(device=dev).manual_seed(52)
+    fir = torch.randn((1, 64), generator=g, device=dev) / 8
+    room = torch.randn((1, 8000), generator=g, device=dev) * torch.exp(-torch.arange(8000, device=dev) / 1600.0)
+    y = F.convolve(x16, fir)
+    err = check_close("convolve, 64 taps (first 2 rows) against the CPU", y[:2].cpu(),
+                      F.convolve(x16[:2].cpu(), fir.cpu()), *F32_TOL)
+    tf32 = check_close("convolve with cuDNN TF32 at its default (on) against it off",
+                       with_cudnn_tf32(lambda: F.convolve(x16, fir)), y, *F32_TOL)
+    timed(f"convolve 64 taps at ({B}, {T})", lambda: F.convolve(x16, fir), max_abs_err=err, tf32_err=tf32)
+    y = F.fftconvolve(x16, room)
+    err = check_close("fftconvolve, 8,000 taps (first 2 rows) against the CPU", y[:2].cpu(),
+                      F.fftconvolve(x16[:2].cpu(), room.cpu()), *F32_TOL)
+    timed(f"fftconvolve 8000 taps at ({B}, {T})", lambda: F.fftconvolve(x16, room), max_abs_err=err)
+    del y
+
+    # detect_pitch_frequency at full width: under PITCH_GB with its input, lags equal to the CPU's
+    freq, peak = peak_call(lambda: F.detect_pitch_frequency(x16, SR))
+    peak += x16.numel() * 4 / 1e9
+    ref = F.detect_pitch_frequency(x16[:FE_ROWS].cpu(), SR)
+    differ = int((freq[:FE_ROWS].cpu() != ref).sum())
+    print(f"  detect_pitch_frequency (first {FE_ROWS} rows) against the CPU: {differ} of {ref.numel()} frames' "
+          "frequencies differ (limit 0)")
+    if differ:
+        raise AssertionError("detect_pitch_frequency: the card's frequencies differ from the CPU's")
+    print(f"  detect_pitch_frequency at ({B}, {T}): peak device memory {peak:.3f} GB with its input "
+          f"(limit {PITCH_GB})")
+    if peak >= PITCH_GB:
+        raise AssertionError(f"detect_pitch_frequency: {peak:.3f} GB at its peak, past {PITCH_GB} GB")
+    timed(f"detect_pitch_frequency at ({B}, {T})", lambda: F.detect_pitch_frequency(x16, SR), peak_gb=peak)
+    del freq
+
+    # vad on three two-channel recordings of 4 s: the same trimmed lengths and samples as the CPU
+    lengths = []
+    for i, onset in enumerate((0.5, 1.5, 2.5)):
+        g = torch.Generator(device=dev).manual_seed(60 + i)
+        rec = 0.005 * torch.randn((2, 4 * SR), generator=g, device=dev)
+        start = int(onset * SR)
+        rec[:, start:start + SR] += voiced_rows(dev, 2, SR, 70 + i) * 3
+        got = F.vad(rec, SR)
+        want = F.vad(rec.cpu(), SR)
+        if got.shape != want.shape or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"vad, onset {onset} s: the card gives {tuple(got.shape)}, the CPU {tuple(want.shape)}")
+        lengths.append(got.shape[-1])
+        if i == 2:
+            timed("vad on (2, 64000)", lambda: F.vad(rec, SR))
+    out["vad_lengths"] = lengths
+    print(f"  vad on three (2, {4 * SR}) recordings (onsets 0.5, 1.5, 2.5 s): trimmed to {lengths} samples, "
+          "equal to the CPU's")
+
+    # beamforming on a 6-channel complex64 STFT (64, 6, 257, 200)
+    g = torch.Generator(device=dev).manual_seed(53)
+    shp = (64, 6, 257, 200)
+    src = torch.randn((64, 1, 257, 200), generator=g, device=dev, dtype=torch.complex64)
+    h = torch.randn((64, 6, 257, 1), generator=g, device=dev, dtype=torch.complex64)
+    spec = src * h + 0.3 * torch.randn(shp, generator=g, device=dev, dtype=torch.complex64)
+    mask = torch.rand((64, 257, 200), generator=g, device=dev)
+
+    def beamform(sp, m):
+        psd_s, psd_n = F.psd(sp, m), F.psd(sp, 1 - m)
+        w_souden = F.mvdr_weights_souden(psd_s, psd_n, 0)
+        rtf_e, rtf_p = F.rtf_evd(psd_s), F.rtf_power(psd_s, psd_n, 0)
+        w_evd, w_power = F.mvdr_weights_rtf(rtf_e, psd_n, 0), F.mvdr_weights_rtf(rtf_p, psd_n, 0)
+        return {"psd_s": psd_s, "souden": w_souden, "rtf_evd": rtf_e, "rtf_power": rtf_p, "mvdr_evd": w_evd,
+                "mvdr_power": w_power, "out": F.apply_beamforming(w_evd, sp)}
+
+    # complex64 solves on these PSDs lose cond * eps: each output is held against the CPU's complex128
+    # result on the same inputs, the card's error within four times the CPU's own complex64 error + 1e-6
+    got = beamform(spec, mask)
+    ref32 = beamform(spec[:2].cpu(), mask[:2].cpu())
+    ref = beamform(spec[:2].cpu().to(torch.complex128), mask[:2].cpu().double())
+    for r in (got, ref32):  # the eigensolver's unit factor, frequency by frequency
+        v = r["rtf_evd"][:2].cpu().to(torch.complex128)
+        inner = torch.sum(ref["rtf_evd"].conj() * v, dim=-1, keepdim=True)
+        r["rtf_evd"] = v * (inner / inner.abs()).conj()
+    berr = {}
+    for k in ref:
+        peak_k = float(ref[k].abs().max())
+        card_err = float((got[k][:2].cpu().to(torch.complex128) - ref[k]).abs().max()) / peak_k
+        cpu_err = float((ref32[k].to(torch.complex128) - ref[k]).abs().max()) / peak_k
+        ok = card_err <= 4 * cpu_err + 1e-6
+        print(f"  beamforming {k} (first 2 of 64) against the CPU's complex128, relative to its peak: card "
+              f"{card_err:.3e}, the CPU's complex64 {cpu_err:.3e} (limit four times that + 1e-6) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"beamforming {k}: the card's complex64 error {card_err:.3e} exceeds the CPU's")
+        berr[k] = card_err
+    timed(f"beamforming (psd, souden, evd, power, 2 x rtf, apply) at {shp}", lambda: beamform(spec, mask),
+          max_abs_err=max(berr.values()))
+    del spec, src, got
+
+    # frechet_distance at dimension 128 (FAD's VGGish embeddings; statistics in float64)
+    g = torch.Generator(device=dev).manual_seed(54)
+    a, b = torch.randn((2, 128, 128), generator=g, device=dev, dtype=torch.float64) / 4
+    eye = torch.eye(128, device=dev, dtype=torch.float64)
+    args = [torch.randn(128, generator=g, device=dev, dtype=torch.float64), a @ a.T + eye,
+            torch.randn(128, generator=g, device=dev, dtype=torch.float64), b @ b.T + eye]
+    fd = F.frechet_distance(*args)
+    # both cast the eigenvalues to complex64: a float32 sum of 128 square roots
+    err = check_close("frechet_distance, dimension 128, against the CPU", fd.cpu(),
+                      F.frechet_distance(*(v.cpu() for v in args)), 1e-4, 1e-5)
+    lib = torch.backends.cuda.preferred_linalg_library()
+    timed("frechet_distance at dimension 128", lambda: F.frechet_distance(*args), max_abs_err=err,
+          linalg_library=str(lib), value=float(fd))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigvals(args[1] @ args[3])
+        torch.cuda.synchronize()
+    eig_kernels = sorted({r[0][:60] for r in device_kernel_rows(prof, 1)})
+    out["frechet_distance at dimension 128"]["eigvals_kernels"] = eig_kernels
+    print(f"    frechet_distance = {float(fd):.6f}; torch.backends.cuda.preferred_linalg_library(): {lib}; the "
+          f"kernels of one torch.linalg.eigvals call on the card: {eig_kernels}")
+
+    # mu-law at full width: every code equal to the CPU's
+    codes = F.mu_law_encoding(x16, 256)
+    mismatches = int((codes.cpu() != F.mu_law_encoding(x16.cpu(), 256)).sum())
+    print(f"  mu_law_encoding at ({B}, {T}): {mismatches} of {codes.numel()} codes differ from the CPU's (limit 0)")
+    if mismatches:
+        raise AssertionError("mu_law_encoding: codes differ from the CPU's")
+    dec = F.mu_law_decoding(codes, 256)
+    err = check_close("mu_law_decoding (first 4 rows) against the CPU", dec[:4].cpu(),
+                      F.mu_law_decoding(codes[:4].cpu(), 256), *F32_TOL)
+    timed(f"mu_law_encoding at ({B}, {T})", lambda: F.mu_law_encoding(x16, 256))
+    timed(f"mu_law_decoding at ({B}, {T})", lambda: F.mu_law_decoding(codes, 256), max_abs_err=err)
+    del codes, dec, x16
+
+    # ctc_loss at the wav2letter recipe's shape, against the CPU and torch.nn.functional.ctc_loss
+    g = torch.Generator(device=dev).manual_seed(55)
+    lp = torch.log_softmax(torch.randn((CTC_B, CTC_T, FE_V), generator=g, device=dev), -1)
+    tl = torch.randint(CTC_L // 2, CTC_L + 1, (CTC_B,), generator=g, device=dev)
+    il = torch.randint(CTC_T - 50, CTC_T + 1, (CTC_B,), generator=g, device=dev)
+    tgt = torch.randint(1, FE_V, (CTC_B, CTC_L), generator=g, device=dev)
+    mine = ctc_loss(lp, tgt, il, tl, reduction="none")
+    lib_loss = torch.nn.functional.ctc_loss(lp.transpose(0, 1), tgt, il, tl, reduction="none")
+    err = check_close(f"ctc_loss at ({CTC_B}, {CTC_T}, {FE_V}), L <= {CTC_L}, against the CPU", mine.cpu(),
+                      ctc_loss(lp.cpu(), tgt.cpu(), il.cpu(), tl.cpu(), reduction="none"), *F32_TOL)
+    lib_err = check_close("ctc_loss against torch.nn.functional.ctc_loss on the card", mine, lib_loss, *F32_TOL)
+
+    def fwd_bwd(fn):
+        def run():
+            with torch.enable_grad():
+                x = lp.detach().requires_grad_(True)
+                fn(x).backward()
+        return run
+
+    port = lambda x: ctc_loss(x, tgt, il, tl)  # noqa: E731
+    library = lambda x: torch.nn.functional.ctc_loss(x.transpose(0, 1), tgt, il, tl)  # noqa: E731
+    out["ctc_loss recipe shape"] = {
+        "ms": median_call_ms(lambda: port(lp))[0], "library_ms": median_call_ms(lambda: library(lp))[0],
+        "fwd_bwd_ms": median_call_ms(fwd_bwd(port))[0], "library_fwd_bwd_ms": median_call_ms(fwd_bwd(library))[0],
+        "max_abs_err": err, "library_err": lib_err}
+    r = out["ctc_loss recipe shape"]
+    print(f"  ctc_loss at ({CTC_B}, {CTC_T}, {FE_V}): the port {r['ms']:.3f} ms (forward + backward "
+          f"{r['fwd_bwd_ms']:.3f}), torch.nn.functional.ctc_loss {r['library_ms']:.3f} ms (forward + backward "
+          f"{r['library_fwd_bwd_ms']:.3f}) on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -2455,6 +2947,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    # ---------------------------------------------------------------- phase 11
+    print(f"phase 11: the CTC augmentation front end (B={B} x {T} samples) and the other ported functions")
+    t11 = time.perf_counter()
+    front_end = run_front_end(dev, card, fb, window)
+    torch.cuda.empty_cache()
+    front_end["functions"] = run_front_end_functions(dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -2651,7 +3152,7 @@ def main(argv=None) -> int:
                        "k8_row_ms": k8_row_ms, "k8_train": k8_train, "k3_block_ms": k3_block_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
-                       "effects": effects, "vocoder": vocoder}, f, indent=1)
+                       "effects": effects, "vocoder": vocoder, "front_end": front_end}, f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -39,9 +39,11 @@ def test_scan_covers_the_port():
     assert "examples/asr/emformer_rnnt/train_torch.py" in names
     for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
-                "ops/rnnt.py", "ops/rnnt_pruned.py", "functional/_rnnt.py", "utils/precision.py"):
+                "ops/rnnt.py", "ops/rnnt_pruned.py", "functional/_rnnt.py", "utils/precision.py",
+                "functional/_resample.py", "functional/_misc.py", "functional/_beamforming.py", "functional/_vad.py",
+                "ops/ctc.py"):
         assert f"audio_tpu_torch/{sub}" in names
-    assert len(names) >= 33
+    assert len(names) >= 38
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -172,26 +174,37 @@ def test_the_port_reads_no_environment_variable_to_pick_a_path():
 
 
 def test_functional_exports_every_name_of_the_three_ported_modules():
-    """``audio_tpu_torch.functional`` exports every public name that ``audio_tpu.functional`` takes
-    from ``_filtering.py``, ``_stft.py`` and ``_spectral.py``."""
+    """``audio_tpu_torch.functional`` exports exactly the names of ``audio_tpu.functional`` (those of
+    ``_filtering.py``, ``_stft.py`` and ``_spectral.py`` among them), each callable, and
+    ``audio_tpu_torch.ops.ctc`` those of ``audio_tpu.ops.ctc``."""
     import audio_tpu.functional as jf
     from audio_tpu.functional import _filtering, _spectral, _stft
+    from audio_tpu.ops import ctc as jctc
 
     import audio_tpu_torch.functional as tf
+    from audio_tpu_torch.ops import ctc as tctc
 
-    names = set(jf.__all__) & (set(_filtering.__all__) | set(_stft.__all__) | set(_spectral.__all__))
-    assert {"contrast", "dither", "flanger", "istft", "griffinlim", "phase_vocoder", "spectral_centroid"} <= names
-    assert not names - set(tf.__all__), sorted(names - set(tf.__all__))
+    assert set(tf.__all__) == set(jf.__all__) and len(set(tf.__all__)) == 67
+    assert (set(_filtering.__all__) | set(_stft.__all__) | set(_spectral.__all__)) & set(jf.__all__) <= set(tf.__all__)
     assert all(callable(getattr(tf, n)) for n in tf.__all__)
+    assert set(tctc.__all__) == set(jctc.__all__) == {"ctc_loss", "ctc_greedy_decode"}
+    assert all(callable(getattr(tctc, n)) for n in tctc.__all__)
+
+
+MISC = ["mu_law_encoding", "mu_law_decoding", "mask_along_axis", "mask_along_axis_iid", "compute_deltas",
+        "detect_pitch_frequency", "sliding_window_cmn", "edit_distance", "loudness", "pitch_shift", "convolve",
+        "fftconvolve", "add_noise", "speed", "preemphasis", "deemphasis", "frechet_distance"]
+BEAMFORMING = ["psd", "mvdr_weights_souden", "mvdr_weights_rtf", "rtf_evd", "rtf_power", "apply_beamforming"]
 
 
 @pytest.mark.parametrize("name", ["contrast", "dcshift", "gain", "overdrive", "phaser", "flanger", "dither",
                                   "istft", "inverse_spectrogram", "griffinlim", "amplitude_to_DB",
-                                  "DB_to_amplitude", "phase_vocoder", "spectral_centroid"])
+                                  "DB_to_amplitude", "phase_vocoder", "spectral_centroid", "resample", "vad",
+                                  *MISC, *BEAMFORMING])
 def test_ported_functions_keep_the_jax_signatures_with_a_generator_for_a_key(name):
     """The same parameters, defaults and order as the JAX package, except that a ``key`` becomes a
-    ``generator`` (dither, griffinlim): no port function takes a key.  phaser and flanger draw
-    nothing and take neither, as in the JAX package."""
+    ``generator`` (dither, griffinlim, mask_along_axis, mask_along_axis_iid): no port function takes a
+    key.  phaser and flanger draw nothing and take neither, as in the JAX package."""
     import inspect
 
     import audio_tpu.functional as jf
@@ -205,4 +218,4 @@ def test_ported_functions_keep_the_jax_signatures_with_a_generator_for_a_key(nam
     got = params(getattr(tf, name))
     assert got == want
     assert "key" not in dict(got)
-    assert ("generator" in dict(got)) == (name in ("dither", "griffinlim"))
+    assert ("generator" in dict(got)) == (name in ("dither", "griffinlim", "mask_along_axis", "mask_along_axis_iid"))
