@@ -13,8 +13,14 @@ gradient paths: the Emformer RNN-T train step (``Emformer.forward`` at training
 shapes, ``functional.rnnt_loss`` / ``rnnt_loss_simple`` / ``rnnt_loss_pruned``,
 ``utils.cast_floating`` for bf16 compute over f32 masters) and the gradients of
 ``lfilter`` and the spectrograms; with ``_interop`` to carry the JAX package's
-parameters and gradients across.  Factories make
-their tensors on CUDA unless the caller names another device.
+parameters and gradients across.  Since then the rest of ``functional`` (all
+of the JAX package's 67 names: the sox effects, the inverse spectral
+functions, resampling, the miscellaneous ops, beamforming, ``vad``) and
+``ops.ctc``; every class of ``transforms`` (36 ``nn.Module`` s, the
+multi-channel beamformers among them); and ``compliance.kaldi``
+(``spectrogram``, ``fbank``, ``mfcc`` and their mel and VTLN helpers).
+Factories, and the transforms that hold buffers, make their tensors on CUDA
+unless the caller names another device.
 """
 
 __version__ = "0.1.0"

@@ -521,18 +521,26 @@ def speed(
 
     Integer ``lengths`` scale by an exact integer ceiling division.
     """
+    source_sample_rate, target_sample_rate = _speed_rates(orig_freq, factor)
+    out_lengths = _speed_lengths(lengths, source_sample_rate, target_sample_rate)
+    return resample(waveform, source_sample_rate, target_sample_rate), out_lengths
+
+
+def _speed_rates(orig_freq: int, factor: float) -> Tuple[int, int]:
+    """The source and target rates of a speed change, divided by their greatest common divisor."""
     source_sample_rate = int(factor * orig_freq)
     target_sample_rate = int(orig_freq)
     gcd = math.gcd(source_sample_rate, target_sample_rate)
-    source_sample_rate //= gcd
-    target_sample_rate //= gcd
+    return source_sample_rate // gcd, target_sample_rate // gcd
+
+
+def _speed_lengths(lengths: Optional[torch.Tensor], source_sample_rate: int,
+                   target_sample_rate: int) -> Optional[torch.Tensor]:
     if lengths is None:
-        out_lengths = None
-    elif lengths.is_floating_point():
-        out_lengths = torch.ceil(lengths * target_sample_rate / source_sample_rate).to(lengths.dtype)
-    else:
-        out_lengths = -((-lengths * target_sample_rate) // source_sample_rate)
-    return resample(waveform, source_sample_rate, target_sample_rate), out_lengths
+        return None
+    if lengths.is_floating_point():
+        return torch.ceil(lengths * target_sample_rate / source_sample_rate).to(lengths.dtype)
+    return -((-lengths * target_sample_rate) // source_sample_rate)
 
 
 def preemphasis(waveform: torch.Tensor, coeff: float = 0.97) -> torch.Tensor:

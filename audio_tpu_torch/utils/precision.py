@@ -14,6 +14,9 @@ This is not ``torch.autocast``, which keeps LayerNorm, softmax and other
 operations in f32 and so computes another function than the JAX package does.
 Losses whose reductions must stay accurate (``rnnt_loss``'s log-semiring DP)
 compute in f32 from bf16 logits themselves.
+
+``exact_matmul`` is the other side: the DSP products (filterbanks, DCT
+matrices) stay exact float32 on the card whatever the caller set for TF32.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-__all__ = ["cast_floating", "mixed_precision"]
+__all__ = ["cast_floating", "exact_matmul", "mixed_precision"]
 
 
 def _is_float(x: Any) -> bool:
@@ -73,3 +76,16 @@ def mixed_precision(fn: Callable, compute_dtype: torch.dtype = torch.bfloat16, *
         return cast_floating(out, torch.float32) if upcast_output else out
 
     return wrapped
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with cuBLAS's TF32 turned off inside the call, whatever the caller's flag (as
+    ``functional.convolve`` turns off cuDNN's): a float32 product stays exact float32 on the card."""
+    if not (a.is_cuda or b.is_cuda):
+        return a @ b
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous

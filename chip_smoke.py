@@ -129,7 +129,21 @@ Phases, each of which raises on failure:
    (8,000 taps); detect_pitch_frequency at (8192, 16000) under 8 GB; vad on three (2, 64000)
    recordings (lengths equal); the beamformers on a (64, 6, 257, 200) complex64 STFT; the Frechet
    distance at dimension 128; mu-law at full width (every code equal); ctc_loss at the recipe's
-   shape (8, 400, 29), L <= 150, against the CPU and against torch.nn.functional.ctc_loss, both timed.
+   shape (8, 400, 29), L <= 150, against the CPU and against torch.nn.functional.ctc_loss, both timed;
+12. the same front end built from the transform modules at B=8192: SpeedPerturbation (0.9, 1.0, 1.1; a
+   CUDA generator's draw of 1.1) -> AddNoise -> Deemphasis (K1) -> Loudness normalisation (K1) -> MFCC
+   (40 coefficients of 80 mels, K2) -> SlidingWindowCmn -> ComputeDeltas -> SpecAugment (two time masks
+   of 40, two frequency masks of 27, per row) and LFCC (K2) on the waveforms MFCC reads.  K1 must move,
+   only on "chunked", and K2, only on "fft"; each stage's first rows against the same module on the CPU
+   (SpecAugment against its masks' formula on the generator's draws), MFCC and LFCC the same bits with
+   cuBLAS's TF32 on; the step and each stage timed, one step profiled.  Then every other class once on
+   1,024 rows, the card against the CPU, timed: the complex Spectrogram and InverseSpectrogram, MelScale
+   and InverseMelScale (gels, gelsd), TimeStretch, GriffinLim (float64 at B=2), PitchShift an octave
+   either way, Resample 48 -> 16 kHz, Fade's five shapes, Vol, Preemphasis, Convolve, FFTConvolve,
+   mu-law (every code equal), the axis masks, SpectralCentroid (K2 must move, only on "fft"), Vad, PSD,
+   RTFMVDR, SoudenMVDR, MVDR online over three calls, RNNTLoss (K8 must move).  Then Kaldi's features:
+   fbank in the Audio Spectrogram Transformer's setting on 256 clips of 10 s, one call a clip (clips a
+   second, idle share), mfcc and spectrogram on one 10-minute channel, each against the CPU.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -2536,6 +2550,472 @@ def run_front_end_functions(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 12: transforms and Kaldi features
+TR_FACTORS = (0.9, 1.0, 1.1)  # SpeedPerturbation's factors, the LibriSpeech recipes'
+TR_MFCC, TR_MASK_SEED = 40, 45
+TR_ROWS = 1024  # phase 12 (b): rows of 1 s for each waveform class
+AST = dict(htk_compat=True, window_type="hanning", num_mel_bins=128, frame_shift=10.0, use_energy=False,
+           dither=0.0, sample_frequency=SR)  # the Audio Spectrogram Transformer's fbank (src/dataloader.py)
+AST_CLIPS, AST_SECONDS, KALDI_MINUTES = 256, 10, 10
+KALDI_SPEC_TOL, KALDI_FEAT_TOL = (2e-4, 1e-4), (3e-3, 1e-4)  # tests/compliance/test_kaldi.py's
+
+
+def transform_modules(dev) -> dict:
+    """Phase 12 (a)'s modules, their buffers on ``dev``."""
+    import audio_tpu_torch.transforms as TT
+
+    return {"speed": TT.SpeedPerturbation(SR, list(TR_FACTORS), device=dev), "noise": TT.AddNoise(),
+            "deemphasis": TT.Deemphasis(0.97), "loudness": TT.Loudness(SR),
+            "mfcc": TT.MFCC(SR, n_mfcc=TR_MFCC, melkwargs=dict(n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS),
+                            device=dev),
+            "cmn": TT.SlidingWindowCmn(FE_CMN), "deltas": TT.ComputeDeltas(),
+            "specaugment": TT.SpecAugment(2, FE_TIME_MASK, 2, FE_FREQ_MASK, iid_masks=True),
+            "lfcc": TT.LFCC(SR, n_lfcc=TR_MFCC, speckwargs=dict(n_fft=N_FFT, hop_length=HOP), device=dev)}
+
+
+def speed_seed(card) -> int:
+    """The first seed whose card generator makes SpeedPerturbation draw factor 1.1, phase 11's speed."""
+    import torch
+
+    return next(s for s in range(100) if TR_FACTORS[int(torch.randint(
+        0, len(TR_FACTORS), (), device=card, generator=torch.Generator(device=card).manual_seed(s)))] == 1.1)
+
+
+def transform_stages(card, seed: int):
+    """Phase 12 (a)'s front end as (name, stage, output key) triples; a stage maps (state, modules) to
+    the next state: SpeedPerturbation -> AddNoise -> Deemphasis (K1) -> Loudness normalisation (K1) ->
+    MFCC (K2) -> SlidingWindowCmn -> ComputeDeltas -> SpecAugment, and LFCC (K2) on the waveforms
+    MFCC reads.  The random stages draw from generators on ``card``, whichever device computes."""
+    import torch
+
+    def speed(s, m):
+        y, lengths = m["speed"](s["wav"], s["lengths"], torch.Generator(device=card).manual_seed(seed))
+        y = torch.nn.functional.pad(y[..., :T], (0, max(0, T - y.shape[-1])))
+        return {**s, "wav": y, "lengths": lengths.clamp(max=T)}
+
+    def loudness(s, m):
+        lufs = m["loudness"](s["wav"][:, None])
+        return {**s, "lufs": lufs, "wav": s["wav"] * (10 ** ((FE_LUFS - lufs) / 20))[:, None]}
+
+    def augment(s, m):
+        return {**s, "spec": m["specaugment"](s["spec"], torch.Generator(device=card).manual_seed(TR_MASK_SEED))}
+
+    return [
+        ("SpeedPerturbation", speed, "wav"),
+        ("AddNoise 0-20 dB", lambda s, m: {**s, "wav": m["noise"](s["wav"], s["noise"], s["snr"], s["lengths"])},
+         "wav"),
+        ("Deemphasis 0.97", lambda s, m: {**s, "wav": m["deemphasis"](s["wav"])}, "wav"),
+        ("Loudness to -23 LUFS", loudness, "wav"),
+        ("MFCC", lambda s, m: {**s, "mfcc": m["mfcc"](s["wav"][:, None])[:, 0]}, "mfcc"),  # top_db a clip
+        ("SlidingWindowCmn", lambda s, m: {**s, "feats": m["cmn"](s["mfcc"].transpose(1, 2)).transpose(1, 2)},
+         "feats"),
+        ("ComputeDeltas", lambda s, m: {**s, "spec": torch.cat([s["feats"], m["deltas"](s["feats"])], dim=1)},
+         "spec"),
+        ("SpecAugment", augment, "spec"),
+        ("LFCC", lambda s, m: {**s, "lfcc": m["lfcc"](s["wav"][:, None])[:, 0]}, "lfcc"),
+    ]
+
+
+def check_transform_stage(name: str, key: str, stage, card_in: dict, card_out: dict, cpu_modules: dict,
+                          card) -> float:
+    """A stage's first FE_ROWS rows on the card against the same module on the CPU, on the card's input
+    rows: the CPU parity tests' float32 tolerances (CMN 1e-5 and deltas 1e-6 of their input's peak),
+    MFCC and LFCC at K2's 5e-4 of the peak, SpeedPerturbation's lengths equal; SpecAugment equal to
+    its four masks' formula on the card generator's draws, filled with the mean of the card's whole
+    batch."""
+    import torch
+
+    from audio_tpu_torch.functional._misc import _mask_draws, _span_mask
+
+    cpu_in = rows_of(card_in, FE_ROWS, "cpu")
+    label = f"{name} (first {FE_ROWS} rows) against the CPU"
+    if name == "SpecAugment":
+        spec = card_in["spec"]
+        want = cpu_in["spec"]
+        fill = spec.mean().cpu()
+        g = torch.Generator(device=card).manual_seed(TR_MASK_SEED)
+        masked = torch.zeros_like(want, dtype=torch.bool)
+        for axis, param in ((2, FE_TIME_MASK), (2, FE_TIME_MASK), (1, FE_FREQ_MASK), (1, FE_FREQ_MASK)):
+            u_value, u_min = _mask_draws(spec.shape[:1], g, card)
+            shape = [1, 1, 1]
+            shape[axis] = spec.shape[axis]
+            m = _span_mask(u_value[:FE_ROWS, None, None].cpu(), u_min[:FE_ROWS, None, None].cpu(), param,
+                           spec.shape[axis], shape, "cpu")
+            want = torch.where(m, fill, want)
+            masked |= m
+        if not torch.equal(card_out["spec"][:FE_ROWS].cpu(), want):
+            raise AssertionError(f"{label}: not the masks of the generator's draws")
+        print(f"  {label}: equal to the four masks of the CUDA generator's draws ({int(masked.sum())} entries "
+              f"masked, filled with the batch mean {float(fill):.4f})")
+        return 0.0
+    ref = stage(cpu_in, cpu_modules)
+    tol = F32_TOL
+    if name in ("SlidingWindowCmn", "ComputeDeltas"):
+        # both subtract values of the cepstra's scale (decibels, up to hundreds): the rounding of the
+        # running sums and differences scales with the input's peak, not with the small result
+        peak = float(card_in["mfcc" if name == "SlidingWindowCmn" else "feats"][:FE_ROWS].abs().max())
+        tol = (1e-5 * peak, 1e-4) if name == "SlidingWindowCmn" else (1e-6 * peak, 1e-6)
+    if key in ("mfcc", "lfcc"):
+        tol = (5e-4 * float(ref[key].abs().max()), 0.0)
+    if name == "SpeedPerturbation":
+        check_equal(f"{label}: lengths", card_out["lengths"][:FE_ROWS].cpu(), ref["lengths"])
+    if name.startswith("Loudness"):
+        check_close(f"{label}: LUFS", card_out["lufs"][:FE_ROWS].cpu(), ref["lufs"], 0.01, 0.0)  # the JAX test's
+    return check_close(label, card_out[key][:FE_ROWS].cpu(), ref[key], *tol)
+
+
+def run_transform_front_end(dev, card: str) -> dict:
+    """Phase 12 (a): the front end built from the port's transform modules at B = 8192 rows of 1 s at
+    16 kHz.  One step with the launch counters read around it: K1 must move, only on "chunked", and
+    K2, only on "fft".  Each stage's first rows against the same module on the CPU; MFCC and LFCC the
+    same bits with cuBLAS's TF32 on; the step and each stage timed (median of 5), one step profiled."""
+    import torch
+
+    modules, cpu_modules = transform_modules(dev), transform_modules("cpu")
+    seed = speed_seed(dev)
+    stages = transform_stages(dev, seed)
+    s0 = {k: v for k, v in front_end_state(dev, B).items() if k in ("wav", "lengths", "noise", "snr")}
+
+    def step():
+        s = s0
+        for _, fn, _ in stages:
+            s = fn(s, modules)
+        return s
+
+    reset_kernel_counts()
+    final = step()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    what = "one transform front-end step (phase 12)"
+    require_launches(what, counts, ["lfilter", "power_spectrogram"])
+    require_route(what, counts, "lfilter", "chunked")
+    require_route(what, counts, "power_spectrogram", "fft")
+    out = {"speed_seed": seed, "launches": {k: counts[k] for k in ("lfilter", "lfilter_chunked",
+                                                                       "power_spectrogram", "power_spectrogram_fft")}}
+    for key, shape in (("mfcc", (B, TR_MFCC, T // HOP + 1)), ("spec", (B, 2 * TR_MFCC, T // HOP + 1)),
+                       ("lfcc", (B, TR_MFCC, T // HOP + 1))):
+        if tuple(final[key].shape) != shape or not bool(torch.isfinite(final[key]).all()):
+            raise AssertionError(f"phase 12: {key} is {tuple(final[key].shape)} (want {shape}) or not finite")
+    print(f"  transform front end at B={B}: speed factor 1.1 drawn (seed {seed}), MFCC {tuple(final['mfcc'].shape)}, "
+          f"features with deltas {tuple(final['spec'].shape)}, LFCC {tuple(final['lfcc'].shape)}, all finite")
+
+    s, stage_ms = s0, {}
+    for name, fn, key in stages:
+        nxt = fn(s, modules)
+        err = check_transform_stage(name, key, fn, s, nxt, cpu_modules, dev)
+        ms, runs = median_call_ms(lambda: fn(s, modules))
+        stage_ms[name] = {"ms": ms, "runs_ms": runs, "max_abs_err": err}
+        print(f"  {name} at B={B}: {ms:.3f} ms on {card}")
+        if key in ("mfcc", "lfcc"):  # the filterbank and DCT products ignore cuBLAS's TF32 flag
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                same = torch.equal(fn(s, modules)[key], nxt[key])
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            print(f"  {name} with cuBLAS TF32 on: the same bits as with it off: {same}")
+            if not same:
+                raise AssertionError(f"{name}: cuBLAS's TF32 flag changed the result")
+        s = nxt
+    out["stages"] = stage_ms
+    out["step_ms"], out["step_runs_ms"] = median_call_ms(step)
+    print(f"  transform front-end step at B={B}: {out['step_ms']:.3f} ms on {card}")
+    out["step_profile"] = profile_call(f"transform front-end step at B={B}", step, out["step_ms"])
+    return out
+
+
+def beam_check(name: str, card_out, cpu64, cpu128) -> float:
+    """A complex64 beamforming output on the card against the CPU's complex128 result on the same inputs,
+    relative to its peak: within four times the CPU's own complex64 error + 1e-6 (phase 11's rule)."""
+    import torch
+
+    peak = float(cpu128.abs().max())
+    card_err = float((card_out.cpu().to(torch.complex128) - cpu128).abs().max()) / peak
+    cpu_err = float((cpu64.to(torch.complex128) - cpu128).abs().max()) / peak
+    ok = card_err <= 4 * cpu_err + 1e-6
+    print(f"  {name} against the CPU's complex128, relative to its peak: card {card_err:.3e}, the CPU's complex64 "
+          f"{cpu_err:.3e} (limit four times that + 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the card's complex64 error {card_err:.3e} exceeds the CPU's")
+    return card_err
+
+
+def run_transform_classes(dev, card: str) -> dict:
+    """Phase 12 (b): every other transform class once, on TR_ROWS rows of 1 s (the spectral, resampling,
+    effect and decision classes), a (8, 6, 257, 200) STFT (the beamformers) and a (8, 100, 21, 1024)
+    lattice (RNNTLoss): the card's first rows against the same module on the CPU at the CPU parity
+    tests' tolerances, each timed (median of 5).  RNNTLoss must launch K8 and SpectralCentroid K2,
+    only on "fft"."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    import audio_tpu_torch.transforms as TT
+    from audio_tpu_torch._internal.windows import hann_window
+
+    out = {}
+
+    def both(make):
+        return make(dev), make("cpu")
+
+    def timed(label, fn, **extra):
+        ms, runs = median_call_ms(fn)
+        out[label] = {"ms": ms, "runs_ms": runs, **extra}
+        print(f"  {label}: {ms:.3f} ms on {card}")
+
+    x = voiced_rows(dev, TR_ROWS, T, 90)
+    x2 = x[:2].cpu()
+    rows = f"({TR_ROWS}, {T})"
+
+    # the complex spectrogram and its inverse; MelScale and its inverse (gels and gelsd) on its power
+    spec_t, spec_c = both(lambda d: TT.Spectrogram(power=None, device=d))
+    inv_t, inv_c = both(lambda d: TT.InverseSpectrogram(device=d))
+    cs = spec_t(x)
+    peak = float(cs.abs().max())
+    err = check_close("Spectrogram(power=None) (first 2 rows, real and imaginary parts) against the CPU",
+                      torch.view_as_real(cs[:2].cpu()), torch.view_as_real(spec_c(x2)), F32_TOL[0] * peak, F32_TOL[1])
+    timed(f"Spectrogram(power=None) at {rows}", lambda: spec_t(x), max_abs_err=err)
+    back = inv_t(cs, T)
+    err = check_close("InverseSpectrogram (first 2 rows) against the CPU", back[:2].cpu(), inv_c(cs[:2].cpu(), T),
+                      *F32_TOL)
+    timed(f"InverseSpectrogram at {rows}", lambda: inv_t(cs, T), max_abs_err=err)
+    power = cs.abs() ** 2
+    mel_t, mel_c = both(lambda d: TT.MelScale(n_mels=40, sample_rate=SR, n_stft=N_FFT // 2 + 1, device=d))
+    mel = mel_t(power)
+    err = check_close("MelScale, 40 mels (first 2 rows) against the CPU", mel[:2].cpu(), mel_c(power[:2].cpu()),
+                      *F32_TOL)
+    timed(f"MelScale 40 mels at {rows}", lambda: mel_t(power), max_abs_err=err)
+    for driver in ("gels", "gelsd"):
+        im_t, im_c = both(lambda d: TT.InverseMelScale(N_FFT // 2 + 1, 40, SR, driver=driver, device=d))
+        rec = im_t(mel)
+        ref = im_c(mel[:2].cpu())
+        err = check_close(f"InverseMelScale {driver} (first 2 rows) against the CPU", rec[:2].cpu(), ref,
+                          F32_TOL[0] * float(ref.abs().max()), F32_TOL[1])
+        timed(f"InverseMelScale {driver} at {rows}", lambda: im_t(mel), max_abs_err=err)
+
+    # TimeStretch at rate 1.3: the accumulated phase's float32 rounding bound of phase 10
+    ts_t, ts_c = both(lambda d: TT.TimeStretch(hop_length=N_FFT // 2, n_freq=N_FFT // 2 + 1, fixed_rate=1.3,
+                                               device=d))
+    stretched = ts_t(cs)
+    ref = ts_c(cs[:2].cpu())
+    frames = torch.arange(1, ref.shape[-1] + 1, dtype=torch.float64)
+    bound = 1e-5 + 4 * ref.abs().double() * torch.finfo(torch.float32).eps * frames * (
+        math.pi * (N_FFT // 2) + 2 * math.pi)
+    terr = (stretched[:2].cpu() - ref).abs()
+    if stretched.shape[-1] != math.ceil(cs.shape[-1] / 1.3) or not bool((terr <= bound).all()):
+        raise AssertionError("TimeStretch: frames or values differ from the CPU's")
+    print(f"  TimeStretch rate 1.3 (first 2 rows) against the CPU: max_abs_err {float(terr.max()):.3e}, within the "
+          "float32 phase bound")
+    timed(f"TimeStretch 1.3 at {rows}", lambda: ts_t(cs), max_abs_err=float(terr.max()))
+
+    # GriffinLim: float64 at B = 2 without random phases, card against the CPU; timed at B = 32 from
+    # random phases drawn by a card generator
+    gl_t, gl_c = both(lambda d: TT.GriffinLim(n_iter=32, length=T, rand_init=False, device=d).double())
+    p64 = power[:2].double()
+    ref = gl_c(p64.cpu())
+    err = check_close("GriffinLim f64, B 2, no random phases: card against the CPU", gl_t(p64).cpu(), ref,
+                      1e-6 * float(ref.abs().max()), 0.0)
+    gl_rand = TT.GriffinLim(n_iter=32, length=T, device=dev)
+    p32 = power[:32]
+    timed("GriffinLim 32 iterations at (32, 201, 81), random phases",
+          lambda: gl_rand(p32, torch.Generator(device=dev).manual_seed(8)), max_abs_err=err)
+
+    # PitchShift an octave either way (the pitch_shift parity test's float32 phase bound)
+    for steps in (12, -12):
+        ps_t, ps_c = both(lambda d: TT.PitchShift(SR, steps, device=d))
+        y = ps_t(x)
+        hop = ps_t.hop_length
+        bound = 4 * float(torch.finfo(torch.float32).eps) * (2 * T // hop + 2) * (math.pi * hop + 2 * math.pi) * float(
+            x2.abs().max())
+        err = check_close(f"PitchShift {steps:+d} (first 2 rows) against the CPU", y[:2].cpu(), ps_c(x2), bound, 0.0)
+        timed(f"PitchShift {steps:+d} at {rows}", lambda: ps_t(x), max_abs_err=err)
+
+    # Resample 48 -> 16 kHz with its kernel built once
+    x48 = voiced_rows(dev, TR_ROWS, 48000, 91)
+    rs_t, rs_c = both(lambda d: TT.Resample(48000, 16000, device=d))
+    err = check_close("Resample 48 -> 16 kHz (first 2 rows) against the CPU", rs_t(x48)[:2].cpu(),
+                      rs_c(x48[:2].cpu()), *F32_TOL)
+    timed(f"Resample 48 -> 16 kHz at ({TR_ROWS}, 48000)", lambda: rs_t(x48), max_abs_err=err)
+    del x48
+
+    # effects: Fade's five shapes, Vol's three gains, Preemphasis, the convolutions, mu-law
+    g = torch.Generator(device=dev).manual_seed(92)
+    fir = torch.randn((1, 64), generator=g, device=dev) / 8
+    room = torch.randn((1, 8000), generator=g, device=dev) * torch.exp(-torch.arange(8000, device=dev) / 1600.0)
+    effects = [(f"Fade {shape}", lambda d, sh=shape: TT.Fade(1600, 3200, sh), F32_TOL, ())
+               for shape in ("linear", "exponential", "logarithmic", "quarter_sine", "half_sine")]
+    effects += [("Vol 0.5 amplitude", lambda d: TT.Vol(0.5), F32_TOL, ()),
+                ("Vol +6 dB", lambda d: TT.Vol(6.0, "db"), F32_TOL, ()),
+                ("Vol 2 power", lambda d: TT.Vol(2.0, "power"), F32_TOL, ()),
+                ("Preemphasis 0.97", lambda d: TT.Preemphasis(0.97), (1e-7, 0.0), ()),
+                ("Convolve 64 taps", lambda d: TT.Convolve("same"), F32_TOL, (fir,)),
+                ("FFTConvolve 8000 taps", lambda d: TT.FFTConvolve("full"), F32_TOL, (room,))]
+    for name, make, tol, extra in effects:
+        m_t, m_c = both(make)
+        err = check_close(f"{name} (first 2 rows) against the CPU", m_t(x, *extra)[:2].cpu(),
+                          m_c(x2, *(e.cpu() for e in extra)), *tol)
+        timed(f"{name} at {rows}", lambda: m_t(x, *extra), max_abs_err=err)
+    enc_t, dec_t = TT.MuLawEncoding(256), TT.MuLawDecoding(256)
+    codes = enc_t(x)
+    differ = int((codes.cpu() != enc_t(x.cpu())).sum())
+    print(f"  MuLawEncoding at {rows}: {differ} of {codes.numel()} codes differ from the CPU's (limit 0)")
+    if differ:
+        raise AssertionError("MuLawEncoding: codes differ from the CPU's")
+    err = check_close("MuLawDecoding (first 2 rows) against the CPU", dec_t(codes)[:2].cpu(), dec_t(codes[:2].cpu()),
+                      *F32_TOL)
+    timed(f"MuLawEncoding at {rows}", lambda: enc_t(x))
+    timed(f"MuLawDecoding at {rows}", lambda: dec_t(codes), max_abs_err=err)
+
+    # the axis masks on (rows, 80, frames) features: a card generator's draws, the CPU module given the same
+    feats = torch.log1p(F.mel_spectrogram(x, F.melscale_fbanks(N_FFT // 2 + 1, 0.0, SR / 2, N_MELS, SR, device=dev),
+                                          hann_window(N_FFT, device=dev), N_FFT, HOP, N_FFT))
+    for name, make in (("FrequencyMasking 27", lambda: TT.FrequencyMasking(FE_FREQ_MASK)),
+                       ("TimeMasking 40", lambda: TT.TimeMasking(FE_TIME_MASK))):
+        m = make()
+        got = m(feats, 0.0, torch.Generator(device=dev).manual_seed(93))
+        want = m(feats[:2].cpu(), 0.0, torch.Generator(device=dev).manual_seed(93))
+        if not torch.equal(got[:2].cpu(), want):
+            raise AssertionError(f"{name}: the card's span differs from the CPU's on the same draws")
+        print(f"  {name} (first 2 rows) on the card generator's draws: equal to the CPU's "
+              f"({int((want == 0).all(0).sum())} entries of a row masked)")
+        timed(f"{name} at {tuple(feats.shape)}", lambda: m(feats, 0.0, torch.Generator(device=dev).manual_seed(93)))
+
+    # SpectralCentroid: K2 must launch, only on "fft"
+    sc_t, sc_c = both(lambda d: TT.SpectralCentroid(SR, device=d))
+    reset_kernel_counts()
+    sc = sc_t(x)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches("SpectralCentroid (phase 12)", counts, ["power_spectrogram"])
+    require_route("SpectralCentroid (phase 12)", counts, "power_spectrogram", "fft")
+    out["centroid_launches"] = {k: counts[k] for k in ("power_spectrogram", "power_spectrogram_fft")}
+    err = check_close("SpectralCentroid (first 2 rows) against the CPU", sc[:2].cpu(), sc_c(x2), 0.0, 1e-4)
+    timed(f"SpectralCentroid at {rows}", lambda: sc_t(x), max_abs_err=err)
+
+    # Vad on three two-channel recordings of 4 s: the same trimmed samples as the CPU
+    vad = TT.Vad(SR)
+    lengths = []
+    for i, onset in enumerate((0.5, 1.5, 2.5)):
+        g = torch.Generator(device=dev).manual_seed(94 + i)
+        rec = 0.005 * torch.randn((2, 4 * SR), generator=g, device=dev)
+        start = int(onset * SR)
+        rec[:, start:start + SR] += voiced_rows(dev, 2, SR, 97 + i) * 3
+        got, want = vad(rec), vad(rec.cpu())
+        if got.shape != want.shape or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"Vad, onset {onset} s: the card gives {tuple(got.shape)}, the CPU "
+                                 f"{tuple(want.shape)}")
+        lengths.append(got.shape[-1])
+    timed(f"Vad on (2, {4 * SR})", lambda: vad(rec))
+    out["vad_lengths"] = lengths
+    print(f"  Vad on three (2, {4 * SR}) recordings: trimmed to {lengths} samples, equal to the CPU's")
+    del x, cs, power, feats, codes
+
+    # beamforming on a 6-channel complex64 STFT: PSD, MVDR online over three calls, RTFMVDR, SoudenMVDR
+    g = torch.Generator(device=dev).manual_seed(100)
+    shp = (8, 6, 257, 200)
+    specs, masks = [], []
+    for _ in range(3):
+        src = torch.randn((8, 1, 257, 200), generator=g, device=dev, dtype=torch.complex64)
+        h = torch.randn((8, 6, 257, 1), generator=g, device=dev, dtype=torch.complex64)
+        specs.append(src * h + 0.3 * torch.randn(shp, generator=g, device=dev, dtype=torch.complex64))
+        masks.append(torch.rand((8, 257, 200), generator=g, device=dev))
+    sp, mk = specs[0], masks[0]
+    runs = [(sp, mk), (sp[:2].cpu(), mk[:2].cpu()), (sp[:2].cpu().to(torch.complex128), mk[:2].cpu().double())]
+    psd = TT.PSD()
+    outs = [psd(s_, m_) for s_, m_ in runs]
+    berr = {"PSD": beam_check("PSD (first 2 of 8)", outs[0][:2], outs[1], outs[2])}
+    timed(f"PSD at {shp}", lambda: psd(sp, mk), max_abs_err=berr["PSD"])
+    rtf = [F.rtf_power(psd(s_, m_), psd(s_, 1 - m_), 0) for s_, m_ in runs]
+    for name, module, args in (
+            ("RTFMVDR", TT.RTFMVDR(), lambda i: (rtf[i], psd(runs[i][0], 1 - runs[i][1]), 0)),
+            ("SoudenMVDR", TT.SoudenMVDR(),
+             lambda i: (psd(runs[i][0], runs[i][1]), psd(runs[i][0], 1 - runs[i][1]), 0))):
+        outs = [module(runs[i][0], *args(i)) for i in range(3)]
+        berr[name] = beam_check(f"{name} (first 2 of 8)", outs[0][:2], outs[1], outs[2])
+        card_args = args(0)
+        timed(f"{name} at {shp}", lambda: module(sp, *card_args), max_abs_err=berr[name])
+    mvdrs = [TT.MVDR(ref_channel=0, solution="stv_power", online=True) for _ in range(3)]
+    for call, (s_, m_) in enumerate(zip(specs, masks)):
+        ins = [(s_, m_), (s_[:2].cpu(), m_[:2].cpu()), (s_[:2].cpu().to(torch.complex128), m_[:2].cpu().double())]
+        outs = [mv(a, b, 1 - b) for mv, (a, b) in zip(mvdrs, ins)]
+        berr[f"MVDR online call {call + 1}"] = beam_check(f"MVDR online, call {call + 1} (first 2 of 8)", outs[0][:2],
+                                                           outs[1], outs[2])
+    mvdr = TT.MVDR(ref_channel=0, solution="stv_power")
+    timed(f"MVDR stv_power at {shp}", lambda: mvdr(sp, mk, 1 - mk), max_abs_err=max(berr.values()))
+    out["beamforming_err"] = berr
+    del specs, masks, runs, outs, rtf
+
+    # RNNTLoss: K8 must launch
+    g = torch.Generator(device=dev).manual_seed(101)
+    logits = torch.randn((8, 100, 21, 1024), generator=g, device=dev)
+    tgt = torch.randint(1, 1024, (8, 20), generator=g, device=dev, dtype=torch.int32)
+    lg = torch.randint(80, 101, (8,), generator=g, device=dev, dtype=torch.int32)
+    tg = torch.randint(10, 21, (8,), generator=g, device=dev, dtype=torch.int32)
+    loss = TT.RNNTLoss(blank=0, reduction="none")
+    reset_kernel_counts()
+    got = loss(logits, tgt, lg, tg)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches("RNNTLoss (phase 12)", counts, ["lattice_row_stats"])
+    out["rnnt_launches"] = {"lattice_row_stats": counts["lattice_row_stats"]}
+    err = check_close("RNNTLoss at (8, 100, 21, 1024) against the CPU", got.cpu(),
+                      loss(logits.cpu(), tgt.cpu(), lg.cpu(), tg.cpu()), *F32_TOL)
+    timed("RNNTLoss at (8, 100, 21, 1024)", lambda: loss(logits, tgt, lg, tg), max_abs_err=err)
+    return out
+
+
+def run_kaldi(dev, card: str) -> dict:
+    """Phase 12 (c): ``compliance.kaldi`` on the card.  ``fbank`` in the Audio Spectrogram Transformer's
+    setting on AST_CLIPS clips of 10 s at 16 kHz, one call a clip as the API takes one channel (the
+    calls a second, the first 2 clips against the CPU, the loop's idle share from a profile of 32
+    calls); ``mfcc`` (defaults) and ``spectrogram`` once each on one 10-minute channel, against the CPU.
+    The tolerances are the JAX package's test's: 3e-3 abs + 1e-4 rel for fbank and mfcc, 2e-4 + 1e-4
+    for the log power spectrogram."""
+    import torch
+
+    import audio_tpu_torch.compliance.kaldi as K
+
+    out = {}
+    n = AST_SECONDS * SR
+    clips = voiced_rows(dev, AST_CLIPS, n, 110)
+
+    def clip_loop(count=AST_CLIPS):
+        return [K.fbank(clips[i:i + 1], **AST) for i in range(count)]
+
+    feats = clip_loop()
+    want = (1 + (n - 400) // 160, AST["num_mel_bins"])
+    if any(tuple(f.shape) != want or not bool(torch.isfinite(f).all()) for f in feats):
+        raise AssertionError(f"kaldi.fbank: a clip's features are not finite {want}")
+    out["fbank_err"] = max(check_close(f"kaldi.fbank AST setting, clip {i} against the CPU", feats[i].cpu(),
+                                       K.fbank(clips[i:i + 1].cpu(), **AST), *KALDI_FEAT_TOL) for i in range(2))
+    loops = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip_loop()
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+    out["fbank_loop_s"] = statistics.median(loops)
+    out["fbank_clips_per_s"] = AST_CLIPS / out["fbank_loop_s"]
+    print(f"  kaldi.fbank (AST: 128 bins, hanning, htk_compat) over {AST_CLIPS} clips of {AST_SECONDS} s, one call a "
+          f"clip: {out['fbank_clips_per_s']:.1f} clips/s ({out['fbank_loop_s'] * 1e3:.1f} ms a loop, median of 3, "
+          f"host clock) on {card}")
+    profiled = min(32, AST_CLIPS)
+    out["fbank_profile"] = profile_call(f"fbank loop of {profiled} clips", lambda: clip_loop(profiled),
+                                        out["fbank_loop_s"] * 1e3 * profiled / AST_CLIPS)
+    del clips, feats
+
+    long = voiced_rows(dev, 1, KALDI_MINUTES * 60 * SR, 111)
+    long_cpu = long.cpu()
+    for name, fn, tol in (("mfcc", K.mfcc, KALDI_FEAT_TOL), ("spectrogram", K.spectrogram, KALDI_SPEC_TOL)):
+        got = fn(long)
+        ref = fn(long_cpu)
+        err = check_close(f"kaldi.{name} on one {KALDI_MINUTES}-minute channel {tuple(got.shape)} against the CPU",
+                          got.cpu(), ref, *tol)
+        ms, runs = median_call_ms(lambda: fn(long))
+        out[name] = {"ms": ms, "runs_ms": runs, "max_abs_err": err, "shape": list(got.shape)}
+        print(f"  kaldi.{name} on ({KALDI_MINUTES * 60 * SR},): {ms:.3f} ms on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -2956,6 +3436,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    # ---------------------------------------------------------------- phase 12
+    print(f"phase 12: the transform front end (B={B} x {T} samples), the other transform classes and Kaldi's "
+          "features")
+    t12 = time.perf_counter()
+    transforms = run_transform_front_end(dev, card)
+    torch.cuda.empty_cache()
+    transforms["classes"] = run_transform_classes(dev, card)
+    torch.cuda.empty_cache()
+    transforms["kaldi"] = run_kaldi(dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -3152,7 +3644,8 @@ def main(argv=None) -> int:
                        "k8_row_ms": k8_row_ms, "k8_train": k8_train, "k3_block_ms": k3_block_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
-                       "effects": effects, "vocoder": vocoder, "front_end": front_end}, f, indent=1)
+                       "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms},
+                      f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -41,9 +41,10 @@ def test_scan_covers_the_port():
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
                 "ops/rnnt.py", "ops/rnnt_pruned.py", "functional/_rnnt.py", "utils/precision.py",
                 "functional/_resample.py", "functional/_misc.py", "functional/_beamforming.py", "functional/_vad.py",
-                "ops/ctc.py"):
+                "ops/ctc.py", "transforms/_transforms.py", "transforms/_multi_channel.py", "compliance/__init__.py",
+                "compliance/kaldi.py"):
         assert f"audio_tpu_torch/{sub}" in names
-    assert len(names) >= 38
+    assert len(names) >= 42
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -219,3 +220,60 @@ def test_ported_functions_keep_the_jax_signatures_with_a_generator_for_a_key(nam
     assert got == want
     assert "key" not in dict(got)
     assert ("generator" in dict(got)) == (name in ("dither", "griffinlim", "mask_along_axis", "mask_along_axis_iid"))
+
+
+def test_transforms_and_kaldi_export_the_jax_package_s_names():
+    """``audio_tpu_torch.transforms`` exports exactly the 36 classes of ``audio_tpu.transforms``, each an
+    ``nn.Module``, and ``audio_tpu_torch.compliance.kaldi`` the 10 functions of
+    ``audio_tpu.compliance.kaldi``."""
+    import torch
+
+    import audio_tpu.compliance.kaldi as jk
+    import audio_tpu.transforms as jt
+
+    import audio_tpu_torch.compliance as tc
+    import audio_tpu_torch.compliance.kaldi as tk
+    import audio_tpu_torch.transforms as tt
+
+    assert set(tt.__all__) == set(jt.__all__) and len(set(tt.__all__)) == 36
+    assert all(issubclass(getattr(tt, n), torch.nn.Module) for n in tt.__all__)
+    assert set(tk.__all__) == set(jk.__all__) and len(set(tk.__all__)) == 10
+    assert all(callable(getattr(tk, n)) for n in tk.__all__)
+    assert tc.__all__ == ["kaldi"]
+
+
+def _buffer_classes():
+    """The transform classes whose constructors take a ``device``."""
+    import inspect
+
+    import audio_tpu_torch.transforms as tt
+
+    return [n for n in tt.__all__ if "device" in inspect.signature(getattr(tt, n)).parameters]
+
+
+def test_every_buffer_making_class_defaults_to_cuda():
+    """No card here: each class that makes buffers has ``device="cuda"`` as its constructor's default,
+    so that its entry point runs on the card unless the caller names the CPU; the classes without it
+    make no buffer (checked on the CPU by building each with its required arguments)."""
+    import inspect
+
+    import audio_tpu_torch.compliance.kaldi as tk
+    import audio_tpu_torch.transforms as tt
+
+    required = {"InverseMelScale": (201, 40), "Resample": (16000, 8000), "Loudness": (16000,), "Vol": (2.0,),
+                "SpectralCentroid": (16000,), "PitchShift": (16000, 2), "Speed": (16000, 1.1),
+                "SpeedPerturbation": (16000, [0.9, 1.1]), "Vad": (16000,), "FrequencyMasking": (10,),
+                "TimeMasking": (10,), "SpecAugment": (2, 10, 2, 10)}
+    with_device = _buffer_classes()
+    assert sorted(with_device) == sorted([
+        "GriffinLim", "InverseMelScale", "InverseSpectrogram", "LFCC", "MFCC", "MelScale", "MelSpectrogram",
+        "PitchShift", "Resample", "SpectralCentroid", "Spectrogram", "Speed", "SpeedPerturbation", "TimeStretch"])
+    for name in tt.__all__:
+        cls = getattr(tt, name)
+        if name in with_device:
+            assert inspect.signature(cls).parameters["device"].default == "cuda", name
+            module = cls(*required.get(name, ()), device="cpu")
+            assert list(module.buffers()), name
+        else:
+            assert not list(cls(*required.get(name, ())).buffers()), name
+    assert inspect.signature(tk.get_mel_banks).parameters["device"].default == "cuda"
