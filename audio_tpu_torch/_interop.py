@@ -13,6 +13,14 @@ in the parameters' structure goes through the same function and comes out
 under the port's names, so gradients compare name by name.
 ``simple_heads_from_jax_params`` carries the two (D, V) heads of the pruned
 loss across.
+
+``wav2vec2_state_dict_from_jax_params`` and ``wavlm_state_dict_from_jax_params``
+are the inverses of the JAX package's ``import_torchaudio_state_dict`` and
+``import_wavlm_state_dict``: the flax tree of a wav2vec2/HuBERT or WavLM model
+becomes the ``state_dict`` of the port's ``Wav2Vec2Model`` or ``WavLMModel``.
+The positional convolution's weight norm gets ``original1 = w`` and
+``original0 = |w|`` over dims (0, 1), from which it rebuilds ``w`` within a few
+ulp.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params"]
+__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
+           "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -111,3 +120,76 @@ def simple_heads_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.
     recipe's training tree.  The layout is shared (``encodings @ head``), so nothing is
     transposed; a gradient tree maps the same way."""
     return {name: _leaf(params[name], device) for name in ("simple_am", "simple_lm")}
+
+
+def _conv(out: dict, name: str, node: dict, device) -> None:
+    """flax Conv {kernel (K, in, out), bias} -> torch Conv1d {weight (out, in, K), bias}."""
+    out[f"{name}.weight"] = _leaf(node["kernel"], device).permute(2, 1, 0).contiguous()
+    if "bias" in node:
+        out[f"{name}.bias"] = _leaf(node["bias"], device)
+
+
+def _count(tree: dict, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix))
+
+
+def _wav2vec2_like(tree: dict, projection: dict, transformer: dict, device, wavlm: bool) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    fe = tree["feature_extractor"]
+    for i in range(_count(fe, "conv_layers_")):
+        layer, name = fe[f"conv_layers_{i}"], f"feature_extractor.conv_layers.{i}"
+        if "layer_norm" in layer:
+            _norm(sd, f"{name}.layer_norm", layer["layer_norm"], device)
+        _conv(sd, f"{name}.conv", layer["conv"], device)
+    _norm(sd, "encoder.feature_projection.layer_norm", projection["layer_norm"], device)
+    _dense(sd, "encoder.feature_projection.projection", projection["projection"], device)
+
+    prefix = "encoder.transformer"
+    pos = transformer["pos_conv_embed"]["conv"]
+    w = _leaf(pos["kernel"], device).permute(2, 1, 0).contiguous()  # (out, in / groups, K)
+    sd[f"{prefix}.pos_conv_embed.conv.bias"] = _leaf(pos["bias"], device)
+    sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original0"] = torch.linalg.vector_norm(
+        w, dim=(0, 1), keepdim=True)
+    sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original1"] = w
+    _norm(sd, f"{prefix}.layer_norm", transformer["layer_norm"], device)
+    for i in range(_count(transformer, "layers_")):
+        layer, name = transformer[f"layers_{i}"], f"{prefix}.layers.{i}"
+        att = layer["attention"]
+        if wavlm:
+            if "gru_rel_pos_const" in att:
+                sd[f"{name}.attention.gru_rel_pos_const"] = _leaf(att["gru_rel_pos_const"], device)
+            sd[f"{name}.attention.attention.in_proj_weight"] = _leaf(att["in_proj"]["kernel"], device).t().contiguous()
+            sd[f"{name}.attention.attention.in_proj_bias"] = _leaf(att["in_proj"]["bias"], device)
+            _dense(sd, f"{name}.attention.attention.out_proj", att["out_proj"], device)
+            if "rel_attn_embed" in att:
+                sd[f"{name}.attention.rel_attn_embed.weight"] = _leaf(att["rel_attn_embed"], device)
+            if "gru_rel_pos_linear" in att:
+                _dense(sd, f"{name}.attention.gru_rel_pos_linear", att["gru_rel_pos_linear"], device)
+        else:
+            for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+                _dense(sd, f"{name}.attention.{proj}", att[proj], device)
+        _norm(sd, f"{name}.layer_norm", layer["layer_norm"], device)
+        _dense(sd, f"{name}.feed_forward.intermediate_dense", layer["feed_forward"]["intermediate_dense"], device)
+        _dense(sd, f"{name}.feed_forward.output_dense", layer["feed_forward"]["output_dense"], device)
+        _norm(sd, f"{name}.final_layer_norm", layer["final_layer_norm"], device)
+    if "aux" in tree:
+        _dense(sd, "aux", tree["aux"], device)
+    return sd
+
+
+def wav2vec2_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``Wav2Vec2Model`` ``state_dict`` from the JAX package's flax parameters
+    (``{"params": {feature_extractor, encoder, aux}}`` or the inner dict), in the order of the
+    model's own ``state_dict``; ``load_state_dict(..., strict=True)`` takes the result."""
+    tree = params["params"] if "params" in params else params
+    encoder = tree["encoder"]
+    return _wav2vec2_like(tree, encoder["feature_projection"], encoder["transformer"], device, wavlm=False)
+
+
+def wavlm_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``WavLMModel`` ``state_dict`` from the JAX package's flax parameters (flax
+    names ``encoder_feature_projection`` and ``encoder_transformer``; torchaudio's
+    ``encoder.feature_projection`` and ``encoder.transformer`` in the result)."""
+    tree = params["params"] if "params" in params else params
+    return _wav2vec2_like(tree, tree["encoder_feature_projection"], tree["encoder_transformer"], device,
+                          wavlm=True)

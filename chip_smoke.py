@@ -143,7 +143,17 @@ Phases, each of which raises on failure:
    mu-law (every code equal), the axis masks, SpectralCentroid (K2 must move, only on "fft"), Vad, PSD,
    RTFMVDR, SoudenMVDR, MVDR online over three calls, RNNTLoss (K8 must move).  Then Kaldi's features:
    fbank in the Audio Spectrogram Transformer's setting on 256 clips of 10 s, one call a clip (clips a
-   second, idle share), mfcc and spectrogram on one 10-minute channel, each against the CPU.
+   second, idle share), mfcc and spectrogram on one 10-minute channel, each against the CPU;
+13. wav2vec2/HuBERT and WavLM at full width, weights from CUDA generator seeds: (a) MMS_FA-shaped forced
+   alignment, ``wav2vec2_model`` with the bundle's parameters (about 315M) on 16 clips of 10-15 s, each
+   normalised alone -> log_softmax with a zero star column -> forced_align of 100 tokens a clip (K3 once a
+   call, on "warp") -> merge_tokens per clip, the model in f32 and in bf16; (b) ``wav2vec2_base(aux 29)``
+   in bf16 on 32 clips of 6-10 s -> ctc_greedy_decode; (c) ``wavlm_base_plus().extract_features`` (12
+   layers) in bf16 on 32 clips of 10 s.  Every path a CTC alignment of its targets and equal to the CPU's
+   forced_align on the same emission; each model in f32 at B=2 x 4 s within 1e-3 of the peak of the CPU's
+   output, and the same bits with cuDNN's TF32 on; every bf16 output finite and within 0.05 of f32 in
+   relative L2; WavLM's buckets on the card equal to the CPU's; each batch timed, profiled once, its peak
+   memory and model FLOPs against the peak rate.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -3016,6 +3026,315 @@ def run_kaldi(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 13: wav2vec2/HuBERT and WavLM
+# the MMS_FA bundle's model (audio_tpu/pipelines/_wav2vec2/_bundle_data.py, "MMS_FA"): 28 outputs once the
+# bundle drops 3 of the checkpoint's 31, then a zero star column (audio_tpu/pipelines/_wav2vec2/impl.py:70-76)
+MMS_FA = dict(extractor_mode="layer_norm", extractor_conv_layer_config=None, extractor_conv_bias=True,
+              encoder_embed_dim=1024, encoder_projection_dropout=0.0, encoder_pos_conv_kernel=128,
+              encoder_pos_conv_groups=16, encoder_num_layers=24, encoder_num_heads=16,
+              encoder_attention_dropout=0.0, encoder_ff_interm_features=4096, encoder_ff_interm_dropout=0.1,
+              encoder_dropout=0.0, encoder_layer_norm_first=True, encoder_layer_drop=0.1, aux_num_out=28)
+FA_B, FA_SECONDS, FA_MIN_SECONDS, FA_L = 16, 15, 10, 100  # clips, padded length, shortest clip, tokens a clip
+ASR_B, ASR_SECONDS, ASR_MIN_SECONDS, ASR_V = 32, 10, 6, 29  # WAV2VEC2_ASR_BASE_960H's 29 labels
+SSL_B, SSL_SECONDS = 32, 10  # SUPERB-style features: wavlm_base_plus, every layer
+CMP_B, CMP_SECONDS, CMP_MIN_SECONDS = 2, 4, 3  # each model in f32 on the card against the CPU
+CMP_TOL, BF16_REL_L2 = 1e-3, 0.05  # of the CPU output's peak; bf16 against f32 on the card, relative L2
+
+
+def model_flops(model, n_samples: int, batch: int) -> float:
+    """Operations (2 a multiply-add) of ``model`` on ``batch`` clips of ``n_samples``, counted from its
+    modules' shapes: the convolutions, projections, attention's two products, the feed-forwards, WavLM's
+    gate and the head.  Every frame of the padded batch is computed, so all are counted."""
+    total, t = 0.0, n_samples
+    for block in model.feature_extractor.conv_layers:
+        c = block.conv
+        t = (t - c.kernel_size[0]) // c.stride[0] + 1
+        total += 2 * c.in_channels * c.out_channels * c.kernel_size[0] * t
+    if t != frames_of(model, n_samples):
+        raise AssertionError("model_flops: frame count")
+    proj = model.encoder.feature_projection.projection
+    d = proj.out_features
+    pos = model.encoder.transformer.pos_conv_embed.conv
+    total += 2 * proj.in_features * d * t + 2 * d * (d // pos.groups) * pos.kernel_size[0] * t
+    for layer in model.encoder.transformer.layers:
+        f = layer.feed_forward.intermediate_dense.out_features
+        total += 2 * t * (4 * d * d + 2 * d * f) + 4 * t * t * d
+        if getattr(layer.attention, "gru_rel_pos", False):
+            total += 2 * t * d * 8
+    if model.aux is not None:
+        total += 2 * t * d * model.aux.out_features
+    return batch * total
+
+
+def frames_of(model, n_samples: int) -> int:
+    """The feature extractor's frames for ``n_samples``."""
+    for block in model.feature_extractor.conv_layers:
+        n_samples = (n_samples - block.kernel_size) // block.stride + 1
+    return n_samples
+
+
+def padded_clips(dev, b: int, seconds: int, min_seconds: int, seed: int):
+    """``b`` voiced clips padded to ``seconds``, their lengths drawn from ``min_seconds`` to ``seconds`` (the
+    first clip full), zero past each length."""
+    import torch
+
+    n = seconds * SR
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    lengths = torch.randint(min_seconds * SR, n + 1, (b,), generator=g, device=dev)
+    lengths[0] = n
+    valid = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+    return voiced_rows(dev, b, n, seed) * valid, lengths
+
+
+def normalise_clips(wav, lengths):
+    """Each clip to zero mean and unit variance over its own samples (eps 1e-5), as the MMS_FA bundle
+    normalises the clip it is called on (audio_tpu/pipelines/_wav2vec2/impl.py:62-67); padding stays zero."""
+    import torch
+
+    valid = torch.arange(wav.shape[1], device=wav.device)[None, :] < lengths[:, None]
+    n = lengths[:, None].to(wav.dtype)
+    mean = (wav * valid).sum(1, keepdim=True) / n
+    var = (((wav - mean) * valid) ** 2).sum(1, keepdim=True) / n
+    return torch.where(valid, (wav - mean) * torch.rsqrt(var + 1e-5), torch.zeros_like(wav))
+
+
+def rel_l2(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm())
+
+
+def compare_model_with_cpu(name: str, model, run, dev, seed: int) -> dict:
+    """``run(model, wav, lengths)`` (a list of outputs) in f32 on CMP_B clips of CMP_SECONDS on the card
+    against the same model on the CPU: each output's max error within CMP_TOL of its peak; and the
+    same bits again with cuDNN's TF32 on."""
+    import torch
+
+    wav, lengths = padded_clips(dev, CMP_B, CMP_SECONDS, CMP_MIN_SECONDS, seed)
+    got = run(model, wav, lengths)
+    previous = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with_tf32 = run(model, wav, lengths)
+    finally:
+        torch.backends.cudnn.allow_tf32 = previous
+    moved = [i for i, (a, b) in enumerate(zip(got, with_tf32)) if not torch.equal(a, b)]
+    if moved:
+        raise AssertionError(f"{name}: f32 outputs {moved} moved with cuDNN's TF32 on")
+    ref = run(copy.deepcopy(model).cpu(), wav.cpu(), lengths.cpu())
+    worst = 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        peak = float(r.abs().max())
+        err = check_close(f"{name} f32, B={CMP_B} x {CMP_SECONDS} s, output {i} against the CPU", a.cpu(), r,
+                          CMP_TOL * peak, 0.0, quiet=len(got) > 1)
+        worst = max(worst, err / peak)
+    print(f"  {name} f32 against the CPU: worst max error {worst:.3e} of the output's peak over {len(got)} "
+          f"output(s) (limit {CMP_TOL:g}); the same bits with cuDNN's TF32 on")
+    return {"max_err_of_peak": worst}
+
+
+def check_bf16(name: str, got: list, ref: list) -> float:
+    """Every bf16 output finite and within BF16_REL_L2 of the f32 output in relative L2; the worst."""
+    import torch
+
+    errs = []
+    for a, r in zip(got, ref):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: a bf16 output is not finite")
+        errs.append(rel_l2(a, r))
+    worst = max(errs)
+    print(f"  {name}: bf16 against f32 on the card, relative L2 {worst:.4e} at worst over {len(errs)} output(s) "
+          f"(limit {BF16_REL_L2:g})")
+    if worst > BF16_REL_L2:
+        raise AssertionError(f"{name}: bf16 output {errs.index(worst)} off f32 by {worst:.4e} relative L2")
+    return worst
+
+
+def profile_batch(name: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its launches, the device's busy time and idle share
+    against the profiled call's own elapsed time (CUDA events inside the profile: the tracing lengthens
+    the kernels, so busy time can exceed an untraced call), and the longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end)
+    rows = device_kernel_rows(prof, 1)
+    busy, n = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    print(f"  profile of one {name} call: {n:g} kernel launches, device busy {busy:.3f} ms in a {call_ms:.3f} ms "
+          f"profiled call (idle share {1 - busy / call_ms:.3f}); the longest kernels:")
+    for kernel, ms, count in rows[:8]:
+        print(f"    {ms:8.3f} ms  x{count:g}  {kernel[:100]}")
+    return {"launches": n, "busy_ms": busy, "profiled_call_ms": call_ms, "idle_share": 1 - busy / call_ms,
+            "by_kernel": rows[:12]}
+
+
+def time_batch(name: str, fn, card: str, audio_s: float, flops: float, peak_rate: float) -> dict:
+    """ms a batch (CUDA events, median of 5 after a warm-up), seconds of audio a second, one profiled
+    call, the peak memory and the model's share of the peak rate."""
+    ms, runs = median_call_ms(fn)
+    _, peak_gb = peak_call(fn)
+    out = {"ms": ms, "runs_ms": runs, "audio_s_per_s": audio_s / (ms / 1e3), "peak_gb": peak_gb,
+           "model_tflop": flops / 1e12, "share_of_peak": flops / (ms / 1e3) / peak_rate}
+    print(f"  {name}: {ms:.3f} ms a batch (runs {', '.join(f'{r:.3f}' for r in runs)}), {out['audio_s_per_s']:.1f} s "
+          f"of audio a second, peak memory {peak_gb:.3f} GB, model {out['model_tflop']:.3f} TFLOP = "
+          f"{out['share_of_peak']:.3f} of {peak_rate / 1e12:g} TFLOP/s on {card}")
+    out["profile"] = profile_batch(name, fn)
+    return out
+
+
+def check_paths(name: str, paths, scores, frames, targets, emission) -> None:
+    """Every path a CTC alignment of its targets (merge_tokens per clip gives the targets), and the paths
+    equal to the port's CPU forced_align on the same emission copied to the host."""
+    import audio_tpu_torch.functional as F
+
+    paths_h, scores_h, frames_h, targets_h = (t.cpu().numpy() for t in (paths, scores, frames, targets))
+    bad = []
+    for i in range(len(paths_h)):
+        n = int(frames_h[i])
+        spans = F.merge_tokens(paths_h[i, :n], scores_h[i, :n])
+        want = targets_h[i].tolist()
+        if [s.token for s in spans] != want or ctc_collapse(paths_h[i, :n]) != want:
+            bad.append(i)
+    print(f"  {name}: {len(paths_h) - len(bad)} of {len(paths_h)} paths are CTC alignments of their targets, "
+          f"merge_tokens gives the {targets_h.shape[1]} tokens (limit: all)")
+    if bad:
+        raise AssertionError(f"{name}: clips {bad} are not aligned to their targets")
+    cpu_paths, cpu_scores = F.forced_align(emission.cpu(), targets.cpu(), frames.cpu())
+    check_equal(f"{name} paths against the CPU forced_align", paths.cpu(), cpu_paths)
+    check_close(f"{name} scores against the CPU forced_align", scores.cpu(), cpu_scores, 1e-6, 0.0, finite=False)
+
+
+def run_forced_alignment(dev, card: str) -> dict:
+    """Phase 13 (a): MMS_FA-shaped forced alignment.  ``wav2vec2_model`` with the bundle's parameters
+    (about 315M, weights from CUDA generator seed 60) on FA_B clips of 10-15 s, each normalised alone ->
+    log_softmax (f32) with a zero star column -> ``forced_align`` of FA_L tokens a clip (K3 once a call,
+    on "warp") -> ``merge_tokens`` per clip; the model in f32 and in bf16."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.models import wav2vec2_model
+    from audio_tpu_torch.ops import cuda_viterbi
+
+    model = wav2vec2_model(**MMS_FA, device=dev, generator=torch.Generator(device=dev).manual_seed(60))
+    n_params = sum(p.numel() for p in model.parameters())
+    wav, lengths = padded_clips(dev, FA_B, FA_SECONDS, FA_MIN_SECONDS, 61)
+    wav = normalise_clips(wav, lengths)
+    g = torch.Generator(device=dev).manual_seed(63)
+    targets = torch.randint(1, MMS_FA["aux_num_out"], (FA_B, FA_L), generator=g, device=dev)
+    if cuda_viterbi.kernel_route(2 * FA_L + 1, torch.float32) != "warp":
+        raise AssertionError(f"K3's route for S = {2 * FA_L + 1} is not 'warp'")
+
+    def emission(m, x):
+        out, frames = m(x, lengths)
+        lp = torch.log_softmax(out.float(), dim=-1)
+        return torch.cat([lp, torch.zeros_like(lp[..., :1])], dim=-1), frames
+
+    def align(m, x):
+        em, frames = emission(m, x)
+        return F.forced_align(em, targets, frames)
+
+    out = {"params": n_params, "k3_launches": 0}
+    outputs = {}
+    for dtype, peak_rate in ((torch.float32, PEAK_FP32_PER_S), (torch.bfloat16, PEAK_BF16_PER_S)):
+        label = f"MMS_FA alignment, {str(dtype)[6:]}, B={FA_B} x {FA_SECONDS} s"
+        m = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
+        x = wav.to(dtype)
+        em, frames = emission(m, x)
+        reset_kernel_counts()
+        paths, scores = F.forced_align(em, targets, frames)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        if counts["viterbi"] != 1 or counts["viterbi_warp"] != 1:
+            raise AssertionError(f"{label}: K3 launched {counts['viterbi']} times, {counts['viterbi_warp']} on 'warp' "
+                                 "(want once, on 'warp')")
+        print(f"  {label}: K3 launched once, on its 'warp' route")
+        out["k3_launches"] += counts["viterbi"]
+        check_paths(label, paths, scores, frames, targets, em)
+        outputs[dtype] = m(x, lengths)[0]
+        out[str(dtype)[6:]] = time_batch(
+            label, lambda: align(m, x), card,
+            float(lengths.sum()) / SR, model_flops(model, wav.shape[1], FA_B), peak_rate)
+        out[str(dtype)[6:]]["model_ms"] = median_call_ms(lambda: m(x, lengths))[0]
+        print(f"  {label}: the model alone {out[str(dtype)[6:]]['model_ms']:.3f} ms on {card}")
+        del m
+    out["bf16_rel_l2"] = check_bf16("MMS_FA model output", [outputs[torch.bfloat16]], [outputs[torch.float32]])
+    out["cpu"] = compare_model_with_cpu("MMS_FA model", model, lambda m, w, l: [m(normalise_clips(w, l), l)[0]],
+                                        dev, 64)
+    return out
+
+
+def run_ctc_emissions(dev, card: str) -> dict:
+    """Phase 13 (b): WAV2VEC2_ASR_BASE_960H's shape, ``wav2vec2_base(aux_num_out=29)`` (weights from seed 70)
+    in bf16 on ASR_B clips of 6-10 s -> log_softmax (f32) -> ``ctc_greedy_decode``, the tokens equal to the
+    CPU's decode of the same log-probabilities."""
+    import torch
+
+    from audio_tpu_torch.models import wav2vec2_base
+    from audio_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    model = wav2vec2_base(aux_num_out=ASR_V, device=dev, generator=torch.Generator(device=dev).manual_seed(70))
+    wav, lengths = padded_clips(dev, ASR_B, ASR_SECONDS, ASR_MIN_SECONDS, 71)
+    f32 = model(wav, lengths)[0]
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+
+    def batch():
+        logits, frames = bf16(wav.to(torch.bfloat16), lengths)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return lp, frames, ctc_greedy_decode(lp, frames)
+
+    lp, frames, (tokens, counts) = batch()
+    want_tokens, want_counts = ctc_greedy_decode(lp.cpu(), frames.cpu())
+    check_equal("base CTC greedy decode against the CPU's (tokens)", tokens.cpu(), want_tokens)
+    check_equal("base CTC greedy decode against the CPU's (counts)", counts.cpu(), want_counts)
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "bf16_rel_l2": check_bf16("wav2vec2_base CTC logits", [bf16(wav.to(torch.bfloat16), lengths)[0]], [f32])}
+    out["bf16"] = time_batch(f"wav2vec2_base CTC emissions + greedy decode, bf16, B={ASR_B} x {ASR_SECONDS} s", batch,
+                             card, float(lengths.sum()) / SR, model_flops(model, wav.shape[1], ASR_B), PEAK_BF16_PER_S)
+    out["cpu"] = compare_model_with_cpu("wav2vec2_base(aux 29)", model, lambda m, w, l: [m(w, l)[0]], dev, 72)
+    return out
+
+
+def run_wavlm_features(dev, card: str) -> dict:
+    """Phase 13 (c): SUPERB-style features, ``wavlm_base_plus().extract_features`` (all 12 layers; weights
+    from seed 80) in bf16 on SSL_B clips of 10 s; WavLM's buckets on the card equal to the CPU's up to
+    T = 1500."""
+    import torch
+
+    from audio_tpu_torch.models import wavlm_base_plus
+    from audio_tpu_torch.models.wavlm import _relative_positions_bucket
+
+    p = torch.arange(1500, device=dev)
+    card_buckets = _relative_positions_bucket(p[None, :] - p[:, None], 320, 800)
+    cpu_buckets = _relative_positions_bucket((p[None, :] - p[:, None]).cpu(), 320, 800)
+    differ = int((card_buckets.cpu() != cpu_buckets).sum())
+    print(f"  WavLM buckets (320, 800) at T = 1500: {differ} of {cpu_buckets.numel()} differ from the CPU's (limit 0)")
+    if differ:
+        raise AssertionError("WavLM's buckets on the card differ from the CPU's")
+
+    model = wavlm_base_plus(device=dev, generator=torch.Generator(device=dev).manual_seed(80))
+    wav = voiced_rows(dev, SSL_B, SSL_SECONDS * SR, 81)
+    f32 = model.extract_features(wav)[0]
+    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    x = wav.to(torch.bfloat16)
+    feats = bf16.extract_features(x)[0]
+    want = (SSL_B, frames_of(model, wav.shape[1]), model.encoder.feature_projection.projection.out_features)
+    if len(feats) != 12 or any(tuple(f.shape) != want or f.dtype != torch.bfloat16 for f in feats):
+        raise AssertionError(f"wavlm_base_plus features: {len(feats)} layers of {tuple(feats[0].shape)} (want 12 of "
+                             f"{want}, bf16)")
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "bf16_rel_l2": check_bf16("wavlm_base_plus features (12 layers)", feats, f32)}
+    del f32, feats
+    out["bf16"] = time_batch(f"wavlm_base_plus features, bf16, B={SSL_B} x {SSL_SECONDS} s",
+                             lambda: bf16.extract_features(x), card, SSL_B * SSL_SECONDS,
+                             model_flops(model, wav.shape[1], SSL_B), PEAK_BF16_PER_S)
+    out["cpu"] = compare_model_with_cpu("wavlm_base_plus", model, lambda m, w, l: m.extract_features(w, l)[0], dev, 82)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -3448,6 +3767,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    # ---------------------------------------------------------------- phase 13
+    print(f"phase 13: MMS_FA-shaped forced alignment (B={FA_B} x {FA_SECONDS} s), wav2vec2_base CTC emissions "
+          f"(B={ASR_B} x {ASR_SECONDS} s) and wavlm_base_plus features (B={SSL_B} x {SSL_SECONDS} s)")
+    t13 = time.perf_counter()
+    wav2vec2 = {"forced_alignment": run_forced_alignment(dev, card)}
+    torch.cuda.empty_cache()
+    wav2vec2["ctc"] = run_ctc_emissions(dev, card)
+    torch.cuda.empty_cache()
+    wav2vec2["wavlm"] = run_wavlm_features(dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -3520,7 +3851,8 @@ def main(argv=None) -> int:
     kernels.append(dict(name="viterbi", route="cuda", source="audio_tpu_torch/csrc/viterbi.cu",
                         replaces="audio_tpu/ops/pallas_viterbi.py:142", launches=launches["viterbi"],
                         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound[0],
-                        bound_by=k3_bound[1], library_ms=None, kernel_route=k3_route, block_ms=k3_block_ms))
+                        bound_by=k3_bound[1], library_ms=None, kernel_route=k3_route, block_ms=k3_block_ms,
+                        phase13_launches=wav2vec2["forced_alignment"]["k3_launches"]))
     # K5-K8 at the main shape in bf16, K5's and K7's weights as the search passes them (a
     # Linear's layout); launches from the runs of the paths that take them
     inp = slice2_kernel_inputs(np.random.default_rng(2), dev, n_main, RNNT_D, RNNT_V, RNNT_H, torch.bfloat16)
@@ -3644,7 +3976,8 @@ def main(argv=None) -> int:
                        "k8_row_ms": k8_row_ms, "k8_train": k8_train, "k3_block_ms": k3_block_ms,
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
-                       "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms},
+                       "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
+                       "wav2vec2": wav2vec2},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,8 @@ def test_scan_covers_the_port():
                 "ops/rnnt.py", "ops/rnnt_pruned.py", "functional/_rnnt.py", "utils/precision.py",
                 "functional/_resample.py", "functional/_misc.py", "functional/_beamforming.py", "functional/_vad.py",
                 "ops/ctc.py", "transforms/_transforms.py", "transforms/_multi_channel.py", "compliance/__init__.py",
-                "compliance/kaldi.py"):
+                "compliance/kaldi.py", "models/wav2vec2/components.py", "models/wav2vec2/model.py",
+                "models/wavlm.py"):
         assert f"audio_tpu_torch/{sub}" in names
     assert len(names) >= 42
 
@@ -277,3 +278,34 @@ def test_every_buffer_making_class_defaults_to_cuda():
         else:
             assert not list(cls(*required.get(name, ())).buffers()), name
     assert inspect.signature(tk.get_mel_banks).parameters["device"].default == "cuda"
+
+
+WAV2VEC2_NAMES = ["Wav2Vec2Model", "WavLMModel", "wav2vec2_model", "wav2vec2_base", "wav2vec2_large",
+                  "wav2vec2_large_lv60k", "hubert_base", "hubert_large", "hubert_xlarge", "wav2vec2_xlsr_300m",
+                  "wav2vec2_xlsr_1b", "wav2vec2_xlsr_2b", "wavlm_model", "wavlm_base", "wavlm_base_plus", "wavlm_large"]
+
+
+def test_models_export_a_subset_of_the_jax_package_s_names():
+    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models``, the 16 of wav2vec2/HuBERT and
+    WavLM among them."""
+    import audio_tpu.models as jm
+
+    import audio_tpu_torch.models as tm
+
+    assert set(tm.__all__) <= set(jm.__all__)
+    assert set(WAV2VEC2_NAMES) <= set(tm.__all__) and len(set(WAV2VEC2_NAMES)) == 16
+    assert all(callable(getattr(tm, n)) for n in tm.__all__)
+
+
+@pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES if n[0].islower()] + ["emformer_rnnt_base",
+                                                                                    "emformer_rnnt_model"])
+def test_every_model_factory_defaults_to_cuda(name):
+    """Each factory makes its parameters on the card unless the caller names another device, and takes a
+    ``dtype`` and a ``generator``."""
+    import inspect
+
+    import audio_tpu_torch.models as tm
+
+    params = inspect.signature(getattr(tm, name)).parameters
+    assert params["device"].default == "cuda"
+    assert params["dtype"].default is None and params["generator"].default is None
