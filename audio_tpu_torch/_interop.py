@@ -17,7 +17,9 @@ loss across.
 ``wav2vec2_state_dict_from_jax_params`` and ``wavlm_state_dict_from_jax_params``
 are the inverses of the JAX package's ``import_torchaudio_state_dict`` and
 ``import_wavlm_state_dict``: the flax tree of a wav2vec2/HuBERT or WavLM model
-becomes the ``state_dict`` of the port's ``Wav2Vec2Model`` or ``WavLMModel``.
+becomes the ``state_dict`` of the port's ``Wav2Vec2Model`` or ``WavLMModel``;
+``hubert_pretrain_state_dict_from_jax_params`` does the same for a
+``HuBERTPretrainModel`` (the backbone under ``wav2vec2``).
 The positional convolution's weight norm gets ``original1 = w`` and
 ``original0 = |w|`` over dims (0, 1), from which it rebuilds ``w`` within a few
 ulp.
@@ -30,8 +32,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
-           "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
+__all__ = ["from_jax_params", "hubert_pretrain_state_dict_from_jax_params", "rnnt_state_dict_from_jax_params",
+           "simple_heads_from_jax_params", "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -184,6 +186,19 @@ def wav2vec2_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str,
     tree = params["params"] if "params" in params else params
     encoder = tree["encoder"]
     return _wav2vec2_like(tree, encoder["feature_projection"], encoder["transformer"], device, wavlm=False)
+
+
+def hubert_pretrain_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``HuBERTPretrainModel`` ``state_dict`` from the JAX package's flax parameters
+    (``{"params": {wav2vec2: {feature_extractor, encoder}, mask_generator, logit_generator}}`` or the
+    inner dict), in the order of the model's own ``state_dict``."""
+    tree = params["params"] if "params" in params else params
+    sd = {f"wav2vec2.{k}": v for k, v in wav2vec2_state_dict_from_jax_params(tree["wav2vec2"], device).items()}
+    sd["mask_generator.mask_embedding"] = _leaf(tree["mask_generator"]["mask_embedding"], device)
+    logits = tree["logit_generator"]
+    sd["logit_generator.label_embeddings"] = _leaf(logits["label_embeddings"], device)
+    _dense(sd, "logit_generator.final_proj", logits["final_proj"], device)
+    return sd
 
 
 def wavlm_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:

@@ -4,9 +4,14 @@ from .emformer import Emformer
 from .rnnt import RNNT, emformer_rnnt_base, emformer_rnnt_model
 from .rnnt_decoder import Hypothesis, RNNTBeamSearch, rnnt_greedy_decode
 from .wav2vec2 import (
+    HuBERTPretrainModel,
     Wav2Vec2Model,
     hubert_base,
     hubert_large,
+    hubert_pretrain_base,
+    hubert_pretrain_large,
+    hubert_pretrain_model,
+    hubert_pretrain_xlarge,
     hubert_xlarge,
     wav2vec2_base,
     wav2vec2_large,
@@ -20,6 +25,7 @@ from .wavlm import WavLMModel, wavlm_base, wavlm_base_plus, wavlm_large, wavlm_m
 
 __all__ = [
     "Emformer",
+    "HuBERTPretrainModel",
     "Hypothesis",
     "RNNT",
     "RNNTBeamSearch",
@@ -29,6 +35,10 @@ __all__ = [
     "emformer_rnnt_model",
     "hubert_base",
     "hubert_large",
+    "hubert_pretrain_base",
+    "hubert_pretrain_large",
+    "hubert_pretrain_model",
+    "hubert_pretrain_xlarge",
     "hubert_xlarge",
     "rnnt_greedy_decode",
     "wav2vec2_base",

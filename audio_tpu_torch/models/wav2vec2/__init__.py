@@ -1,9 +1,14 @@
-"""wav2vec2 / HuBERT models of the PyTorch port."""
+"""wav2vec2 / HuBERT models of the PyTorch port, and HuBERT pretraining."""
 
 from .model import (
+    HuBERTPretrainModel,
     Wav2Vec2Model,
     hubert_base,
     hubert_large,
+    hubert_pretrain_base,
+    hubert_pretrain_large,
+    hubert_pretrain_model,
+    hubert_pretrain_xlarge,
     hubert_xlarge,
     wav2vec2_base,
     wav2vec2_large,
@@ -15,9 +20,14 @@ from .model import (
 )
 
 __all__ = [
+    "HuBERTPretrainModel",
     "Wav2Vec2Model",
     "hubert_base",
     "hubert_large",
+    "hubert_pretrain_base",
+    "hubert_pretrain_large",
+    "hubert_pretrain_model",
+    "hubert_pretrain_xlarge",
     "hubert_xlarge",
     "wav2vec2_base",
     "wav2vec2_large",

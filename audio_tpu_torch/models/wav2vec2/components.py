@@ -19,6 +19,10 @@ float32 on the card whatever the caller set.
 Modules take ``device``, ``dtype`` and ``generator``: with a generator their
 weights are drawn from it in PyTorch's default ranges, on the generator's own
 device, so one seed gives one model on any device.
+
+``MaskGenerator`` and ``LogitGenerator`` are HuBERT pretraining's span masks and cosine logits, as
+the JAX package builds them: the static strategy with fixed-shape outputs.  The span starts are
+drawn from an explicit generator on its own device; ``span_mask`` builds the mask from them.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ __all__ = [
     "FeatureProjection",
     "FeedForward",
     "LayerNorm",
+    "LogitGenerator",
+    "MaskGenerator",
     "SelfAttention",
     "Transformer",
 ]
@@ -318,6 +324,89 @@ class Encoder(nn.Module):
                          num_layers: Optional[int] = None) -> List[torch.Tensor]:
         x, mask = self._preprocess(features, lengths)
         return self.transformer.get_intermediate_outputs(x, attention_mask=mask, num_layers=num_layers)
+
+
+def span_mask(starts: torch.Tensor, mask_length: int, t: int) -> torch.Tensor:
+    """The (B, T) mask of spans ``mask_length`` long from ``starts`` (B, num_spans); frames past T
+    are dropped, as the JAX package's scatter drops them."""
+    b = starts.shape[0]
+    idx = (starts[..., None] + torch.arange(mask_length, device=starts.device)).reshape(b, -1)
+    mask = torch.zeros((b, t + mask_length), dtype=torch.bool, device=starts.device)
+    return mask.scatter_(1, idx, True)[:, :t]
+
+
+class MaskGenerator(nn.Module):
+    """Span masks for SSL pretraining, the static strategy: ``max(min_masks, int(mask_prob * T /
+    mask_length))`` starts a row, T the padded frame count, drawn uniformly with replacement from
+    [0, max(T - mask_length, 1)); padded frames are never masked.  Masked frames become
+    ``mask_embedding``, drawn from U[0, 1)."""
+
+    def __init__(self, encoder_embed_dim: int, mask_prob: float, mask_length: int, min_masks: int = 2, device=None,
+                 dtype=None, generator=None):
+        super().__init__()
+        self.mask_prob = mask_prob
+        self.mask_length = mask_length
+        self.min_masks = min_masks
+        self.mask_embedding = nn.Parameter(torch.empty(encoder_embed_dim, device=device, dtype=dtype))
+        with torch.no_grad():
+            if generator is None:
+                self.mask_embedding.uniform_()
+            else:
+                self.mask_embedding.copy_(torch.rand(encoder_embed_dim, generator=generator, device=generator.device))
+
+    def num_spans(self, t: int) -> int:
+        return max(self.min_masks, int(self.mask_prob * t / float(self.mask_length)))
+
+    def draw_starts(self, b: int, t: int, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, num_spans) span starts, drawn from ``generator`` (torch's default one of ``device`` if
+        None) on its own device and moved to ``device``."""
+        draw_on = generator.device if generator is not None else device
+        starts = torch.randint(0, max(t - self.mask_length, 1), (b, self.num_spans(t)), generator=generator,
+                               device=draw_on)
+        return starts.to(device)
+
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, T, D) and its (B, T) padding mask -> (x with the masked frames replaced, the mask)."""
+        b, t, _ = x.shape
+        mask = span_mask(self.draw_starts(b, t, x.device, generator), self.mask_length, t)
+        if padding_mask is not None:
+            mask = mask & ~padding_mask
+        return torch.where(mask[..., None], self.mask_embedding.to(x.dtype), x), mask
+
+
+class LogitGenerator(nn.Module):
+    """HuBERT's logits: the cosine similarity of ``final_proj(x)`` with each class's
+    ``label_embeddings`` row (N(0, 0.02)), each norm plus 1e-8, over a temperature of 0.1.
+    ``logit_m`` and ``logit_u`` are (B, T, num_classes), zero where their mask is off, or None when
+    ``skip_masked`` or ``skip_nomask`` is set."""
+
+    def __init__(self, encoder_embed_dim: int, num_classes: int, final_dim: int, skip_masked: bool = False,
+                 skip_nomask: bool = False, device=None, dtype=None, generator=None):
+        super().__init__()
+        self.skip_masked = skip_masked
+        self.skip_nomask = skip_nomask
+        self.label_embeddings = nn.Parameter(torch.empty((num_classes, final_dim), device=device, dtype=dtype))
+        with torch.no_grad():
+            if generator is None:
+                self.label_embeddings.normal_(0.0, 0.02)
+            else:
+                draw = torch.randn((num_classes, final_dim), generator=generator, device=generator.device)
+                self.label_embeddings.copy_(draw * 0.02)
+        self.final_proj = nn.Linear(encoder_embed_dim, final_dim, device=device, dtype=dtype)
+        _reset(self.final_proj, generator)
+
+    def forward(self, x: torch.Tensor, label: Optional[torch.Tensor], mask_m: torch.Tensor,
+                mask_u: torch.Tensor) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``label`` is not read, as in the JAX package: the loss takes the targets."""
+        proj = self.final_proj(x)
+        f = proj / (torch.linalg.vector_norm(proj, dim=-1, keepdim=True) + 1e-8)
+        e = self.label_embeddings
+        e = e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-8)
+        logits = (f @ e.t()) / 0.1
+        logit_m = None if self.skip_masked else torch.where(mask_m[..., None], logits, 0.0)
+        logit_u = None if self.skip_nomask else torch.where(mask_u[..., None], logits, 0.0)
+        return logit_m, logit_u
 
 
 def _get_feature_extractor(norm_mode: str, shapes, bias: bool, device=None, dtype=None,

@@ -1,12 +1,14 @@
-"""Wav2Vec2Model and its factory functions.
+"""Wav2Vec2Model, HuBERTPretrainModel and their factory functions.
 
 Same models as ``audio_tpu.models.wav2vec2.model``: ``wav2vec2_model`` and the
 factories ``wav2vec2_base/large/large_lv60k``, ``hubert_base/large/xlarge`` and
 ``wav2vec2_xlsr_300m/1b/2b``, with the JAX package's defaults for dropout and
-layer drop.  The factories make the parameters on CUDA unless the caller names
-another device, draw them from ``generator`` when one is given, and return the
-model in eval mode (the JAX package's call is deterministic unless told
-otherwise); ``.train()`` turns dropout and layer drop on.
+layer drop; ``hubert_pretrain_model`` and ``hubert_pretrain_base/large/xlarge``
+for HuBERT's masked prediction.  The factories make the parameters on CUDA
+unless the caller names another device, draw them from ``generator`` when one
+is given, and return the model in eval mode (the JAX package's call is
+deterministic unless told otherwise); ``.train()`` turns dropout and layer drop
+on.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import torch
 from torch import nn
 
 from . import components
-from .components import Encoder, FeatureExtractor, SelfAttention
+from .components import Encoder, FeatureExtractor, LogitGenerator, MaskGenerator, SelfAttention
 
 __all__ = [
+    "HuBERTPretrainModel",
     "Wav2Vec2Model",
     "wav2vec2_model",
     "wav2vec2_base",
@@ -31,6 +34,10 @@ __all__ = [
     "wav2vec2_xlsr_300m",
     "wav2vec2_xlsr_1b",
     "wav2vec2_xlsr_2b",
+    "hubert_pretrain_model",
+    "hubert_pretrain_base",
+    "hubert_pretrain_large",
+    "hubert_pretrain_xlarge",
 ]
 
 _DEFAULT_CONV_CONFIG = ((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2
@@ -62,6 +69,40 @@ class Wav2Vec2Model(nn.Module):
         lengths."""
         x, lengths = self.feature_extractor(waveforms, lengths)
         return self.encoder.extract_features(x, lengths, num_layers), lengths
+
+
+class HuBERTPretrainModel(nn.Module):
+    """HuBERT pretraining: the ``wav2vec2`` backbone with span masking (``mask_generator``) before
+    the transformer and cosine logits (``logit_generator``) after it.  The mask is drawn in training
+    and evaluation alike; ``.eval()`` turns off only dropout and layer drop."""
+
+    def __init__(self, wav2vec2: Wav2Vec2Model, mask_generator: MaskGenerator, logit_generator: LogitGenerator):
+        super().__init__()
+        self.wav2vec2 = wav2vec2
+        self.mask_generator = mask_generator
+        self.logit_generator = logit_generator
+
+    def forward(self, waveforms: torch.Tensor, labels: torch.Tensor, audio_lengths: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """waveforms (B, T), labels (B, frames) -> ``(logit_m, logit_u, mask_m, mask_u, feature_penalty)``:
+        logits (B, frames, num_classes) zero off their mask, the masked and unmasked valid frames, and
+        the float32 mean of the squared conv features.  ``generator`` feeds the span starts and, in
+        training, layer drop."""
+        x, lengths = self.wav2vec2.feature_extractor(waveforms, audio_lengths)
+        feature_penalty = x.float().pow(2).mean()
+        padding_mask = None
+        if lengths is not None:
+            padding_mask = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None]
+        x, attn_mask = self.wav2vec2.encoder._preprocess(x, lengths)
+        x, mask = self.mask_generator(x, padding_mask, generator)
+        x = self.wav2vec2.encoder.transformer(x, attention_mask=attn_mask, generator=generator)
+        if padding_mask is not None:
+            mask_m = ~padding_mask & mask
+            mask_u = ~padding_mask & ~mask_m
+        else:
+            mask_m, mask_u = mask, ~mask
+        logit_m, logit_u = self.logit_generator(x, labels, mask_m, mask_u)
+        return logit_m, logit_u, mask_m, mask_u, feature_penalty
 
 
 def _head(embed_dim: int, aux_num_out: Optional[int], generator, kw) -> Optional[nn.Linear]:
@@ -221,3 +262,62 @@ def wav2vec2_xlsr_2b(encoder_projection_dropout: float = 0.0, encoder_attention_
                      dtype=None, generator: Optional[torch.Generator] = None) -> Wav2Vec2Model:
     return _make("xlsr_2b", encoder_projection_dropout, encoder_attention_dropout, encoder_ff_interm_dropout,
                  encoder_dropout, encoder_layer_drop, aux_num_out, device, dtype, generator)
+
+
+def hubert_pretrain_model(
+    extractor_mode: str,
+    extractor_conv_layer_config: Optional[List[Tuple[int, int, int]]],
+    extractor_conv_bias: bool,
+    encoder_embed_dim: int,
+    encoder_projection_dropout: float,
+    encoder_pos_conv_kernel: int,
+    encoder_pos_conv_groups: int,
+    encoder_num_layers: int,
+    encoder_num_heads: int,
+    encoder_attention_dropout: float,
+    encoder_ff_interm_features: int,
+    encoder_ff_interm_dropout: float,
+    encoder_dropout: float,
+    encoder_layer_norm_first: bool,
+    encoder_layer_drop: float,
+    mask_prob: float = 0.8,
+    mask_length: int = 10,
+    num_classes: int = 100,
+    final_dim: int = 256,
+    skip_masked: bool = False,
+    skip_nomask: bool = False,
+    device="cuda",
+    dtype=None,
+    generator: Optional[torch.Generator] = None,
+) -> HuBERTPretrainModel:
+    """A ``HuBERTPretrainModel`` of the given configuration (the JAX package's arguments), in eval mode."""
+    kw = dict(device=device, dtype=dtype, generator=generator)
+    backbone = wav2vec2_model(
+        extractor_mode, extractor_conv_layer_config, extractor_conv_bias, encoder_embed_dim,
+        encoder_projection_dropout, encoder_pos_conv_kernel, encoder_pos_conv_groups, encoder_num_layers,
+        encoder_num_heads, encoder_attention_dropout, encoder_ff_interm_features, encoder_ff_interm_dropout,
+        encoder_dropout, encoder_layer_norm_first, encoder_layer_drop, aux_num_out=None, **kw)
+    mask_generator = MaskGenerator(encoder_embed_dim, mask_prob, mask_length, **kw)
+    logit_generator = LogitGenerator(encoder_embed_dim, num_classes, final_dim, skip_masked, skip_nomask, **kw)
+    return HuBERTPretrainModel(backbone, mask_generator, logit_generator).eval()
+
+
+def hubert_pretrain_base(num_classes: int = 100, device="cuda", dtype=None,
+                         generator: Optional[torch.Generator] = None, **kw) -> HuBERTPretrainModel:
+    return hubert_pretrain_model(
+        "group_norm", None, False, 768, 0.1, 128, 16, 12, 12, 0.1, 3072, 0.0, 0.1, False, 0.05,
+        num_classes=num_classes, final_dim=256, device=device, dtype=dtype, generator=generator, **kw)
+
+
+def hubert_pretrain_large(num_classes: int = 500, device="cuda", dtype=None,
+                          generator: Optional[torch.Generator] = None, **kw) -> HuBERTPretrainModel:
+    return hubert_pretrain_model(
+        "layer_norm", None, False, 1024, 0.0, 128, 16, 24, 16, 0.0, 4096, 0.0, 0.0, True, 0.0,
+        num_classes=num_classes, final_dim=768, device=device, dtype=dtype, generator=generator, **kw)
+
+
+def hubert_pretrain_xlarge(num_classes: int = 500, device="cuda", dtype=None,
+                           generator: Optional[torch.Generator] = None, **kw) -> HuBERTPretrainModel:
+    return hubert_pretrain_model(
+        "layer_norm", None, False, 1280, 0.0, 128, 16, 48, 16, 0.0, 5120, 0.0, 0.0, True, 0.0,
+        num_classes=num_classes, final_dim=1024, device=device, dtype=dtype, generator=generator, **kw)

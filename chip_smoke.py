@@ -153,7 +153,19 @@ Phases, each of which raises on failure:
    forced_align on the same emission; each model in f32 at B=2 x 4 s within 1e-3 of the peak of the CPU's
    output, and the same bits with cuDNN's TF32 on; every bf16 output finite and within 0.05 of f32 in
    relative L2; WavLM's buckets on the card equal to the CPU's; each batch timed, profiled once, its peak
-   memory and model FLOPs against the peak rate.
+   memory and model FLOPs against the peak rate;
+14. the SSL train steps at full width, weights from CUDA generator seeds, on one batch of 8 voiced clips of
+   10-12 s (their sum under the recipe's 1,400,000 samples, padded to the longest): (a) HuBERT masked
+   prediction (``hubert_pretrain_base``, 100 classes, labels from a seed) in f32 and in bf16 over f32
+   masters; (b) wav2vec 2.0 contrastive pretraining (``wav2vec2_base``, final dim 256, 100 negatives) in f32;
+   (c) HuBERT CTC fine-tuning (``hubert_base(aux 29)``, transcripts of 120-180 labels) in f32, one stage
+   inside the frozen encoder's updates and one past them.  The span masks follow the static strategy and
+   mask no padded frame, no negative comes from its own frame, the frozen parameters keep their bits, the
+   losses and gradients are finite, the bf16 HuBERT loss is within 0.05 of f32; each step in f32 at B=2 x
+   4 s against the CPU (loss 1e-4 relative, gradients 1e-3 of their peaks, the parameters after one update
+   1e-5); each step timed, profiled once, its peak memory and model FLOPs (forward and backward) against
+   the peak rate; ``ctc_loss`` alone against the fine-tune step, the positional convolution alone in f32
+   and bf16.  No kernel is on this path: the counters are read around the phase and printed.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -1563,16 +1575,20 @@ def time_tick(dec, feat, lengths, state, hypos, reps: int = 5):
 
 
 # ------------------------------------------------------------------ slice 3: the two gradient paths
-def load_train_recipe():
-    """The train step's module, examples/asr/emformer_rnnt/train_torch.py, loaded by path."""
+def load_example(name: str, *parts: str):
+    """An example script of the repository, loaded by path as module ``name``."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "asr", "emformer_rnnt",
-                        "train_torch.py")
-    spec = importlib.util.spec_from_file_location("emformer_rnnt_train_torch", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", *parts)
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_train_recipe():
+    """The train step's module, examples/asr/emformer_rnnt/train_torch.py, loaded by path."""
+    return load_example("emformer_rnnt_train_torch", "asr", "emformer_rnnt", "train_torch.py")
 
 
 def timed_steps(step, warmup: int, reps: int):
@@ -3041,29 +3057,32 @@ CMP_B, CMP_SECONDS, CMP_MIN_SECONDS = 2, 4, 3  # each model in f32 on the card a
 CMP_TOL, BF16_REL_L2 = 1e-3, 0.05  # of the CPU output's peak; bf16 against f32 on the card, relative L2
 
 
-def model_flops(model, n_samples: int, batch: int) -> float:
+def model_flops(model, n_samples: int, batch: int, backward: str = "none") -> float:
     """Operations (2 a multiply-add) of ``model`` on ``batch`` clips of ``n_samples``, counted from its
     modules' shapes: the convolutions, projections, attention's two products, the feed-forwards, WavLM's
-    gate and the head.  Every frame of the padded batch is computed, so all are counted."""
-    total, t = 0.0, n_samples
+    gate and the head.  Every frame of the padded batch is computed, so all are counted.  ``backward``
+    adds a train step's backward, twice the forward of each part it runs through (the gradients of the
+    part's inputs and of its weights): "all" parts, "encoder" all but the conv stack (frozen, run
+    without a graph), "head" the aux head alone; "none" counts the forward."""
+    conv, t = 0.0, n_samples
     for block in model.feature_extractor.conv_layers:
         c = block.conv
         t = (t - c.kernel_size[0]) // c.stride[0] + 1
-        total += 2 * c.in_channels * c.out_channels * c.kernel_size[0] * t
+        conv += 2 * c.in_channels * c.out_channels * c.kernel_size[0] * t
     if t != frames_of(model, n_samples):
         raise AssertionError("model_flops: frame count")
     proj = model.encoder.feature_projection.projection
     d = proj.out_features
     pos = model.encoder.transformer.pos_conv_embed.conv
-    total += 2 * proj.in_features * d * t + 2 * d * (d // pos.groups) * pos.kernel_size[0] * t
+    encoder = 2 * proj.in_features * d * t + 2 * d * (d // pos.groups) * pos.kernel_size[0] * t
     for layer in model.encoder.transformer.layers:
         f = layer.feed_forward.intermediate_dense.out_features
-        total += 2 * t * (4 * d * d + 2 * d * f) + 4 * t * t * d
+        encoder += 2 * t * (4 * d * d + 2 * d * f) + 4 * t * t * d
         if getattr(layer.attention, "gru_rel_pos", False):
-            total += 2 * t * d * 8
-    if model.aux is not None:
-        total += 2 * t * d * model.aux.out_features
-    return batch * total
+            encoder += 2 * t * d * 8
+    head = 0.0 if model.aux is None else 2 * t * d * model.aux.out_features
+    scale = {"none": (1, 1, 1), "all": (3, 3, 3), "encoder": (1, 3, 3), "head": (1, 1, 3)}[backward]
+    return batch * (scale[0] * conv + scale[1] * encoder + scale[2] * head)
 
 
 def frames_of(model, n_samples: int) -> int:
@@ -3332,6 +3351,449 @@ def run_wavlm_features(dev, card: str) -> dict:
                              lambda: bf16.extract_features(x), card, SSL_B * SSL_SECONDS,
                              model_flops(model, wav.shape[1], SSL_B), PEAK_BF16_PER_S)
     out["cpu"] = compare_model_with_cpu("wavlm_base_plus", model, lambda m, w, l: m.extract_features(w, l)[0], dev, 82)
+    return out
+
+
+# ------------------------------------------------------------------ phase 14: the SSL train steps
+SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S = 8, 10, 12  # clips, their shortest and longest lengths
+SSL_TOKEN_CAP = 1_400_000  # the recipe's samples a card a step, 87.5 s (train_wav2vec2.py:172-173)
+SSL_LENGTH_SEED = 140  # numpy seed of the clip lengths; the CUDA seeds of phase 14 are 141-159
+FT_LABELS_PER_S = (12, 15)  # transcript lengths a second of clip: 120-180 labels for 10-12 s
+HUBERT_CLASSES, W2V_FINAL_DIM, W2V_NEGATIVES = 100, 256, 100
+SSL_LOSS_TOL, SSL_GRAD_TOL, SSL_PARAM_TOL = 1e-4, 1e-3, 1e-5  # card against the CPU in f32 at B=2 x 4 s
+BF16_LOSS_REL = 0.05
+# updates made before the measured ones: the pretraining schedules at their peak, and the fine-tune
+# step inside its frozen stage (at the peak rate) and past freeze_encoder_updates (10,000)
+HUBERT_START, W2V_START, FT_FROZEN_START, FT_THAWED_START = 32_000, 32_000, 5_000, 10_000
+
+
+def conv_frames(n):
+    """The frames of the default conv stack (kernels 10, 3, 3, 3, 3, 2, 2; strides 5, 2, ...) for ``n``
+    samples, an int or a tensor of them."""
+    for k, stride in ((10, 5),) + ((3, 2),) * 4 + ((2, 2),) * 2:
+        n = (n - k) // stride + 1
+    return n
+
+
+class SSLCase:
+    """One of the three SSL train steps at full width: its model (weights from a CUDA seed), its step
+    and its batch (voiced clips, and HuBERT's labels or the fine-tune step's transcripts, from seeds)."""
+
+    def __init__(self, kind: str, recipe, dev, seed: int):
+        self.kind, self.recipe, self.dev, self.seed = kind, recipe, dev, seed
+
+    def model(self):
+        import torch
+
+        from audio_tpu_torch.models import hubert_base, hubert_pretrain_base
+
+        g = torch.Generator(device=self.dev).manual_seed(self.seed)
+        if self.kind == "hubert":
+            return hubert_pretrain_base(num_classes=HUBERT_CLASSES, device=self.dev, generator=g)
+        if self.kind == "wav2vec2":
+            return self.recipe.build_model(False, "wav2vec2_base", self.dev, g)
+        return hubert_base(aux_num_out=len(self.recipe.LABELS), device=self.dev, generator=g)
+
+    def backbone(self, model):
+        return {"hubert": lambda: model.wav2vec2, "wav2vec2": lambda: model.backbone}.get(self.kind, lambda: model)()
+
+    def step(self, model, start: int, compute_dtype=None):
+        if self.kind == "hubert":
+            return self.recipe.make_train_step(model, compute_dtype, step=start)
+        if self.kind == "wav2vec2":
+            return self.recipe.make_train_step(model, num_negatives=W2V_NEGATIVES, step=start)
+        return self.recipe.make_train_step(model, step=start)
+
+    def batch(self, b: int, min_s: int, max_s: int, seed: int) -> tuple:
+        """The step's arguments but the generator: ``b`` voiced clips of ``min_s`` to ``max_s`` seconds (lengths
+        from numpy seed ``seed``, their sum under SSL_TOKEN_CAP), zero past each length and padded to the
+        longest; HuBERT's labels or the transcripts from CUDA seed ``seed + 2``."""
+        import torch
+
+        rng = np.random.default_rng(seed)
+        lengths = rng.integers(min_s * SR, max_s * SR + 1, b)
+        while lengths.sum() >= SSL_TOKEN_CAP:  # drawn again until the batch fits the recipe's samples a card
+            lengths = rng.integers(min_s * SR, max_s * SR + 1, b)
+        n = int(lengths.max())
+        lengths = torch.as_tensor(lengths, device=self.dev)
+        wav = voiced_rows(self.dev, b, n, seed + 1) * (torch.arange(n, device=self.dev)[None, :] < lengths[:, None])
+        g = torch.Generator(device=self.dev).manual_seed(seed + 2)
+        if self.kind == "hubert":
+            frames = conv_frames(n)
+            return wav, torch.randint(0, HUBERT_CLASSES, (b, frames), generator=g, device=self.dev), lengths
+        if self.kind == "wav2vec2":
+            return wav, lengths
+        rate = np.random.default_rng(seed + 3).integers(*FT_LABELS_PER_S, endpoint=True)
+        n_labels = (lengths.cpu().numpy() * rate) // SR
+        targets = torch.randint(1, len(self.recipe.LABELS), (b, int(n_labels.max())), generator=g, device=self.dev)
+        return wav, lengths, targets, torch.as_tensor(n_labels, device=self.dev)
+
+    def loss(self, step, batch: tuple, g):
+        out = step.loss(step.params, *batch, generator=g) if self.kind == "hubert" else step.loss(*batch, generator=g)
+        return out if self.kind == "finetune" else out[0]
+
+    def __call__(self, step, batch: tuple, g):
+        """One update; the loss."""
+        import torch
+
+        with torch.enable_grad():
+            out = step(*batch, generator=g)
+        return out if self.kind == "finetune" else out[0]
+
+    def flops(self, model, n_samples: int, batch: int, frozen: bool = False) -> float:
+        """Model FLOPs of one step: the backbone and its backward (``model_flops``), plus the recipe's head
+        three times over (forward and two backward products): HuBERT's projection and cosine logits,
+        wav2vec2's two projections and its logits over 101 targets."""
+        backbone = self.backbone(model)
+        if self.kind == "finetune":
+            return model_flops(backbone, n_samples, batch, backward="head" if frozen else "encoder")
+        t = frames_of(backbone, n_samples)
+        d = backbone.encoder.feature_projection.projection.out_features
+        if self.kind == "hubert":
+            head = 2 * t * d * W2V_FINAL_DIM + 2 * t * W2V_FINAL_DIM * HUBERT_CLASSES
+        else:
+            head = 2 * 2 * t * d * W2V_FINAL_DIM + 2 * (W2V_NEGATIVES + 1) * t * W2V_FINAL_DIM
+        return model_flops(backbone, n_samples, batch, backward="all") + 3 * batch * head
+
+
+def check_ssl_grads(name: str, got: dict, ref: dict) -> float:
+    """Each card gradient within SSL_GRAD_TOL of its largest CPU entry.  The attention's key bias, whose
+    gradient is zero in exact arithmetic (the softmax ignores it), is held to 1e-6 of the model's largest
+    gradient entry on both sides; a gradient not computed (None) must be so on both sides.  The worst error
+    over its peak."""
+    import torch
+
+    present = {k for k, g in ref.items() if g is not None}
+    if present != {k for k, g in got.items() if g is not None}:
+        raise AssertionError(f"{name}: the card and the CPU computed gradients of different parameters")
+    top = max(float(ref[k].abs().max()) for k in present)
+    worst = 0.0
+    for k in sorted(present):
+        g, r = got[k].cpu().double(), ref[k].double()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: the gradient of {k} is not finite")
+        peak = float(r.abs().max())
+        if k.endswith("attention.k_proj.bias") and peak <= 1e-6 * top:
+            if float(g.abs().max()) > 1e-6 * top:
+                raise AssertionError(f"{name}: the key bias's gradient {k} is {float(g.abs().max()):.3e} on the card, "
+                                     f"past 1e-6 of the largest entry {top:.3e}")
+            continue
+        err = float((g - r).abs().max())
+        if err > SSL_GRAD_TOL * peak:
+            raise AssertionError(f"{name}: the gradient of {k} is off the CPU's by {err:.3e}, past {SSL_GRAD_TOL:g} "
+                                 f"of its peak {peak:.3e}")
+        worst = max(worst, err / peak)
+    return worst
+
+
+def check_ssl_params(name: str, got: dict, ref: dict, before: dict, grads: dict, lr: float) -> float:
+    """The parameters after one update on the card against the CPU's: within SSL_PARAM_TOL where the CPU's
+    gradient stands clear of rounding noise (above 1e-3 of its peak, the peak above 1e-6 of the largest),
+    elsewhere within two Adam steps of ``lr`` (the normalisation makes a noise entry's sign arbitrary on
+    either side, as ``tests/test_torch_train_step.py`` allows); a parameter without a gradient the same
+    bits as before.  The worst error on the clear entries."""
+    import torch
+
+    top = max(float(g.abs().max()) for g in grads.values() if g is not None)
+    worst, n_clear, n_all = 0.0, 0, 0
+    for k, r in ref.items():
+        g, now = grads[k], got[k].detach().cpu()
+        if g is None:
+            if not (torch.equal(now, before[k]) and torch.equal(r.detach(), before[k])):
+                raise AssertionError(f"{name}: {k} has no gradient but moved")
+            continue
+        diff = (now.double() - r.detach().double()).abs()
+        peak = float(g.abs().max())
+        clear = (g.abs() > 1e-3 * peak) & (peak > 1e-6 * top)
+        err_clear = float(diff[clear].max()) if bool(clear.any()) else 0.0
+        if err_clear > SSL_PARAM_TOL or float(diff.max()) > 2.1 * lr:
+            raise AssertionError(f"{name}: {k} after one update is off the CPU's by {err_clear:.3e} on its clear "
+                                 f"entries (limit {SSL_PARAM_TOL:g}), {float(diff.max()):.3e} anywhere (limit "
+                                 f"{2.1 * lr:.3e})")
+        worst = max(worst, err_clear)
+        n_clear, n_all = n_clear + int(clear.sum()), n_all + clear.numel()
+    if n_clear < 0.8 * n_all:
+        raise AssertionError(f"{name}: only {n_clear} of {n_all} entries have a gradient clear of noise")
+    return worst
+
+
+def compare_ssl_with_cpu(case: SSLCase, model, start: int, seed: int) -> dict:
+    """The step in f32 at CMP_B clips of up to CMP_SECONDS on the card against the same module on the CPU:
+    eval mode (no dropout, no layer drop), the same weights, the span masks and negatives from one CUDA
+    generator seed on both sides.  The loss within SSL_LOSS_TOL (relative), each gradient within
+    SSL_GRAD_TOL of its peak, the parameters after one update within SSL_PARAM_TOL."""
+    import torch
+
+    name = f"{case.kind} step at {start}, f32, B={CMP_B} x {CMP_SECONDS} s"
+    batch = case.batch(CMP_B, CMP_MIN_SECONDS, CMP_SECONDS, seed)
+    sides = {}
+    for side, m in (("card", copy.deepcopy(model).eval()), ("cpu", copy.deepcopy(model).cpu().eval())):
+        args = batch if side == "card" else tuple(t.cpu() for t in batch)
+        step = case.step(m, start)
+        with torch.enable_grad():
+            loss = case.loss(step, args, torch.Generator(device=case.dev).manual_seed(seed + 5))
+            loss.backward()
+        grads = grads_of(step.params)
+        step.optimizer.zero_grad(set_to_none=True)
+        before = {k: p.detach().cpu().clone() for k, p in step.params.items()}
+        case(step, args, torch.Generator(device=case.dev).manual_seed(seed + 5))
+        sides[side] = dict(loss=float(loss), grads=grads, params=step.params, before=before,
+                           lr=step.schedule(start))
+    card, cpu = sides["card"], sides["cpu"]
+    rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_err = check_ssl_grads(name, card["grads"], cpu["grads"])
+    param_err = check_ssl_params(name, card["params"], cpu["params"], cpu["before"], cpu["grads"], cpu["lr"])
+    print(f"  {name}, card against the CPU: loss {card['loss']:.6f} vs {cpu['loss']:.6f} (relative {rel:.3e}, "
+          f"limit {SSL_LOSS_TOL:g}); gradients within {grad_err:.3e} of their peaks (limit {SSL_GRAD_TOL:g}); the "
+          f"parameters after one update within {param_err:.3e} on clear entries (limit {SSL_PARAM_TOL:g}, lr "
+          f"{cpu['lr']:.3e})")
+    if not rel <= SSL_LOSS_TOL:
+        raise AssertionError(f"{name}: the loss on the card is off the CPU's by {rel:.3e} relative")
+    return {"loss_rel": rel, "grad_err_of_peak": grad_err, "param_err": param_err}
+
+
+def grads_of(params: dict) -> dict:
+    """Each parameter's gradient, None where its backward was not run."""
+    return {k: None if p.grad is None else p.grad.detach().clone() for k, p in params.items()}
+
+
+def check_finite_step(name: str, loss, params: dict) -> None:
+    import torch
+
+    bad = [k for k, p in params.items() if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    if not math.isfinite(float(loss)) or bad:
+        raise AssertionError(f"{name}: loss {float(loss)}, gradients not finite: {bad[:5]}")
+    if any(p.grad is not None and p.grad.dtype != torch.float32 for p in params.values()):
+        raise AssertionError(f"{name}: a master parameter's gradient is not float32")
+
+
+def check_span_masks(name: str, model, mask, wav_lengths, starts_fn) -> dict:
+    """The masked frames of each row against the static strategy: the mask equal to the spans of the starts
+    drawn again from the same generator state (their count max(2, int(p * T / L)), T the padded frame
+    count), no padded frame masked; each row's count."""
+    import torch
+
+    from audio_tpu_torch.models.wav2vec2.components import span_mask
+
+    b, t = mask.shape
+    mg = model.mask_generator
+    starts = starts_fn(b, t)
+    n_spans = max(2, int(mg.mask_prob * t / mg.mask_length))
+    frames = conv_frames(wav_lengths)
+    pad = torch.arange(t, device=mask.device)[None, :] >= frames[:, None]
+    want = span_mask(starts, mg.mask_length, t) & ~pad
+    counts = mask.sum(1).tolist()
+    print(f"  {name}: {n_spans} spans of {mg.mask_length} a row over T = {t} (mask_prob {mg.mask_prob}); masked "
+          f"frames a row {counts}; padded frames masked {int((mask & pad).sum())} (limit 0)")
+    if starts.shape != (b, n_spans) or not torch.equal(mask, want) or bool((mask & pad).any()):
+        raise AssertionError(f"{name}: the span mask does not follow the static strategy")
+    if any(c > n_spans * mg.mask_length for c in counts):
+        raise AssertionError(f"{name}: a row masks more than {n_spans} spans of {mg.mask_length}")
+    return {"spans": n_spans, "masked_frames": counts}
+
+
+def time_ssl_step(name: str, case: SSLCase, step, batch: tuple, g, card: str, flops: float, peak_rate: float) -> dict:
+    """Five timed updates (CUDA events, median) after a warm-up, the peak memory over them, seconds of audio
+    a second, the model FLOPs' share of the peak rate, and one profiled update."""
+    import torch
+
+    lengths = batch[-1] if case.kind == "hubert" else batch[1]
+    audio_s = float(lengths.sum()) / SR
+    torch.cuda.reset_peak_memory_stats()
+    ms, runs, losses = timed_steps(lambda: case(step, batch, g), 1, 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    out = {"ms": ms, "runs_ms": runs, "losses": losses, "audio_s": audio_s, "audio_s_per_s": audio_s / (ms / 1e3),
+           "peak_gb": peak_gb, "model_tflop": flops / 1e12, "share_of_peak": flops / (ms / 1e3) / peak_rate}
+    print(f"  {name}: {ms:.3f} ms a step (runs {', '.join(f'{r:.3f}' for r in runs)}), {out['audio_s_per_s']:.1f} s "
+          f"of audio a second ({audio_s:.2f} s a step), peak memory {peak_gb:.3f} GB (weights, optimizer state "
+          f"and activations), model {out['model_tflop']:.3f} TFLOP a step = {out['share_of_peak']:.3f} of "
+          f"{peak_rate / 1e12:g} TFLOP/s; losses {[round(v, 4) for v in losses]} on {card}")
+    out["profile"] = profile_batch(name, lambda: case(step, batch, g))
+    return out
+
+
+def run_hubert_pretrain(recipe, dev, card: str) -> dict:
+    """Phase 14 (a): HuBERT masked prediction, ``hubert_pretrain_base(num_classes=100)`` (weights from CUDA
+    seed 141), labels 0-99 a frame, at the schedule's peak; in f32 and in bf16 over f32 masters."""
+    import torch
+
+    case = SSLCase("hubert", recipe, dev, 141)
+    model = case.model()
+    batch = case.batch(SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S, SSL_LENGTH_SEED)
+    wav, labels, lengths = batch
+    out = {"params": sum(p.numel() for p in model.parameters()), "samples": int(lengths.sum()),
+           "padded_samples": int(wav.shape[1])}
+    g = torch.Generator(device=dev).manual_seed(143)
+    state = g.get_state()
+    with torch.no_grad():
+        _, _, mask_m, _, _ = model.train()(wav, labels, lengths, generator=g)
+
+    def redraw(b, t):
+        again = torch.Generator(device=dev)
+        again.set_state(state)
+        return model.mask_generator.draw_starts(b, t, dev, again)
+
+    out["masks"] = check_span_masks("HuBERT span masks, full width", model, mask_m, lengths, redraw)
+    # bf16 against f32 on the same batch and masks: eval mode, the same generator seed
+    losses = {}
+    for dtype in (None, torch.bfloat16):
+        step = case.step(copy.deepcopy(model).eval(), HUBERT_START, dtype)
+        with torch.enable_grad():
+            loss = case.loss(step, batch, torch.Generator(device=dev).manual_seed(144))
+            loss.backward()
+        check_finite_step(f"HuBERT step, {dtype or 'f32'}", loss, step.params)
+        losses[dtype] = float(loss)
+        del step
+    rel = abs(losses[torch.bfloat16] - losses[None]) / abs(losses[None])
+    print(f"  HuBERT loss at full width, eval mode: f32 {losses[None]:.6f}, bf16 compute {losses[torch.bfloat16]:.6f} "
+          f"(relative {rel:.3e}, limit {BF16_LOSS_REL:g}); the bf16 step's gradients are finite float32")
+    if not rel <= BF16_LOSS_REL:
+        raise AssertionError(f"HuBERT: the bf16 loss is off the f32 loss by {rel:.3e} relative")
+    out["bf16_loss_rel"] = rel
+    flops = case.flops(model, wav.shape[1], SSL_TRAIN_B)
+    for label, dtype, rate in (("f32", None, PEAK_FP32_PER_S), ("bf16", torch.bfloat16, PEAK_BF16_PER_S)):
+        name = f"HuBERT pretraining step, {label}, B={SSL_TRAIN_B} x {SSL_TRAIN_MIN_S}-{SSL_TRAIN_MAX_S} s"
+        torch.manual_seed(145)
+        m = copy.deepcopy(model).train()
+        step = case.step(m, HUBERT_START, dtype)
+        first = case(step, batch, g)
+        check_finite_step(name, first, step.params)
+        out[label] = time_ssl_step(name, case, step, batch, g, card, flops, rate)
+        del m, step
+        torch.cuda.empty_cache()
+    out["pos_conv"] = time_pos_conv(model.wav2vec2, SSL_TRAIN_B, frames_of(model.wav2vec2, wav.shape[1]), card)
+    out["cpu"] = compare_ssl_with_cpu(case, model, HUBERT_START, 146)
+    return out
+
+
+def time_pos_conv(backbone, b: int, t: int, card: str) -> dict:
+    """The positional convolution (weight norm, 16 groups, kernel 128) forward and backward alone on
+    (b, t, D) in f32 and bf16: the bf16 step's profile puts a cuDNN bf16 dgrad kernel, 16 launches a
+    step, at the head of its device time."""
+    import torch
+
+    out = {}
+    d = backbone.encoder.feature_projection.projection.out_features
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        conv = copy.deepcopy(backbone.encoder.transformer.pos_conv_embed).to(dtype)
+        x = torch.randn((b, t, d), device=next(conv.parameters()).device, dtype=dtype, requires_grad=True)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                conv(x).float().sum().backward()
+
+        out[label], _ = median_call_ms(fwd_bwd)
+    print(f"  the positional convolution alone, forward and backward at ({b}, {t}, {d}): f32 {out['f32']:.3f} ms, "
+          f"bf16 {out['bf16']:.3f} ms on {card}")
+    return out
+
+
+def run_wav2vec2_pretrain(recipe, dev, card: str) -> dict:
+    """Phase 14 (b): wav2vec 2.0 contrastive pretraining, ``wav2vec2_base`` with final dim 256 (weights from
+    CUDA seed 150), 100 negatives, f32, at the schedule's peak."""
+    import torch
+
+    case = SSLCase("wav2vec2", recipe, dev, 150)
+    model = case.model()
+    batch = case.batch(SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S, SSL_LENGTH_SEED)
+    wav, lengths = batch
+    out = {"params": sum(p.numel() for p in model.parameters()), "samples": int(lengths.sum())}
+    g = torch.Generator(device=dev).manual_seed(152)
+    state = g.get_state()
+    with torch.no_grad():
+        _, targets, mask, _, _ = model.train()(wav, lengths, generator=g)
+
+    def redraw(b, t):
+        again = torch.Generator(device=dev)
+        again.set_state(state)
+        return model.mask_generator.draw_starts(b, t, dev, again)
+
+    out["masks"] = check_span_masks("wav2vec2 span masks, full width", model, mask, lengths, redraw)
+    # each negative's source frame, read through sample_negatives from frames that carry their own index
+    b, t, _ = targets.shape
+    codes = torch.arange(t, device=dev, dtype=torch.float32)[None, :, None].expand(b, t, 1).contiguous()
+    source = recipe.sample_negatives(codes, W2V_NEGATIVES, g)[..., 0]
+    own = int((source == torch.arange(t, device=dev)).sum())
+    print(f"  wav2vec2 negatives at full width ({W2V_NEGATIVES}, {b}, {t}): {own} drawn from their own frame (limit "
+          f"0); sources span {int(source.min())}-{int(source.max())}")
+    if own or int(source.min()) < 0 or int(source.max()) >= t:
+        raise AssertionError("wav2vec2: a negative was drawn from its own frame or outside the clip")
+    name = f"wav2vec2 contrastive step, f32, B={SSL_TRAIN_B} x {SSL_TRAIN_MIN_S}-{SSL_TRAIN_MAX_S} s"
+    torch.manual_seed(153)
+    m = copy.deepcopy(model).train()
+    step = case.step(m, W2V_START)
+    first = case(step, batch, g)
+    check_finite_step(name, first, step.params)
+    out["f32"] = time_ssl_step(name, case, step, batch, g, card, case.flops(model, wav.shape[1], SSL_TRAIN_B),
+                               PEAK_FP32_PER_S)
+    del m, step
+    torch.cuda.empty_cache()
+    out["cpu"] = compare_ssl_with_cpu(case, model, W2V_START, 154)
+    return out
+
+
+def run_hubert_finetune(recipe, dev, card: str) -> dict:
+    """Phase 14 (c): HuBERT CTC fine-tuning, ``hubert_base(aux_num_out=29)`` (weights from CUDA seed 155),
+    transcripts of 120-180 labels in 1..28, f32: one stage inside the frozen encoder's updates and one past
+    them.  The frozen modules keep their bits; ``ctc_loss``'s forward and backward timed alone on the
+    step's log-probabilities for its share of the step."""
+    import torch
+
+    from audio_tpu_torch.ops.ctc import ctc_loss
+
+    case = SSLCase("finetune", recipe, dev, 155)
+    model = case.model()
+    batch = case.batch(SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S, SSL_LENGTH_SEED)
+    wav, lengths, targets, target_lengths = batch
+    out = {"params": sum(p.numel() for p in model.parameters()), "samples": int(lengths.sum()),
+           "target_lengths": target_lengths.tolist()}
+    g = torch.Generator(device=dev).manual_seed(157)
+    for stage, start in (("frozen", FT_FROZEN_START), ("thawed", FT_THAWED_START)):
+        name = (f"HuBERT CTC fine-tune step, encoder {stage} (update {start}), f32, B={SSL_TRAIN_B} x "
+                f"{SSL_TRAIN_MIN_S}-{SSL_TRAIN_MAX_S} s")
+        torch.manual_seed(158)
+        m = copy.deepcopy(model).train()
+        step = case.step(m, start)
+        if step.encoder_frozen != (stage == "frozen"):
+            raise AssertionError(f"{name}: encoder_frozen is {step.encoder_frozen}")
+        before = {k: p.detach().clone() for k, p in step.params.items()}
+        first = case(step, batch, g)
+        check_finite_step(name, first, step.params)
+        kept = [k for k in before if torch.equal(before[k], step.params[k].detach())]
+        must_keep = [k for k in before if k.startswith("feature_extractor.")
+                     or (stage == "frozen" and k.startswith("encoder."))]
+        moved = [k for k in before if k not in kept]
+        print(f"  {name}: {len(kept)} of {len(before)} parameters kept their bits (the feature extractor"
+              f"{' and the encoder' if stage == 'frozen' else ''} must: {len(must_keep)}), {len(moved)} moved")
+        if set(must_keep) - set(kept) or not any(k.startswith("aux.") for k in moved) or (
+                stage == "thawed" and not any(k.startswith("encoder.") for k in moved)):
+            raise AssertionError(f"{name}: the frozen parameters moved, or the trained ones did not")
+        out[stage] = time_ssl_step(name, case, step, batch, g, card,
+                                   case.flops(model, wav.shape[1], SSL_TRAIN_B, frozen=stage == "frozen"),
+                                   PEAK_FP32_PER_S)
+        del m, step
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        logits, frames = model.eval()(wav, lengths)
+    logp = torch.log_softmax(logits, dim=-1).detach()
+
+    def loss_alone():
+        lp = logp.clone().requires_grad_()
+        with torch.enable_grad():
+            ctc_loss(lp, targets, frames, target_lengths, blank=0, reduction="mean").backward()
+
+    ctc_ms, ctc_runs = median_call_ms(loss_alone)
+    out["ctc_loss_ms"], out["ctc_loss_runs_ms"] = ctc_ms, ctc_runs
+    for stage in ("frozen", "thawed"):
+        out[stage]["ctc_share"] = ctc_ms / out[stage]["ms"]
+    print(f"  ctc_loss forward and backward alone at ({SSL_TRAIN_B}, {logp.shape[1]}, {logp.shape[2]}), L <= "
+          f"{targets.shape[1]}: {ctc_ms:.3f} ms = {out['frozen']['ctc_share']:.3f} of the frozen step, "
+          f"{out['thawed']['ctc_share']:.3f} of the thawed step on {card}")
+    out["frozen_cpu"] = compare_ssl_with_cpu(case, model, FT_FROZEN_START, 159)
+    out["thawed_cpu"] = compare_ssl_with_cpu(case, model, FT_THAWED_START, 159)
     return out
 
 
@@ -3779,6 +4241,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    # ---------------------------------------------------------------- phase 14
+    print(f"phase 14: the SSL train steps at full width (B={SSL_TRAIN_B} x {SSL_TRAIN_MIN_S}-{SSL_TRAIN_MAX_S} s): "
+          "HuBERT pretraining (f32, bf16), wav2vec2 contrastive (f32), HuBERT CTC fine-tuning (f32)")
+    t14 = time.perf_counter()
+    reset_kernel_counts()
+    ssl = {"hubert": run_hubert_pretrain(load_example("train_hubert_torch", "self_supervised_learning",
+                                                      "train_hubert_torch.py"), dev, card)}
+    torch.cuda.empty_cache()
+    ssl["wav2vec2"] = run_wav2vec2_pretrain(load_example("train_wav2vec2_torch", "self_supervised_learning",
+                                                         "train_wav2vec2_torch.py"), dev, card)
+    torch.cuda.empty_cache()
+    ssl["finetune"] = run_hubert_finetune(load_example("finetune_torch", "hubert", "finetune_torch.py"), dev, card)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ssl["kernel_launches"] = {n: c for n, c in kernel_counts().items() if c}
+    print(f"  kernel launches in phase 14 (no TPU kernel is on the SSL steps' path): {ssl['kernel_launches']}")
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -3977,7 +4457,7 @@ def main(argv=None) -> int:
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
-                       "wav2vec2": wav2vec2},
+                       "wav2vec2": wav2vec2, "ssl": ssl},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

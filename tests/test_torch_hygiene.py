@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX and nothing of the JAX package.
 
-Scans every module of ``audio_tpu_torch``, ``chip_smoke.py`` and the train
-recipe ``examples/asr/emformer_rnnt/train_torch.py`` for imports of ``jax`` or
-of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
+Scans every module of ``audio_tpu_torch``, ``chip_smoke.py``, the train
+recipe ``examples/asr/emformer_rnnt/train_torch.py`` and the SSL recipes'
+``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
 ``csrc/`` holds one CUDA source for each ported kernel and that no module still
 announces a kernel or a gradient as missing.
 """
@@ -15,7 +15,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "audio_tpu_torch"
 TRAIN_RECIPE = ROOT / "examples" / "asr" / "emformer_rnnt" / "train_torch.py"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE]
+SSL_RECIPES = [ROOT / "examples" / "self_supervised_learning" / f"{name}_torch.py"
+               for name in ("losses", "lr_schedulers", "train_hubert", "train_wav2vec2")]
+SSL_RECIPES.append(ROOT / "examples" / "hubert" / "finetune_torch.py")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES
 
 
 def _forbidden(module: str) -> bool:
@@ -37,6 +40,10 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "audio_tpu_torch/__init__.py" in names and "chip_smoke.py" in names
     assert "examples/asr/emformer_rnnt/train_torch.py" in names
+    for recipe in ("self_supervised_learning/losses_torch.py", "self_supervised_learning/lr_schedulers_torch.py",
+                   "self_supervised_learning/train_hubert_torch.py", "self_supervised_learning/train_wav2vec2_torch.py",
+                   "hubert/finetune_torch.py"):
+        assert f"examples/{recipe}" in names and (ROOT / "examples" / recipe).is_file()
     for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
                 "ops/rnnt.py", "ops/rnnt_pruned.py", "functional/_rnnt.py", "utils/precision.py",
@@ -45,7 +52,7 @@ def test_scan_covers_the_port():
                 "compliance/kaldi.py", "models/wav2vec2/components.py", "models/wav2vec2/model.py",
                 "models/wavlm.py"):
         assert f"audio_tpu_torch/{sub}" in names
-    assert len(names) >= 42
+    assert len(names) >= 47
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -285,20 +292,28 @@ WAV2VEC2_NAMES = ["Wav2Vec2Model", "WavLMModel", "wav2vec2_model", "wav2vec2_bas
                   "wav2vec2_xlsr_1b", "wav2vec2_xlsr_2b", "wavlm_model", "wavlm_base", "wavlm_base_plus", "wavlm_large"]
 
 
+HUBERT_PRETRAIN_NAMES = ["HuBERTPretrainModel", "hubert_pretrain_model", "hubert_pretrain_base",
+                         "hubert_pretrain_large", "hubert_pretrain_xlarge"]
+
+
 def test_models_export_a_subset_of_the_jax_package_s_names():
     """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models``, the 16 of wav2vec2/HuBERT and
-    WavLM among them."""
+    WavLM and the 5 of HuBERT pretraining among them; ``audio_tpu_torch.models.wav2vec2`` exports exactly
+    the 16 names of ``audio_tpu.models.wav2vec2``."""
     import audio_tpu.models as jm
+    import audio_tpu.models.wav2vec2 as jw
 
     import audio_tpu_torch.models as tm
+    import audio_tpu_torch.models.wav2vec2 as tw
 
     assert set(tm.__all__) <= set(jm.__all__)
-    assert set(WAV2VEC2_NAMES) <= set(tm.__all__) and len(set(WAV2VEC2_NAMES)) == 16
+    assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES) <= set(tm.__all__) and len(set(WAV2VEC2_NAMES)) == 16
     assert all(callable(getattr(tm, n)) for n in tm.__all__)
+    assert sorted(tw.__all__) == sorted(jw.__all__) and len(set(tw.__all__)) == 16
 
 
-@pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES if n[0].islower()] + ["emformer_rnnt_base",
-                                                                                    "emformer_rnnt_model"])
+@pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES if n[0].islower()]
+                         + ["emformer_rnnt_base", "emformer_rnnt_model"])
 def test_every_model_factory_defaults_to_cuda(name):
     """Each factory makes its parameters on the card unless the caller names another device, and takes a
     ``dtype`` and a ``generator``."""
