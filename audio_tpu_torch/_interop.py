@@ -20,6 +20,10 @@ are the inverses of the JAX package's ``import_torchaudio_state_dict`` and
 becomes the ``state_dict`` of the port's ``Wav2Vec2Model`` or ``WavLMModel``;
 ``hubert_pretrain_state_dict_from_jax_params`` does the same for a
 ``HuBERTPretrainModel`` (the backbone under ``wav2vec2``).
+``conformer_state_dict_from_jax_params`` is the inverse of
+``import_conformer_state_dict`` (flax ``params`` and, for BatchNorm,
+``batch_stats``); ``predictor_state_dict_from_jax_params`` carries an RNN-T
+predictor alone, for transducers built around it.
 The positional convolution's weight norm gets ``original1 = w`` and
 ``original0 = |w|`` over dims (0, 1), from which it rebuilds ``w`` within a few
 ulp.
@@ -32,8 +36,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "hubert_pretrain_state_dict_from_jax_params", "rnnt_state_dict_from_jax_params",
-           "simple_heads_from_jax_params", "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
+__all__ = ["conformer_state_dict_from_jax_params", "from_jax_params", "hubert_pretrain_state_dict_from_jax_params",
+           "predictor_state_dict_from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
+           "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -99,21 +104,27 @@ def rnnt_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, tor
     _dense(sd, "transcriber.output_linear", tr["output_linear"], device)
     _norm(sd, "transcriber.layer_norm", tr["layer_norm"], device)
 
-    pr = tree["predictor"]
-    sd["predictor.embedding.weight"] = _leaf(pr["embedding"]["embedding"], device)
-    _norm(sd, "predictor.input_layer_norm", pr["input_layer_norm"], device)
-    n_lstm = sum(1 for k in pr if k.startswith("lstm_layers_"))
-    for i in range(n_lstm):
-        layer, name = pr[f"lstm_layers_{i}"], f"predictor.lstm_layers.{i}"
+    sd.update(predictor_state_dict_from_jax_params(tree["predictor"], device, prefix="predictor."))
+    _dense(sd, "joiner.linear", tree["joiner"]["linear"], device)
+    return sd
+
+
+def predictor_state_dict_from_jax_params(tree: Any, device="cuda", prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's RNN-T ``_Predictor`` (names under ``prefix``) from the JAX
+    package's predictor tree ``{embedding, input_layer_norm, lstm_layers_{i}, linear,
+    output_layer_norm}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    sd[f"{prefix}embedding.weight"] = _leaf(tree["embedding"]["embedding"], device)
+    _norm(sd, f"{prefix}input_layer_norm", tree["input_layer_norm"], device)
+    for i in range(_count(tree, "lstm_layers_")):
+        layer, name = tree[f"lstm_layers_{i}"], f"{prefix}lstm_layers.{i}"
         _dense(sd, f"{name}.x2g", layer["x2g"], device)
         _dense(sd, f"{name}.p2g", layer["p2g"], device)
         for norm in ("c_norm", "g_norm"):
             if norm in layer:
                 _norm(sd, f"{name}.{norm}", layer[norm], device)
-    _dense(sd, "predictor.linear", pr["linear"], device)
-    _norm(sd, "predictor.output_layer_norm", pr["output_layer_norm"], device)
-
-    _dense(sd, "joiner.linear", tree["joiner"]["linear"], device)
+    _dense(sd, f"{prefix}linear", tree["linear"], device)
+    _norm(sd, f"{prefix}output_layer_norm", tree["output_layer_norm"], device)
     return sd
 
 
@@ -129,6 +140,12 @@ def _conv(out: dict, name: str, node: dict, device) -> None:
     out[f"{name}.weight"] = _leaf(node["kernel"], device).permute(2, 1, 0).contiguous()
     if "bias" in node:
         out[f"{name}.bias"] = _leaf(node["bias"], device)
+
+
+def weight_norm_pair(w: torch.Tensor):
+    """torchaudio's weight-norm pair ``(g, v) = (|w|, w)`` of a positional kernel ``w`` (out, in / groups, K):
+    the norm over dims 0 and 1 (``weight_norm(dim=2)``)."""
+    return torch.linalg.vector_norm(w, dim=(0, 1), keepdim=True), w
 
 
 def _count(tree: dict, prefix: str) -> int:
@@ -150,9 +167,8 @@ def _wav2vec2_like(tree: dict, projection: dict, transformer: dict, device, wavl
     pos = transformer["pos_conv_embed"]["conv"]
     w = _leaf(pos["kernel"], device).permute(2, 1, 0).contiguous()  # (out, in / groups, K)
     sd[f"{prefix}.pos_conv_embed.conv.bias"] = _leaf(pos["bias"], device)
-    sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original0"] = torch.linalg.vector_norm(
-        w, dim=(0, 1), keepdim=True)
-    sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original1"] = w
+    (sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original0"],
+     sd[f"{prefix}.pos_conv_embed.conv.parametrizations.weight.original1"]) = weight_norm_pair(w)
     _norm(sd, f"{prefix}.layer_norm", transformer["layer_norm"], device)
     for i in range(_count(transformer, "layers_")):
         layer, name = transformer[f"layers_{i}"], f"{prefix}.layers.{i}"
@@ -208,3 +224,49 @@ def wavlm_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, to
     tree = params["params"] if "params" in params else params
     return _wav2vec2_like(tree, tree["encoder_feature_projection"], tree["encoder_transformer"], device,
                           wavlm=True)
+
+
+def _ffn(out: dict, name: str, node: dict, device) -> None:
+    """A Conformer feed-forward module: LayerNorm and two Dense -> ``sequential.{0,1,4}``."""
+    _norm(out, f"{name}.sequential.0", node["layer_norm"], device)
+    _dense(out, f"{name}.sequential.1", node["linear1"], device)
+    _dense(out, f"{name}.sequential.4", node["linear2"], device)
+
+
+def conformer_state_dict_from_jax_params(variables: Any, device="cuda", prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port's ``Conformer`` ``state_dict`` (names under ``prefix``) from the JAX package's flax
+    variables: ``{"params": {conformer_layers_{i}}, "batch_stats": ...}`` as
+    ``import_conformer_state_dict`` returns them, or the bare ``params`` tree.  A layer whose norm has
+    batch statistics is a BatchNorm: its ``running_mean``/``running_var`` come from them and its
+    ``num_batches_tracked`` is 0.  Pointwise kernels (C_in, C_out) become (C_out, C_in, 1), the
+    depthwise kernel (K, 1, C) becomes (C, 1, K); the names and order are the model's own."""
+    tree = variables["params"] if "params" in variables else variables
+    stats = variables.get("batch_stats", {}) if "params" in variables else {}
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(_count(tree, "conformer_layers_")):
+        layer, name = tree[f"conformer_layers_{i}"], f"{prefix}conformer_layers.{i}"
+        _ffn(sd, f"{name}.ffn1", layer["ffn1"], device)
+        _norm(sd, f"{name}.self_attn_layer_norm", layer["self_attn_layer_norm"], device)
+        att = layer["self_attn"]
+        sd[f"{name}.self_attn.in_proj_weight"] = _leaf(att["in_proj"]["kernel"], device).t().contiguous()
+        sd[f"{name}.self_attn.in_proj_bias"] = _leaf(att["in_proj"]["bias"], device)
+        _dense(sd, f"{name}.self_attn.out_proj", att["out_proj"], device)
+        conv, seq = layer["conv_module"], f"{name}.conv_module.sequential"
+        _norm(sd, f"{name}.conv_module.layer_norm", conv["layer_norm"], device)
+        for idx, sub in (("0", "pointwise_conv1"), ("2", "depthwise_conv")):
+            kernel = _leaf(conv[sub]["kernel"], device)
+            sd[f"{seq}.{idx}.weight"] = (kernel.t()[:, :, None] if idx == "0" else kernel.permute(2, 1, 0)).contiguous()
+            if "bias" in conv[sub]:
+                sd[f"{seq}.{idx}.bias"] = _leaf(conv[sub]["bias"], device)
+        _norm(sd, f"{seq}.3", conv["norm"], device)
+        norm_stats = stats.get(f"conformer_layers_{i}", {}).get("conv_module", {}).get("norm")
+        if norm_stats is not None:
+            sd[f"{seq}.3.running_mean"] = _leaf(norm_stats["mean"], device)
+            sd[f"{seq}.3.running_var"] = _leaf(norm_stats["var"], device)
+            sd[f"{seq}.3.num_batches_tracked"] = torch.zeros((), dtype=torch.int64, device=device)
+        sd[f"{seq}.5.weight"] = _leaf(conv["pointwise_conv2"]["kernel"], device).t()[:, :, None].contiguous()
+        if "bias" in conv["pointwise_conv2"]:
+            sd[f"{seq}.5.bias"] = _leaf(conv["pointwise_conv2"]["bias"], device)
+        _ffn(sd, f"{name}.ffn2", layer["ffn2"], device)
+        _norm(sd, f"{name}.final_layer_norm", layer["final_layer_norm"], device)
+    return sd

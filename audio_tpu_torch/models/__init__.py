@@ -1,5 +1,6 @@
-"""Models of the PyTorch port: the Emformer RNN-T and its beam search, wav2vec2/HuBERT and WavLM."""
+"""Models of the PyTorch port: the Emformer RNN-T and its beam search, Conformer, wav2vec2/HuBERT and WavLM."""
 
+from .conformer import Conformer
 from .emformer import Emformer
 from .rnnt import RNNT, emformer_rnnt_base, emformer_rnnt_model
 from .rnnt_decoder import Hypothesis, RNNTBeamSearch, rnnt_greedy_decode
@@ -24,6 +25,7 @@ from .wav2vec2 import (
 from .wavlm import WavLMModel, wavlm_base, wavlm_base_plus, wavlm_large, wavlm_model
 
 __all__ = [
+    "Conformer",
     "Emformer",
     "HuBERTPretrainModel",
     "Hypothesis",

@@ -20,6 +20,11 @@ Modules take ``device``, ``dtype`` and ``generator``: with a generator their
 weights are drawn from it in PyTorch's default ranges, on the generator's own
 device, so one seed gives one model on any device.
 
+A train step that follows the JAX recipes trains the positional convolution's folded kernel
+``w = g v / |v|`` as one parameter, as the JAX model holds it: ``fold_positional_weight_norm``
+makes it one, and ``positional_weight_norm_state_dict`` gives the ``state_dict`` under the weight
+norm's names again.
+
 ``MaskGenerator`` and ``LogitGenerator`` are HuBERT pretraining's span masks and cosine logits, as
 the JAX package builds them: the static strategy with fixed-shape outputs.  The span starts are
 drawn from an explicit generator on its own device; ``span_mask`` builds the mask from them.
@@ -28,12 +33,14 @@ drawn from an explicit generator on its own device; ``span_mask`` builds the mas
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
+from ..._interop import weight_norm_pair
 from ..emformer import _uniform_
 
 __all__ = [
@@ -49,6 +56,8 @@ __all__ = [
     "MaskGenerator",
     "SelfAttention",
     "Transformer",
+    "fold_positional_weight_norm",
+    "positional_weight_norm_state_dict",
 ]
 
 _NEG_MASK = -1e4
@@ -165,6 +174,53 @@ class ConvolutionalPositionalEmbedding(nn.Module):
         if self.num_remove > 0:
             x = x[..., : -self.num_remove]
         return _gelu_exact_f32(x).transpose(-2, -1)
+
+
+def _positional_convs(model: nn.Module):
+    for name, module in model.named_modules():
+        if isinstance(module, ConvolutionalPositionalEmbedding):
+            yield (f"{name}." if name else "") + "conv", module
+
+
+def fold_positional_weight_norm(model: nn.Module) -> nn.Module:
+    """Replace the weight-normed convolution of each positional embedding in ``model`` by a plain
+    ``nn.Conv1d`` whose ``weight`` is the folded kernel ``w = g v / |v|`` (norm over dims 0 and 1):
+    an optimizer then updates ``w`` as the JAX recipes do.  The function the model computes is the
+    same.  A new module, not ``remove_parametrizations``: that deletes the property from the class
+    the parametrization made, which ``copy.deepcopy`` shares between a model and its copies.  In
+    place; returns ``model``."""
+    for _, embedding in _positional_convs(model):
+        old = embedding.conv
+        if not parametrize.is_parametrized(old, "weight"):
+            continue
+        v = old.parametrizations.weight.original1
+        conv = nn.Conv1d(old.in_channels, old.out_channels, old.kernel_size, old.stride, old.padding, old.dilation,
+                         old.groups, old.bias is not None, old.padding_mode, device=v.device, dtype=v.dtype)
+        with torch.no_grad():
+            conv.weight.copy_(old.weight)
+            if old.bias is not None:
+                conv.bias.copy_(old.bias)
+        embedding.conv = conv
+    return model
+
+
+def positional_weight_norm_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with each folded positional kernel (``fold_positional_weight_norm``) split
+    back into torchaudio's weight-norm pair, ``parametrizations.weight.original0 = |w|`` and
+    ``original1 = w``, at its place: the names and order of the unfolded model's ``state_dict``."""
+    folded = {name for name, embedding in _positional_convs(model)
+              if not parametrize.is_parametrized(embedding.conv, "weight")}
+    sd = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        name, _, leaf = key.rpartition(".")
+        if name not in folded:
+            out[key] = value
+        elif leaf == "bias":  # the unfolded module's order: its bias, then the weight-norm pair
+            out[key] = value
+            (out[f"{name}.parametrizations.weight.original0"],
+             out[f"{name}.parametrizations.weight.original1"]) = weight_norm_pair(sd[f"{name}.weight"].detach().clone())
+    return out
 
 
 class SelfAttention(nn.Module):

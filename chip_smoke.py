@@ -165,7 +165,18 @@ Phases, each of which raises on failure:
    4 s against the CPU (loss 1e-4 relative, gradients 1e-3 of their peaks, the parameters after one update
    1e-5); each step timed, profiled once, its peak memory and model FLOPs (forward and backward) against
    the peak rate; ``ctc_loss`` alone against the fine-tune step, the positional convolution alone in f32
-   and bf16.  No kernel is on this path: the counters are read around the phase and printed.
+   and bf16.  No kernel is on this path: the counters are read around the phase and printed;
+15. the Conformer RNN-T recipes at full width (``examples/asr/conformer_rnnt/train_torch.py`` and
+   ``conformer_rnnt_biasing/train_torch.py``, weights from CUDA generator seeds): (a) the Conformer RNN-T
+   train step (80 mels, stride 4, width 256, 16 layers, FFN 1024, kernel 31, LSTM 512, joiner 256, V 1024)
+   in f32 on 16 voiced clips of 5-10 s with up to 40 targets, SpecAugment and dropout on: K2 only on "fft",
+   K8 only on "stream"; then at B=2 x 4 s against the CPU (features 1e-3, loss 1e-4 relative, every gradient
+   1e-3 of its peak) and the f32 encoder's bits with cuDNN's TF32 on; (b) ``RNNTBeamSearch.forward_batch``
+   on that model, beam 10, 16 clips of 10 s, in bf16 (K5 and K7 only on "wgmma") and once in f32, its real-
+   time factor, and the f32 search on 2 clips of 2 s against the CPU (top-1 tokens equal, scores 1e-3);
+   (c) the TCPGen-biased step (V 601, TCPGen 64, 16 distractors, a 256-node trie) in f32 on 8 clips of 10 s:
+   K2 only on "fft", no K8 (the loss reads log-probabilities), then at B=2 against the CPU.  Each step and
+   the bf16 search timed, profiled once, with its peak memory.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -202,6 +213,7 @@ CUTOFF = 4000.0
 RNNT_V, RNNT_BLANK, RNNT_BEAM, RNNT_SMT, RNNT_MAX_TOKENS = 4097, 4096, 10, 4, 200
 RNNT_S, RNNT_SEG_T, RNNT_D_IN, RNNT_SEG_SECONDS, RNNT_TICKS = 512, 20, 80, 0.16, 4
 RNNT_D, RNNT_H = 1024, 512  # joiner depth, predictor hidden size
+RNNT_BLANK_BIAS = 4.0  # added to the searched models' blank logit, as the serving bench tilts it (bench_models.py:217)
 
 # the train step: bench_models.py's shapes (5.12 s of features, 64 targets, V = 4097)
 TRAIN_T, TRAIN_RC, TRAIN_U = 512, 4, 64
@@ -663,21 +675,23 @@ def check_join_wgmma(rng, dev) -> float:
     activation row, so its logits are the bias, raised by 1 at every 401st column, so that the
     k winners lie in several column splits: 8 at N 1, 3 at the main shape): its indices must be
     the plain version's, the lowest tied columns first.  The main shape also runs on the wmma
-    route, which it replaced.  Two runs of the main shape: the same bits.  Returns the main
-    shape's max abs error."""
+    route, which it replaced.  Phase 15's search shape (N 160, D 256, V 1024 with no column tail,
+    blank 1023, k 10) with its ties row, timed beside its bound.  Two runs of the main shape and
+    of the search shape: the same bits.  Returns the main shape's max abs error."""
     import torch
 
     from audio_tpu_torch.ops import cuda_rnnt_lps
 
     main = (RNNT_S * RNNT_BEAM, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM)
+    conformer = (CF_SEARCH_B * CF_BEAM, CF_JOINER_D, CF_V, CF_V - 1, CF_BEAM)
     err = 0.0
     for n, d, v, blank, k in ((1, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM), (40, RNNT_D, RNNT_V, RNNT_BLANK, RNNT_BEAM),
                               (63, RNNT_D, 33, 32, 1), (65, RNNT_D, RNNT_V, 4000, RNNT_BEAM),
                               (70, 64, 300, 299, 32), (40, RNNT_D, RNNT_V, 2000, 1),
-                              (5121, RNNT_D, RNNT_V, RNNT_BLANK, 1), main):
+                              (5121, RNNT_D, RNNT_V, RNNT_BLANK, 1), conformer, main):
         inp = slice2_kernel_inputs(rng, dev, n, d, v, 8, torch.bfloat16)
         act, w, b = inp["act"], inp["w_linear"], inp["b"]
-        ties = n == 1 or (n, d, v, blank, k) == main
+        ties = n == 1 or (n, d, v, blank, k) in (main, conformer)
         if ties:
             act[0] = 0
             b[:blank:401] = b.max() + 1
@@ -696,12 +710,18 @@ def check_join_wgmma(rng, dev) -> float:
             err = e
             check_join_route("wmma", f"K5 join_stats_topk (N {n}, D {d}, V {v}, blank {blank}, k {k})", act, w, b,
                              blank, k)
+        if (n, d, v, blank, k) in (main, conformer):
             again = cuda_rnnt_lps.join_stats_topk(act, w, b, blank, k)
             torch.cuda.synchronize()
             same = [torch.equal(x, y) for x, y in zip(got, again)]
-            print(f"  K5 bits (N {n}): lse, blank, values, indices equal over two runs: {same}")
+            print(f"  K5 bits (N {n}, D {d}, V {v}): lse, blank, values, indices equal over two runs: {same}")
             if not all(same):
                 raise AssertionError(f"K5: two runs gave different bits {same}")
+        if (n, d, v, blank, k) == conformer:
+            ms = cuda_ms(lambda: cuda_rnnt_lps.join_stats_topk(act, w, b, blank, k), 50)
+            bound = bound_ms(2 * (n * d + d * v + v) + n * (4 + 4 + k * 8), 2 * n * d * v, PEAK_BF16_PER_S)
+            print(f"  {label}, phase 15's search shape: {ms:.4f} ms a launch, bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
     return err
 
 
@@ -1467,14 +1487,14 @@ def require_route(what: str, counts: dict, kernel: str, route: str) -> None:
 
 
 def make_rnnt(dev, dtype, activation: str = "relu"):
-    """emformer_rnnt_base(4097) with weights from seed 0 and the serving bench's blank bias."""
+    """emformer_rnnt_base(4097) with weights from seed 0 and the serving bench's blank bias, RNNT_BLANK_BIAS."""
     import torch
 
     from audio_tpu_torch.models import emformer_rnnt_base
 
     model = emformer_rnnt_base(RNNT_V, device=dev, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        model.joiner.linear.bias[-1] += 4.0
+        model.joiner.linear.bias[-1] += RNNT_BLANK_BIAS
     model.joiner.activation = activation
     return model.to(dtype)
 
@@ -1504,7 +1524,7 @@ def run_ticks(dec, feats, lengths):
     return hypos, state
 
 
-def check_beams(name: str, tokens, counts, scores, max_tokens: int = RNNT_MAX_TOKENS) -> None:
+def check_beams(name: str, tokens, counts, scores, max_tokens: int = RNNT_MAX_TOKENS, blank: int = RNNT_BLANK) -> None:
     """Every live hypothesis of beams (S, K, ...) is well formed and each stream's beam is
     in ranking order."""
     import torch
@@ -1519,8 +1539,8 @@ def check_beams(name: str, tokens, counts, scores, max_tokens: int = RNNT_MAX_TO
         raise AssertionError(f"{name}: a live score is not finite")
     below = torch.arange(tokens.shape[-1])[None, None, :] < counts[:, :, None]
     emitted = tokens[below & live[:, :, None]]
-    if not bool(((emitted >= 0) & (emitted < RNNT_BLANK)).all()):
-        raise AssertionError(f"{name}: an emitted token is outside [0, {RNNT_BLANK})")
+    if not bool(((emitted >= 0) & (emitted < blank)).all()):
+        raise AssertionError(f"{name}: an emitted token is outside [0, {blank})")
     key = torch.where(live, scores / (counts + 2.0), torch.tensor(-1.0e30))
     if not bool((key[:, :-1] >= key[:, 1:]).all()):
         raise AssertionError(f"{name}: a beam is not ordered by its length-normalised score")
@@ -3356,6 +3376,7 @@ def run_wavlm_features(dev, card: str) -> dict:
 
 # ------------------------------------------------------------------ phase 14: the SSL train steps
 SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S = 8, 10, 12  # clips, their shortest and longest lengths
+FOLDED_KERNEL, FOLDED_ULP = "pos_conv_embed.conv.weight", 16  # the folded kernel, card against CPU, in ulp
 SSL_TOKEN_CAP = 1_400_000  # the recipe's samples a card a step, 87.5 s (train_wav2vec2.py:172-173)
 SSL_LENGTH_SEED = 140  # numpy seed of the clip lengths; the CUDA seeds of phase 14 are 141-159
 FT_LABELS_PER_S = (12, 15)  # transcript lengths a second of clip: 120-180 labels for 10-12 s
@@ -3486,12 +3507,14 @@ def check_ssl_grads(name: str, got: dict, ref: dict) -> float:
     return worst
 
 
-def check_ssl_params(name: str, got: dict, ref: dict, before: dict, grads: dict, lr: float) -> float:
+def check_ssl_params(name: str, got: dict, ref: dict, got_before: dict, before: dict, grads: dict, lr: float) -> float:
     """The parameters after one update on the card against the CPU's: within SSL_PARAM_TOL where the CPU's
     gradient stands clear of rounding noise (above 1e-3 of its peak, the peak above 1e-6 of the largest),
     elsewhere within two Adam steps of ``lr`` (the normalisation makes a noise entry's sign arbitrary on
-    either side, as ``tests/test_torch_train_step.py`` allows); a parameter without a gradient the same
-    bits as before.  The worst error on the clear entries."""
+    either side, as ``tests/test_torch_train_step.py`` allows); a parameter without a gradient the CPU's
+    bits from before the update (``before``), but the folded positional kernel: each side folds it on its
+    own device, so it is held to each side's own bits from before (``got_before`` the card's) and to
+    within FOLDED_ULP of the CPU's value.  The worst error on the clear entries."""
     import torch
 
     top = max(float(g.abs().max()) for g in grads.values() if g is not None)
@@ -3499,8 +3522,19 @@ def check_ssl_params(name: str, got: dict, ref: dict, before: dict, grads: dict,
     for k, r in ref.items():
         g, now = grads[k], got[k].detach().cpu()
         if g is None:
-            if not (torch.equal(now, before[k]) and torch.equal(r.detach(), before[k])):
+            if not k.endswith(FOLDED_KERNEL):
+                if not torch.equal(now, before[k]):
+                    raise AssertionError(f"{name}: {k} has no gradient but differs from the CPU's bits before the "
+                                         f"update")
+                continue
+            ref_w = r.detach()
+            ulp = torch.nextafter(ref_w.abs(), torch.tensor(math.inf)) - ref_w.abs()
+            ulps = float(((now.double() - ref_w.double()).abs() / ulp.double()).max())
+            print(f"  {name}: the folded {k} (no gradient) is {ulps:.1f} ulp off the CPU's (limit {FOLDED_ULP})")
+            if not (torch.equal(now, got_before[k]) and torch.equal(ref_w, before[k])):
                 raise AssertionError(f"{name}: {k} has no gradient but moved")
+            if not ulps <= FOLDED_ULP:
+                raise AssertionError(f"{name}: the folded {k} is {ulps:.1f} ulp off the CPU's (limit {FOLDED_ULP})")
             continue
         diff = (now.double() - r.detach().double()).abs()
         peak = float(g.abs().max())
@@ -3542,7 +3576,8 @@ def compare_ssl_with_cpu(case: SSLCase, model, start: int, seed: int) -> dict:
     card, cpu = sides["card"], sides["cpu"]
     rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     grad_err = check_ssl_grads(name, card["grads"], cpu["grads"])
-    param_err = check_ssl_params(name, card["params"], cpu["params"], cpu["before"], cpu["grads"], cpu["lr"])
+    param_err = check_ssl_params(name, card["params"], cpu["params"], card["before"], cpu["before"], cpu["grads"],
+                                 cpu["lr"])
     print(f"  {name}, card against the CPU: loss {card['loss']:.6f} vs {cpu['loss']:.6f} (relative {rel:.3e}, "
           f"limit {SSL_LOSS_TOL:g}); gradients within {grad_err:.3e} of their peaks (limit {SSL_GRAD_TOL:g}); the "
           f"parameters after one update within {param_err:.3e} on clear entries (limit {SSL_PARAM_TOL:g}, lr "
@@ -3593,25 +3628,12 @@ def check_span_masks(name: str, model, mask, wav_lengths, starts_fn) -> dict:
 
 
 def time_ssl_step(name: str, case: SSLCase, step, batch: tuple, g, card: str, flops: float, peak_rate: float) -> dict:
-    """Five timed updates (CUDA events, median) after a warm-up, the peak memory over them, seconds of audio
-    a second, the model FLOPs' share of the peak rate, and one profiled update."""
-    import torch
-
+    """``time_train_step`` of the update, and the model FLOPs' share of the peak rate."""
     lengths = batch[-1] if case.kind == "hubert" else batch[1]
-    audio_s = float(lengths.sum()) / SR
-    torch.cuda.reset_peak_memory_stats()
-    ms, runs, losses = timed_steps(lambda: case(step, batch, g), 1, 5)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [float(v) for v in losses]
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"{name}: losses {losses}")
-    out = {"ms": ms, "runs_ms": runs, "losses": losses, "audio_s": audio_s, "audio_s_per_s": audio_s / (ms / 1e3),
-           "peak_gb": peak_gb, "model_tflop": flops / 1e12, "share_of_peak": flops / (ms / 1e3) / peak_rate}
-    print(f"  {name}: {ms:.3f} ms a step (runs {', '.join(f'{r:.3f}' for r in runs)}), {out['audio_s_per_s']:.1f} s "
-          f"of audio a second ({audio_s:.2f} s a step), peak memory {peak_gb:.3f} GB (weights, optimizer state "
-          f"and activations), model {out['model_tflop']:.3f} TFLOP a step = {out['share_of_peak']:.3f} of "
-          f"{peak_rate / 1e12:g} TFLOP/s; losses {[round(v, 4) for v in losses]} on {card}")
-    out["profile"] = profile_batch(name, lambda: case(step, batch, g))
+    out = time_train_step(name, lambda: case(step, batch, g), float(lengths.sum()) / SR, card)
+    out.update(model_tflop=flops / 1e12, share_of_peak=flops / (out["ms"] / 1e3) / peak_rate)
+    print(f"  {name}: model {out['model_tflop']:.3f} TFLOP a step = {out['share_of_peak']:.3f} of "
+          f"{peak_rate / 1e12:g} TFLOP/s on {card}")
     return out
 
 
@@ -3794,6 +3816,313 @@ def run_hubert_finetune(recipe, dev, card: str) -> dict:
           f"{out['thawed']['ctc_share']:.3f} of the thawed step on {card}")
     out["frozen_cpu"] = compare_ssl_with_cpu(case, model, FT_FROZEN_START, 159)
     out["thawed_cpu"] = compare_ssl_with_cpu(case, model, FT_THAWED_START, 159)
+    return out
+
+
+# ------------------------------------------------------------------ phase 15: the Conformer RNN-T recipes
+# examples/asr/conformer_rnnt/train.py at its defaults (80 mels, stride 4, width 256, 16 layers, 4 heads, FFN 1024,
+# kernel 31, LSTM 512, joiner 256) with --num-symbols 1024; the biasing recipe's 600 pieces and blank
+CF_V, CF_BIASED_V = 1024, 601
+CF_TRAIN_B, CF_MIN_S, CF_MAX_S, CF_U = 16, 5, 10, 40  # clips, their shortest and longest lengths, most targets
+CF_SEARCH_B, CF_SEARCH_S, CF_BEAM, CF_SMT, CF_MAX_TOKENS = 16, 10, 10, 4, 256
+CF_JOINER_D = 256  # the joiner's width, K5's depth in the search
+CF_BIASED_B, CF_BIASED_S = 8, 10
+CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U = 2, 4, 3, 20  # the card against the CPU in f32
+CF_SEARCH_CMP_S = 2  # the f32 search against the CPU: CF_CMP_B clips of this many seconds
+CF_LOSS_TOL, CF_GRAD_TOL = 1e-4, 1e-3  # loss (relative) and each gradient (of its peak), card against CPU
+CF_SEED = 160  # the CUDA and numpy seeds of phase 15 are 160-189
+
+
+def conformer_targets(dev, b: int, u: int, v: int, seed: int):
+    """(B, u) targets in [1, v - 1) zero-padded past lengths drawn from u // 2 to u (the first u), from a CUDA
+    generator seeded ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(u // 2, u + 1, (b,), generator=g, device=dev)
+    lengths[0] = u
+    tgt = torch.randint(1, v - 1, (b, u), generator=g, device=dev)
+    return (tgt * (torch.arange(u, device=dev)[None, :] < lengths[:, None])).to(torch.int32), lengths.to(torch.int32)
+
+
+def conformer_step_data(dev, b: int, seconds: int, min_seconds: int, u: int, v: int, seed: int):
+    """Voiced clips padded to ``seconds`` (zero past each length, the first full), their lengths and targets."""
+    import torch
+
+    wav, lengths = padded_clips(dev, b, seconds, min_seconds, seed)
+    tgt, tgt_lens = conformer_targets(dev, b, u, v, seed + 3)
+    return wav, lengths.to(torch.int32), tgt, tgt_lens
+
+
+def loss_and_grads(step, loss_fn) -> tuple:
+    """(loss, {name: gradient}) of ``loss_fn(step)`` with a fresh backward."""
+    import torch
+
+    step.optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = loss_fn(step)
+        loss.backward()
+    grads = grads_of(step.params)
+    step.optimizer.zero_grad(set_to_none=True)
+    return float(loss), grads
+
+
+def compare_step_with_cpu(name: str, model, make_step, card_batch, loss_fn) -> dict:
+    """The step's loss and every gradient in f32, dropout off, on the card (through the kernels) against a
+    copy of the model on the CPU (the plain versions), on the same batch: the loss within CF_LOSS_TOL
+    (relative), each gradient within CF_GRAD_TOL of its peak (``check_ssl_grads``)."""
+    sides = {}
+    for side, m in (("card", copy.deepcopy(model).eval()), ("cpu", copy.deepcopy(model).cpu().eval())):
+        batch = card_batch if side == "card" else tuple(t.cpu() for t in card_batch)
+        sides[side] = loss_and_grads(make_step(m), lambda s, b=batch: loss_fn(s, b))
+    (got, got_grads), (ref, ref_grads) = sides["card"], sides["cpu"]
+    rel = abs(got - ref) / abs(ref)
+    grad_err = check_ssl_grads(name, got_grads, ref_grads)
+    print(f"  {name}, card against the CPU: loss {got:.6f} vs {ref:.6f} (relative {rel:.3e}, limit {CF_LOSS_TOL:g}); "
+          f"{len(ref_grads)} gradients within {grad_err:.3e} of their peaks (limit {CF_GRAD_TOL:g})")
+    if not rel <= CF_LOSS_TOL or not grad_err <= CF_GRAD_TOL:
+        raise AssertionError(f"{name}: the card disagrees with the CPU")
+    return {"loss": got, "cpu_loss": ref, "loss_rel": rel, "grad_err_of_peak": grad_err}
+
+
+def time_train_step(name: str, one, audio_s: float, card: str) -> dict:
+    """Five timed steps (CUDA events, median) after a warm-up, the peak memory over them, seconds of audio a
+    second, and one profiled step."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, runs, losses = timed_steps(one, 1, 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    out = {"ms": ms, "runs_ms": runs, "losses": losses, "audio_s": audio_s, "audio_s_per_s": audio_s / (ms / 1e3),
+           "peak_gb": peak_gb}
+    print(f"  {name}: {ms:.3f} ms a step (runs {', '.join(f'{r:.3f}' for r in runs)}), {out['audio_s_per_s']:.1f} s "
+          f"of audio a second ({audio_s:.2f} s a step), peak memory {peak_gb:.3f} GB; losses "
+          f"{[round(v, 4) for v in losses]} on {card}")
+    out["profile"] = profile_batch(name, one)
+    return out
+
+
+def run_conformer_rnnt_train(recipe, dev, card: str) -> dict:
+    """Phase 15 (a): the Conformer RNN-T train step at the recipe's full width (weights from CUDA seed 160),
+    f32, dropout and SpecAugment on, at the schedule's peak: featurizer (K2) -> model -> ``rnnt_loss`` (K8) ->
+    backward -> clip -> AdamW, on 16 clips of 5-10 s with up to 40 targets.  Then at B=2 x 4 s against the CPU,
+    and the encoder's bits with cuDNN's TF32 on."""
+    import torch
+
+    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    melspec = recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0, device=dev)
+    stride = model.time_reduction_stride
+    wav, lengths, tgt, tgt_lens = conformer_step_data(dev, CF_TRAIN_B, CF_MAX_S, CF_MIN_S, CF_U, CF_V,
+                                                      CF_SEED + 1)
+    name = f"Conformer RNN-T train step, f32, B={CF_TRAIN_B} x {CF_MIN_S}-{CF_MAX_S} s, U <= {CF_U}, V={CF_V}"
+    print(f"  ConformerRNNT({CF_V}): {n_params} parameters ({n_params / 1e6:.2f}M), from CUDA seed {CF_SEED}")
+    torch.manual_seed(CF_SEED + 5)
+    step = recipe.make_train_step(model.train(), step=recipe.WARMUP_STEPS)  # at the schedule's peak
+    masks = torch.Generator(device=dev).manual_seed(CF_SEED + 6)
+
+    def one():
+        feats, feat_lens = recipe.featurize(melspec, wav, lengths, stride, masks)
+        with torch.enable_grad():
+            return step(feats, feat_lens, tgt, tgt_lens)
+
+    feats, feat_lens = recipe.featurize(melspec, wav, lengths, stride, train=False)
+    enc_frames = int(feat_lens.max()) // stride
+    print(f"  features {tuple(feats.shape)}, the encoder's frames up to {enc_frames}; the lattice "
+          f"({CF_TRAIN_B}, {feats.shape[1] // stride}, {CF_U + 1}, {CF_V}) f32")
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one {name}", counts, ["power_spectrogram", "lattice_row_stats"])
+    require_route(f"one {name}", counts, "power_spectrogram", "fft")
+    require_route(f"one {name}", counts, "lattice_row_stats", "stream")
+    check_finite_step(name, first, step.params)
+    out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first),
+           "encoder_frames": enc_frames}
+    out.update(time_train_step(name, one, float(lengths.sum()) / SR, card))
+    del step
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at B=2 x 4 s, SpecAugment and dropout off, seeded weights
+    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED))
+    wav2, len2, tgt2, tl2 = conformer_step_data(dev, CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U, CF_V,
+                                                CF_SEED + 8)
+    reset_kernel_counts()
+    feats2, fl2 = recipe.featurize(melspec, wav2, len2, stride, train=False)
+    cpu_mel = copy.deepcopy(melspec).cpu()
+    ref_feats, ref_fl = recipe.featurize(cpu_mel, wav2.cpu(), len2.cpu(), stride, train=False)
+    out["features_err"] = check_close("Conformer RNN-T features (K2) vs the CPU, B=2", feats2.cpu(), ref_feats, 1e-3, 0.0)
+    check_equal("Conformer RNN-T feature lengths vs the CPU", fl2.cpu(), ref_fl)
+    batch = (feats2, fl2, tgt2, tl2)
+    out["cpu"] = compare_step_with_cpu(f"Conformer RNN-T step, f32, B={CF_CMP_B} x {CF_CMP_S} s", model,
+                                       lambda m: recipe.make_train_step(m, step=recipe.WARMUP_STEPS),
+                                       batch, lambda s, b: s.loss(*b))
+    require_launches("the f32 Conformer RNN-T step at B=2", kernel_counts(), ["power_spectrogram", "lattice_row_stats"])
+    # the encoder's bits with cuDNN's TF32 on: its depthwise convolution turns TF32 off inside the call
+    with torch.no_grad():
+        enc_off, _ = model.eval().transcribe(feats2, fl2)
+        previous = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            enc_on, _ = model.transcribe(feats2, fl2)
+        finally:
+            torch.backends.cudnn.allow_tf32 = previous
+    print(f"  the f32 encoder with cuDNN's TF32 on gives the same bits as with it off: {torch.equal(enc_on, enc_off)}")
+    if not torch.equal(enc_on, enc_off):
+        raise AssertionError("Conformer: cuDNN's TF32 changed the f32 encoder's output")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def conformer_search_model(recipe, dev, dtype):
+    """The recipe's model (weights from CUDA seed 170) in eval mode and ``dtype``, the blank (V - 1, the
+    search's convention) raised by RNNT_BLANK_BIAS, as ``make_rnnt`` raises the Emformer's."""
+    import torch
+
+    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED + 10))
+    with torch.no_grad():
+        model.joiner.linear.bias[-1] += RNNT_BLANK_BIAS
+    return model.to(dtype).eval()
+
+
+def run_conformer_search(recipe, dev, card: str) -> dict:
+    """Phase 15 (b): ``RNNTBeamSearch.forward_batch`` on the recipe's model, beam 10, step_max_tokens 4, over
+    16 clips of 10 s: in bf16 (K5 and K7 on "wgmma", the weights in a Linear's layout), once in f32, and
+    the f32 search on 2 clips of 2 s against the CPU (top-1 tokens equal, scores within 1e-3)."""
+    import torch
+
+    from audio_tpu_torch.models import RNNTBeamSearch
+
+    melspec = recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0, device=dev)
+    wav, lengths = padded_clips(dev, CF_SEARCH_B, CF_SEARCH_S, CF_SEARCH_S, CF_SEED + 11)
+    feats, feat_lens = recipe.featurize(melspec, wav, lengths, 4, train=False)
+    audio_s = float(lengths.sum()) / SR
+    out = {"audio_s": audio_s}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = conformer_search_model(recipe, dev, dtype)
+        dec = RNNTBeamSearch(model, CF_V - 1, step_max_tokens=CF_SMT, max_tokens=CF_MAX_TOKENS)
+        name = f"Conformer RNN-T beam search, {label}, forward_batch B={CF_SEARCH_B} x {CF_SEARCH_S} s, beam {CF_BEAM}"
+        x = feats.to(dtype)
+        reset_kernel_counts()
+        hyp = dec.forward_batch(x, feat_lens, CF_BEAM)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        require_launches(name, counts, ["join_stats_topk", "lstm_gate_step"])
+        if dtype == torch.bfloat16:
+            require_route(name, counts, "join_stats_topk", "wgmma")
+            require_route(name, counts, "lstm_gate_step", "wgmma")
+        check_beams(name, hyp.tokens, hyp.counts, hyp.scores, CF_MAX_TOKENS, blank=CF_V - 1)
+        if dtype == torch.bfloat16:
+            torch.cuda.reset_peak_memory_stats()
+            ms, runs = median_call_ms(lambda: dec.forward_batch(x, feat_lens, CF_BEAM), reps=3)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            rtf = ms / 1e3 / audio_s
+            print(f"  {name}: {ms:.3f} ms a batch (runs {', '.join(f'{r:.3f}' for r in runs)}), real-time factor "
+                  f"{rtf:.5f} ({audio_s:.1f} s of audio), peak memory {peak_gb:.3f} GB (the model's weights "
+                  f"included); launches a batch { {n: c for n, c in counts.items() if c} } on {card}")
+            out[label] = {"ms": ms, "runs_ms": runs, "rtf": rtf, "peak_gb": peak_gb,
+                          "launches": {n: c for n, c in counts.items() if c},
+                          "profile": profile_batch(name, lambda: dec.forward_batch(x, feat_lens, CF_BEAM))}
+        else:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dec.forward_batch(x, feat_lens, CF_BEAM)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            print(f"  {name}: one batch {ms:.3f} ms, real-time factor {ms / 1e3 / audio_s:.5f}; launches "
+                  f"{ {n: c for n, c in counts.items() if c} } on {card}")
+            out[label] = {"ms": ms, "rtf": ms / 1e3 / audio_s, "launches": {n: c for n, c in counts.items() if c}}
+        del model, dec
+        torch.cuda.empty_cache()
+
+    # the f32 search on a short subset against the CPU's plain versions
+    model = conformer_search_model(recipe, dev, torch.float32)
+    wav2, len2 = padded_clips(dev, CF_CMP_B, CF_SEARCH_CMP_S, 1, CF_SEED + 12)
+    x2, n2 = recipe.featurize(melspec, wav2, len2, 4, train=False)
+    reset_kernel_counts()
+    got = RNNTBeamSearch(model, CF_V - 1, step_max_tokens=CF_SMT, max_tokens=CF_MAX_TOKENS).forward_batch(x2, n2, CF_BEAM)
+    torch.cuda.synchronize()
+    require_launches("the f32 search against the CPU", kernel_counts(), ["join_stats_topk", "lstm_gate_step"])
+    cpu_model = copy.deepcopy(model).cpu()
+    ref = RNNTBeamSearch(cpu_model, CF_V - 1, step_max_tokens=CF_SMT, max_tokens=CF_MAX_TOKENS).forward_batch(
+        x2.cpu(), n2.cpu(), CF_BEAM)
+    g_counts, g_tokens, g_scores = got.counts.cpu(), got.tokens.cpu(), got.scores.cpu()
+    same = (g_counts[:, 0] == ref.counts[:, 0]) & (g_tokens[:, 0] == ref.tokens[:, 0]).all(dim=-1)
+    top1_err = float((g_scores[:, 0] - ref.scores[:, 0]).abs().max())
+    print(f"  the f32 search on {CF_CMP_B} clips of {CF_SEARCH_CMP_S} s against the CPU: top-1 counts "
+          f"{g_counts[:, 0].tolist()} vs {ref.counts[:, 0].tolist()}, {int(same.sum())} of {CF_CMP_B} top-1 token "
+          f"sequences equal, top-1 score max_abs_err {top1_err:.3e} (limit 1e-3)")
+    if not bool(same.all()) or not top1_err <= 1e-3:
+        raise AssertionError("Conformer RNN-T search: the card's top-1 hypothesis differs from the CPU's")
+    out["cpu"] = {"top1_equal": int(same.sum()), "top1_score_err": top1_err, "counts": g_counts[:, 0].tolist()}
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_biased_train(recipe, dev, card: str) -> dict:
+    """Phase 15 (c): the TCPGen-biased Conformer RNN-T train step at full width (V 601, TCPGen 64, weights from
+    CUDA seed 180), f32, dropout on: featurizer (K2) -> trie of the batch's biasing list (16 distractors, 256
+    nodes) -> model -> TCPGen -> ``rnnt_loss(fused_log_softmax=False)`` (no K8) -> backward -> clip -> AdamW, on
+    8 clips of 10 s with up to 40 targets; then at B=2 x 4 s against the CPU."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(CF_SEED + 20)
+    model = recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    melspec = recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0, device=dev)
+    wav, lengths, tgt, tgt_lens = conformer_step_data(dev, CF_BIASED_B, CF_BIASED_S, CF_BIASED_S, CF_U,
+                                                      CF_BIASED_V, CF_SEED + 21)
+    rng = np.random.default_rng(CF_SEED + 22)
+    tgt_np, tl_np = tgt.cpu().numpy(), tgt_lens.cpu().numpy()
+    name = (f"biased Conformer RNN-T train step, f32, B={CF_BIASED_B} x {CF_BIASED_S} s, U <= {CF_U}, "
+            f"V={CF_BIASED_V}, {recipe.N_DISTRACTORS} distractors, {recipe.MAX_TRIE_NODES} trie nodes")
+    print(f"  BiasedConformerRNNT({CF_BIASED_V}): {n_params} parameters ({n_params / 1e6:.2f}M, TCPGen included), "
+          f"from CUDA seed {CF_SEED + 20}")
+    torch.manual_seed(CF_SEED + 23)
+    step = recipe.make_train_step(model.train(), step=recipe.conformer_rnnt.WARMUP_STEPS)
+
+    def one():
+        trie = torch.as_tensor(recipe.make_trie(tgt_np, tl_np, rng, CF_BIASED_V), device=dev)
+        feats, feat_lens = recipe.featurize(melspec, wav, lengths)
+        with torch.enable_grad():
+            return step(feats, feat_lens, tgt, tgt_lens, trie)
+
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one {name}", counts, ["power_spectrogram"])
+    require_route(f"one {name}", counts, "power_spectrogram", "fft")
+    if counts["lattice_row_stats"]:
+        raise AssertionError(f"{name}: K8 launched {counts['lattice_row_stats']} times on the log-probability route")
+    check_finite_step(name, first, step.params)
+    out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first)}
+    out.update(time_train_step(name, one, float(lengths.sum()) / SR, card))
+    del step
+    torch.cuda.empty_cache()
+
+    model = recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(CF_SEED + 20))
+    wav2, len2, tgt2, tl2 = conformer_step_data(dev, CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U, CF_BIASED_V,
+                                                CF_SEED + 24)
+    trie2 = torch.as_tensor(recipe.make_trie(tgt2.cpu().numpy(), tl2.cpu().numpy(), np.random.default_rng(CF_SEED + 25),
+                                             CF_BIASED_V), device=dev)
+    feats2, fl2 = recipe.featurize(melspec, wav2, len2)
+    nodes = recipe.biasing.trie_states(trie2, tgt2)
+    ref_nodes = recipe.biasing.trie_states(trie2.cpu(), tgt2.cpu())
+    check_equal("the trie's nodes on the card vs the CPU", nodes.cpu(), ref_nodes)
+    out["cpu"] = compare_step_with_cpu(f"biased Conformer RNN-T step, f32, B={CF_CMP_B} x {CF_CMP_S} s", model,
+                                       lambda m: recipe.make_train_step(m), (feats2, fl2, tgt2, tl2, trie2),
+                                       lambda s, b: s.loss(*b))
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4259,6 +4588,28 @@ def main(argv=None) -> int:
     print(f"  kernel launches in phase 14 (no TPU kernel is on the SSL steps' path): {ssl['kernel_launches']}")
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
+    # ---------------------------------------------------------------- phase 15
+    print(f"phase 15: the Conformer RNN-T recipes at full width: the train step (f32, B={CF_TRAIN_B} x "
+          f"{CF_MIN_S}-{CF_MAX_S} s, V={CF_V}), the beam search (bf16 and f32, B={CF_SEARCH_B} x {CF_SEARCH_S} s, "
+          f"beam {CF_BEAM}) and the TCPGen-biased train step (f32, B={CF_BIASED_B} x {CF_BIASED_S} s, V={CF_BIASED_V})")
+    t15 = time.perf_counter()
+    conformer_recipe = load_example("conformer_rnnt_train_torch", "asr", "conformer_rnnt", "train_torch.py")
+    conformer = {"train": run_conformer_rnnt_train(conformer_recipe, dev, card)}
+    conformer["search"] = run_conformer_search(conformer_recipe, dev, card)
+    conformer["biased"] = run_biased_train(load_example("conformer_rnnt_biasing_train_torch", "asr",
+                                                        "conformer_rnnt_biasing", "train_torch.py"), dev, card)
+    torch.cuda.empty_cache()
+    phase15_launches = {
+        "power_spectrogram": conformer["train"]["launches"].get("power_spectrogram", 0)
+        + conformer["biased"]["launches"].get("power_spectrogram", 0),
+        "lattice_row_stats": conformer["train"]["launches"].get("lattice_row_stats", 0),
+        "join_stats_topk": conformer["search"]["bf16"]["launches"].get("join_stats_topk", 0),
+        "lstm_gate_step": conformer["search"]["bf16"]["launches"].get("lstm_gate_step", 0),
+    }
+    print(f"  kernel launches in phase 15 (a train step each of the two recipes, one bf16 search batch): "
+          f"{phase15_launches}")
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -4317,7 +4668,8 @@ def main(argv=None) -> int:
     kernels.append(dict(name="power_spectrogram", route="cuda", source="audio_tpu_torch/csrc/spectrogram.cu",
                         replaces="audio_tpu/ops/pallas_spectrogram.py:194",
                         launches=launches["power_spectrogram"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
-                        bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft"))
+                        bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft",
+                        phase15_launches=phase15_launches["power_spectrogram"]))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
     k3_block_ms = cuda_ms(lambda: cuda_viterbi._launch("block", *k3_args), 20)
@@ -4371,6 +4723,8 @@ def main(argv=None) -> int:
         kernels.append(dict(name=name, route="cuda", source=f"audio_tpu_torch/csrc/{source}.cu", replaces=replaces,
                             launches=count, max_abs_err=s2_err[name], ms=cuda_ms(kernel_fn, 10),
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+        if name in phase15_launches:
+            kernels[-1]["phase15_launches"] = phase15_launches[name]
     kernels[-4]["kernel_route"] = "wgmma"  # K5
     # K6: the routes it replaced on this path ("row") and past k = 32 ("row", "global"), timed at the
     # tick's shape beside "stream", and torch.topk of the candidates alone (it computes less: no
@@ -4457,7 +4811,7 @@ def main(argv=None) -> int:
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
-                       "wav2vec2": wav2vec2, "ssl": ssl},
+                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

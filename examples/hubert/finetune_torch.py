@@ -17,6 +17,11 @@ gradients stay None, and the frozen encoder's are zeros, so that Adam's step
 count (its bias correction) stays the one the JAX recipe's gated gradients
 give when the encoder thaws.  At weight decay 0 a zero gradient leaves a
 parameter and its moments as they were.  Only ``--synthetic`` data is wired up.
+
+As in the JAX recipe, AdamW updates the positional convolution's kernel
+``w = g v / |v|`` as one parameter: the step folds the model's weight norm
+(``fold_positional_weight_norm``), and ``TrainStep.state_dict()`` splits the
+trained kernel back into torchaudio's weight-norm pair.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ sys.path.insert(0, os.path.join(_HERE, "..", ".."))
 sys.path.insert(0, os.path.join(_HERE, "..", "self_supervised_learning"))
 
 from audio_tpu_torch.models import hubert_base, wav2vec2_model  # noqa: E402
+from audio_tpu_torch.models.wav2vec2.components import (fold_positional_weight_norm,  # noqa: E402
+                                                     positional_weight_norm_state_dict)
 from audio_tpu_torch.ops.ctc import ctc_loss  # noqa: E402
 from lr_schedulers_torch import tri_stage_schedule  # noqa: E402
 
@@ -84,7 +91,7 @@ class TrainStep:
             raise ValueError("the fine-tune step needs a model with an aux head")
         self.model, self.freeze_encoder_updates, self.step = model, freeze_encoder_updates, step
         self.schedule = schedule or recipe_schedule(LEARNING_RATE)
-        self.params: Dict[str, torch.Tensor] = dict(model.named_parameters())
+        self.params: Dict[str, torch.Tensor] = dict(fold_positional_weight_norm(model).named_parameters())
         self.optimizer = torch.optim.AdamW(self.params.values(), lr=self.schedule(step), weight_decay=0.0)
 
     @property
@@ -99,6 +106,11 @@ class TrainStep:
             x = self.model.encoder(x, frames, generator=generator)
         logp = torch.log_softmax(self.model.aux(x), dim=-1)
         return ctc_loss(logp, targets, frames, target_lengths, blank=0, reduction="mean")
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` under torchaudio's names: the trained positional kernel as the
+        weight-norm pair ``(|w|, w)``."""
+        return positional_weight_norm_state_dict(self.model)
 
     def __call__(self, waveforms, lengths, targets, target_lengths, generator: Optional[torch.Generator] = None):
         self.optimizer.zero_grad(set_to_none=True)

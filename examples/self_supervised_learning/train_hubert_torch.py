@@ -14,6 +14,11 @@ floating parameter is cast to bf16 inside the loss
 (``audio_tpu_torch.utils.mixed_precision``), so the gradients land on the f32
 masters.  Only ``--synthetic`` data is wired up (waveforms and cluster labels
 from a seed).
+
+As in the JAX recipe, AdamW updates the positional convolution's kernel
+``w = g v / |v|`` as one parameter: the step folds the model's weight norm
+(``fold_positional_weight_norm``), and ``TrainStep.state_dict()`` splits the
+trained kernel back into torchaudio's weight-norm pair.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ sys.path.insert(0, os.path.join(_HERE, "..", ".."))
 sys.path.insert(0, _HERE)
 
 from audio_tpu_torch.models import hubert_pretrain_base, hubert_pretrain_model  # noqa: E402
+from audio_tpu_torch.models.wav2vec2.components import (fold_positional_weight_norm,  # noqa: E402
+                                                     positional_weight_norm_state_dict)
 from audio_tpu_torch.utils import mixed_precision  # noqa: E402
 from losses_torch import hubert_loss  # noqa: E402
 from lr_schedulers_torch import linear_decay_schedule  # noqa: E402
@@ -82,7 +89,7 @@ class TrainStep:
                  schedule: Optional[Callable[[int], float]] = None, step: int = 0):
         self.model, self.compute_dtype, self.step = model, compute_dtype, step
         self.schedule = schedule or linear_decay_schedule(LEARNING_RATE, WARMUP_UPDATES, MAX_UPDATES)
-        self.params: Dict[str, torch.Tensor] = dict(model.named_parameters())
+        self.params: Dict[str, torch.Tensor] = dict(fold_positional_weight_norm(model).named_parameters())
         self.optimizer = torch.optim.AdamW(self.params.values(), lr=self.schedule(step), weight_decay=WEIGHT_DECAY)
 
     def loss(self, params, waveforms, labels, lengths=None, generator: Optional[torch.Generator] = None):
@@ -98,6 +105,11 @@ class TrainStep:
                               masked_weight=MASKED_WEIGHT, unmasked_weight=UNMASKED_WEIGHT,
                               feature_weight=FEATURE_WEIGHT, reduction="mean")
         return loss, masked_accuracy(logit_m, labels, mask_m), masked_accuracy(logit_u, labels, mask_u)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` under torchaudio's names: the trained positional kernel as the
+        weight-norm pair ``(|w|, w)``."""
+        return positional_weight_norm_state_dict(self.model)
 
     def __call__(self, waveforms, labels, lengths=None, generator: Optional[torch.Generator] = None):
         self.optimizer.zero_grad(set_to_none=True)

@@ -12,6 +12,11 @@ quantizer).  ``make_train_step`` builds the step: ``sample_negatives(100)`` ->
 sample_size``, all over ``sample_size`` -> backward -> ``clip_grad_norm_(1.0)``
 -> ``AdamW(weight_decay=1e-2)`` at the linear-decay schedule's rate (5e-4,
 warm-up 32,000, horizon 400,000).  Only ``--synthetic`` data is wired up.
+
+As in the JAX recipe, AdamW updates the positional convolution's kernel
+``w = g v / |v|`` as one parameter: the step folds the backbone's weight norm
+(``fold_positional_weight_norm``), and ``TrainStep.state_dict()`` splits the
+trained kernel back into torchaudio's weight-norm pair.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ sys.path.insert(0, os.path.join(_HERE, "..", ".."))
 sys.path.insert(0, _HERE)
 
 import audio_tpu_torch.models as M  # noqa: E402
-from audio_tpu_torch.models.wav2vec2.components import MaskGenerator, _reset  # noqa: E402
+from audio_tpu_torch.models.wav2vec2.components import (MaskGenerator, _reset, fold_positional_weight_norm,  # noqa: E402
+                                                     positional_weight_norm_state_dict)
 from losses_torch import sample_negatives, wav2vec2_loss  # noqa: E402
 from lr_schedulers_torch import linear_decay_schedule  # noqa: E402
 
@@ -104,7 +110,7 @@ class TrainStep:
                  schedule: Optional[Callable[[int], float]] = None, step: int = 0):
         self.model, self.num_negatives, self.step = model, num_negatives, step
         self.schedule = schedule or linear_decay_schedule(LEARNING_RATE, WARMUP_UPDATES, MAX_UPDATES)
-        self.params: Dict[str, torch.Tensor] = dict(model.named_parameters())
+        self.params: Dict[str, torch.Tensor] = dict(fold_positional_weight_norm(model).named_parameters())
         self.optimizer = torch.optim.AdamW(self.params.values(), lr=self.schedule(step), weight_decay=WEIGHT_DECAY)
 
     def loss(self, waveforms, lengths=None, generator: Optional[torch.Generator] = None):
@@ -115,6 +121,11 @@ class TrainStep:
         loss, sample_size = wav2vec2_loss(x, mask, targets, negatives, reduction="sum")
         loss = loss + FEATURE_WEIGHT * penalty * sample_size
         return loss / torch.clamp(sample_size, min=1), sample_size
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` under torchaudio's names: the trained positional kernel as the
+        weight-norm pair ``(|w|, w)``."""
+        return positional_weight_norm_state_dict(self.model)
 
     def __call__(self, waveforms, lengths=None, generator: Optional[torch.Generator] = None):
         self.optimizer.zero_grad(set_to_none=True)

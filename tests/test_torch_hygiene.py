@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX and nothing of the JAX package.
 
 Scans every module of ``audio_tpu_torch``, ``chip_smoke.py``, the train
-recipe ``examples/asr/emformer_rnnt/train_torch.py`` and the SSL recipes'
-``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
+recipes ``examples/asr/emformer_rnnt/train_torch.py``, the Conformer RNN-T and
+TCPGen-biasing recipes' and the SSL recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
 ``csrc/`` holds one CUDA source for each ported kernel and that no module still
 announces a kernel or a gradient as missing.
 """
@@ -18,7 +18,9 @@ TRAIN_RECIPE = ROOT / "examples" / "asr" / "emformer_rnnt" / "train_torch.py"
 SSL_RECIPES = [ROOT / "examples" / "self_supervised_learning" / f"{name}_torch.py"
                for name in ("losses", "lr_schedulers", "train_hubert", "train_wav2vec2")]
 SSL_RECIPES.append(ROOT / "examples" / "hubert" / "finetune_torch.py")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES
+CONFORMER_RECIPES = [ROOT / "examples" / "asr" / "conformer_rnnt" / "train_torch.py"] + [
+    ROOT / "examples" / "asr" / "conformer_rnnt_biasing" / f"{name}_torch.py" for name in ("biasing", "train")]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES
 
 
 def _forbidden(module: str) -> bool:
@@ -42,7 +44,8 @@ def test_scan_covers_the_port():
     assert "examples/asr/emformer_rnnt/train_torch.py" in names
     for recipe in ("self_supervised_learning/losses_torch.py", "self_supervised_learning/lr_schedulers_torch.py",
                    "self_supervised_learning/train_hubert_torch.py", "self_supervised_learning/train_wav2vec2_torch.py",
-                   "hubert/finetune_torch.py"):
+                   "hubert/finetune_torch.py", "asr/conformer_rnnt/train_torch.py",
+                   "asr/conformer_rnnt_biasing/biasing_torch.py", "asr/conformer_rnnt_biasing/train_torch.py"):
         assert f"examples/{recipe}" in names and (ROOT / "examples" / recipe).is_file()
     for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
@@ -50,7 +53,7 @@ def test_scan_covers_the_port():
                 "functional/_resample.py", "functional/_misc.py", "functional/_beamforming.py", "functional/_vad.py",
                 "ops/ctc.py", "transforms/_transforms.py", "transforms/_multi_channel.py", "compliance/__init__.py",
                 "compliance/kaldi.py", "models/wav2vec2/components.py", "models/wav2vec2/model.py",
-                "models/wavlm.py"):
+                "models/wavlm.py", "models/conformer.py"):
         assert f"audio_tpu_torch/{sub}" in names
     assert len(names) >= 47
 
@@ -297,9 +300,9 @@ HUBERT_PRETRAIN_NAMES = ["HuBERTPretrainModel", "hubert_pretrain_model", "hubert
 
 
 def test_models_export_a_subset_of_the_jax_package_s_names():
-    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models``, the 16 of wav2vec2/HuBERT and
-    WavLM and the 5 of HuBERT pretraining among them; ``audio_tpu_torch.models.wav2vec2`` exports exactly
-    the 16 names of ``audio_tpu.models.wav2vec2``."""
+    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (29 of them), the 16 of
+    wav2vec2/HuBERT and WavLM, the 5 of HuBERT pretraining and ``Conformer`` among them;
+    ``audio_tpu_torch.models.wav2vec2`` exports exactly the 16 names of ``audio_tpu.models.wav2vec2``."""
     import audio_tpu.models as jm
     import audio_tpu.models.wav2vec2 as jw
 
@@ -307,7 +310,8 @@ def test_models_export_a_subset_of_the_jax_package_s_names():
     import audio_tpu_torch.models.wav2vec2 as tw
 
     assert set(tm.__all__) <= set(jm.__all__)
-    assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES) <= set(tm.__all__) and len(set(WAV2VEC2_NAMES)) == 16
+    assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES + ["Conformer"]) <= set(tm.__all__)
+    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 29
     assert all(callable(getattr(tm, n)) for n in tm.__all__)
     assert sorted(tw.__all__) == sorted(jw.__all__) and len(set(tw.__all__)) == 16
 

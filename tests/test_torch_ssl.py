@@ -16,10 +16,12 @@ softmax ignores it, is rounding noise on both sides: it is held to 1e-6 of the l
 entry of the model), the parameters after two steps 1e-5 of optax's where the gradient stands clear
 of rounding noise and within two Adam steps elsewhere.
 
-The JAX models carry the positional convolution as one kernel; the port carries torchaudio's weight
-norm, a magnitude g and a direction v.  Both compute the same function, but an optimizer on (g, v)
-moves another way than one on the kernel.  So the JAX side of each train step builds the kernel
-from (g, v) inside its loss, and optax trains the parameters the port trains.
+The JAX models carry the positional convolution as one kernel; the port's model carries torchaudio's
+weight norm, a magnitude g and a direction v.  The port's train steps fold it into the kernel
+``w = g v / |v|`` and train that, as the JAX recipes train their kernel: each step is held against
+the unmodified JAX recipe's loss and optax chain on the JAX model's own parameter tree (the kernel
+as a leaf), started from the port's folded kernel, the kernel compared as ``w``.  A step's
+``state_dict()`` carries the weight norm's names again.
 """
 
 import contextlib
@@ -86,6 +88,7 @@ LR = 1e-3
 POS = ("encoder", "transformer", "pos_conv_embed", "conv")  # the positional conv inside a backbone tree
 POS_G = "encoder.transformer.pos_conv_embed.conv.parametrizations.weight.original0"
 POS_V = "encoder.transformer.pos_conv_embed.conv.parametrizations.weight.original1"
+POS_W = "encoder.transformer.pos_conv_embed.conv.weight"  # the folded kernel a train step trains
 
 
 def _wave() -> np.ndarray:
@@ -172,16 +175,6 @@ def _prefix(kind: str) -> str:
     return {"hubert": "wav2vec2.", "wav2vec2": "backbone.", "finetune": ""}[kind]
 
 
-def _training_tree(kind: str, model) -> dict:
-    """{"model": the JAX tree without the positional kernel, "pos_g", "pos_v"}: the parameters the
-    port trains."""
-    tree = _jax_params(kind, model)
-    del _pos_node(kind, tree)["kernel"]
-    sd = model.state_dict()
-    return {"model": tree, "pos_g": sd[_prefix(kind) + POS_G].numpy().copy(),
-            "pos_v": sd[_prefix(kind) + POS_V].numpy().copy()}
-
-
 def _pos_node(kind: str, tree: dict) -> dict:
     node = _backbone(kind, tree)
     for key in POS:
@@ -189,24 +182,12 @@ def _pos_node(kind: str, tree: dict) -> dict:
     return node
 
 
-def _with_kernel(kind: str, train_tree: dict) -> dict:
-    """The JAX model's tree with the positional kernel built from (g, v) as torch's weight norm does."""
-    g, v = train_tree["pos_g"], train_tree["pos_v"]
-    w = g * v / jnp.sqrt(jnp.sum(v * v, axis=(0, 1), keepdims=True))
-    tree = jax.tree.map(lambda a: a, train_tree["model"])
-    _pos_node(kind, tree)["kernel"] = jnp.transpose(w, (2, 1, 0))
-    return tree
-
-
-def _train_named(kind: str, train_tree) -> dict:
-    """A training tree (parameters or gradients) under the port's names."""
-    tree = jax.tree.map(np.array, train_tree)  # writable copies
-    model = tree["model"]
-    v = tree["pos_v"]
-    _pos_node(kind, model)["kernel"] = np.zeros(v.shape[::-1], v.dtype)
-    out = _named(kind, model)
-    out[_prefix(kind) + POS_G] = torch.from_numpy(tree["pos_g"])
-    out[_prefix(kind) + POS_V] = torch.from_numpy(tree["pos_v"])
+def _train_named(kind: str, tree) -> dict:
+    """A JAX tree of parameters or gradients under the names of a train step's parameters: the
+    positional kernel as the folded ``conv.weight`` (C_out, C_in / groups, K)."""
+    out = _named(kind, jax.tree.map(np.array, tree))  # writable copies
+    del out[_prefix(kind) + POS_G]
+    out[_prefix(kind) + POS_W] = out.pop(_prefix(kind) + POS_V)
     return out
 
 
@@ -417,8 +398,8 @@ def _jax_loss(kind: str):
     wav, lengths, labels = jnp.asarray(_wave()), jnp.asarray(LENGTHS), jnp.asarray(_labels())
     tgt, tgt_len = (jnp.asarray(a) for a in _transcripts())
 
-    def loss_fn(train_tree, key):
-        p = {"params": _with_kernel(kind, train_tree)}
+    def loss_fn(params, key):
+        p = {"params": params}
         if kind == "hubert":
             lm, lu, mm, mu, pen = jmodel.apply(p, wav, labels, lengths, deterministic=True, rngs={"mask": key})
             loss, _ = j_hubert.hubert_loss(lm, lu, pen, label=labels, mask_m=mm, mask_u=mu, masked_weight=1.0,
@@ -439,13 +420,13 @@ def _jax_loss(kind: str):
 
 
 def _gate(grads, step):
-    """finetune.py's gate: the feature extractor's gradients zero, the encoder's (the positional
-    pair with it) zero before ``freeze_encoder_updates`` = 1, the head's as they are."""
+    """finetune.py's ``gate_grads``: the feature extractor's gradients zero, the encoder's zero before
+    ``freeze_encoder_updates`` = 1, the aux head's as they are."""
     on = jnp.asarray(step >= 1, jnp.float32)
-    model = dict(grads["model"])
-    model["feature_extractor"] = jax.tree.map(jnp.zeros_like, model["feature_extractor"])
-    model["encoder"] = jax.tree.map(lambda g: g * on, model["encoder"])
-    return {"model": model, "pos_g": grads["pos_g"] * on, "pos_v": grads["pos_v"] * on}
+    out = dict(grads)
+    out["feature_extractor"] = jax.tree.map(jnp.zeros_like, grads["feature_extractor"])
+    out["encoder"] = jax.tree.map(lambda g: g * on, grads["encoder"])
+    return out
 
 
 def _tx(kind: str):
@@ -458,11 +439,12 @@ def _tx(kind: str):
 
 @pytest.fixture(scope="module", params=KINDS)
 def trained(request):
-    """Two steps on each side: the JAX recipe's (under one jit) and the port's on the same draws.
-    The port's gradients are read as the clip receives them."""
+    """Two steps on each side: the unmodified JAX recipe's loss and optax chain on the JAX model's tree
+    (under one jit), and the port's step on the same draws.  The port's gradients are read as the
+    clip receives them."""
     kind = request.param
     model = _port_model(kind)
-    tree = _training_tree(kind, model)
+    tree = _jax_params(kind, model)
     loss_fn, tx = _jax_loss(kind), _tx(kind)
 
     def jstep(params, opt_state, step, key):
@@ -481,6 +463,8 @@ def trained(request):
     else:
         step = t_finetune.make_train_step(model.train(), freeze_encoder_updates=1,
                                           schedule=t_sched.tri_stage_schedule(LR, 1, 1, 10, init_scale=0.0))
+    # both sides start from the port's folded kernel, bit for bit
+    _pos_node(kind, tree)["kernel"] = _np(step.params[_prefix(kind) + POS_W]).transpose(2, 1, 0).copy()
     wav, lengths = torch.from_numpy(_wave()), torch.from_numpy(LENGTHS)
     tgt, tgt_len = (torch.from_numpy(a) for a in _transcripts())
     clip = torch.nn.utils.clip_grad_norm_
@@ -562,6 +546,46 @@ def test_train_step_parameters_after_two_steps_match_optax(trained):
                 assert torch.equal(runs[1]["before"][name], p), name  # the frozen step left them the same bits
         assert any(not torch.equal(step.params[n].detach(), runs[1]["before"][n])
                    for n in step.params if n.startswith("encoder."))  # thawed at step 1
+
+
+def test_train_step_trains_the_folded_kernel_and_saves_the_weight_norm_pair(trained):
+    """The step's parameters hold the positional kernel as one ``conv.weight`` and no weight-norm pair;
+    its ``state_dict()`` has the unfolded model's names in their order, ``original0 = |w|`` and
+    ``original1 = w`` of the trained kernel, and a fresh model loads it strictly and computes that
+    kernel again within a few ulp."""
+    kind, _, step, _, _ = trained
+    w = step.params[_prefix(kind) + POS_W].detach()
+    assert not any(".parametrizations." in k for k in step.params)
+    fresh = _port_model(kind, seed=1)
+    saved = step.state_dict()
+    assert list(saved) == list(fresh.state_dict())
+    torch.testing.assert_close(saved[_prefix(kind) + POS_V], w, rtol=0, atol=0)
+    torch.testing.assert_close(saved[_prefix(kind) + POS_G],
+                               torch.linalg.vector_norm(w, dim=(0, 1), keepdim=True), rtol=0, atol=0)
+    fresh.load_state_dict(saved, strict=True)
+    conv = tcomp.ConvolutionalPositionalEmbedding
+    rebuilt = next(m for m in fresh.modules() if isinstance(m, conv)).conv.weight.detach()
+    torch.testing.assert_close(rebuilt, w, rtol=0, atol=1e-6 * float(w.abs().max()))
+    for key, value in saved.items():
+        if ".parametrizations." not in key:
+            assert torch.equal(value, step.model.state_dict()[key]), key
+
+
+def test_folding_a_copy_leaves_the_model_and_its_other_copies_whole():
+    """``fold_positional_weight_norm`` on one deep copy of a model (as a train step folds the copy it
+    is given) leaves the model and a second copy with their weight norm: both still compute and fold.
+    ``remove_parametrizations`` would delete the weight from the class that copies share."""
+    model = _port_model("hubert")
+    x, lab, n = torch.from_numpy(_wave()), torch.from_numpy(_labels()), torch.from_numpy(LENGTHS)
+    with torch.no_grad():
+        want = model(x, lab, n, generator=torch.Generator().manual_seed(3))[4]
+        for _ in range(2):
+            copied = tcomp.fold_positional_weight_norm(copy.deepcopy(model))
+            assert not any(".parametrizations." in k for k in copied.state_dict())
+            torch.testing.assert_close(copied(x, lab, n, generator=torch.Generator().manual_seed(3))[4], want,
+                                       rtol=0, atol=1e-6)
+        assert any(".parametrizations." in k for k in model.state_dict())
+        assert torch.equal(model(x, lab, n, generator=torch.Generator().manual_seed(3))[4], want)
 
 
 def test_hubert_bf16_compute_keeps_f32_masters():
