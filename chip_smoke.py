@@ -176,7 +176,17 @@ Phases, each of which raises on failure:
    time factor, and the f32 search on 2 clips of 2 s against the CPU (top-1 tokens equal, scores 1e-3);
    (c) the TCPGen-biased step (V 601, TCPGen 64, 16 distractors, a 256-node trie) in f32 on 8 clips of 10 s:
    K2 only on "fft", no K8 (the loss reads log-probabilities), then at B=2 against the CPU.  Each step and
-   the bf16 search timed, profiled once, with its peak memory.
+   the bf16 search timed, profiled once, with its peak memory;
+16. the AVSR recipe at full width (``examples/avsr/train_torch.py`` and ``eval_torch.py``, weights from CUDA
+   generator seeds, ``AVConformerRNNT(1024)``: 45,637,440 parameters): (a) the train step (video ResNet-18
+   and audio ResNet1D front ends, FFN fusion, 16-layer Conformer, LSTM predictor, ReLU joiner) in f32 on 8
+   clips of 100-200 frames of 96x96 with 640 samples a frame and up to 40 targets, dropout on, at the
+   schedule's peak: K8 only on "stream"; timed, profiled once, its peak memory, video frames a second and
+   its operations (``torch.utils.flop_counter``) against the FP32 peak; (b) at B=2 x 16 frames against the
+   CPU (loss 1e-4 relative, every gradient 1e-3 of its peak); (c) ``fuse``'s bits with cuDNN's TF32 on;
+   (d) ``eval_torch.py``'s greedy decode on 8 clips of 100-200 frames, timed and profiled, at B=2 its
+   tokens and counts equal to the CPU's, then the recipe's ``--overfit`` gate on the card (the tiny model,
+   400 steps, batch 8, lr 2e-3, warm-up 40) decoding every transcript exactly.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -264,15 +274,38 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_kernel_rows(prof, reps: int) -> list:
     """(name, device ms a call, launches a call) of every kernel a profile saw, longest first;
-    ranges that only annotate the timeline (the optimizer's step) are not kernels."""
+    ranges that only annotate the timeline (the optimizer's step) are not kernels.  Summed from the
+    profiler's raw events, the device events that ``key_averages`` sums by name (phase 16 holds the two
+    to the same launches, kernel by kernel, on one profiled step: ``check_rows_against_key_averages``);
+    ``key_averages`` first builds an object and a tree of every event, which takes tens of seconds for
+    a call of 80,000 launches."""
     from torch.autograd import DeviceType
 
-    return sorted(
-        ((e.key, e.device_time_total / 1e3 / reps, e.count / reps) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-         and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")),
-        key=lambda r: -r[1],
-    )
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() or name.startswith("Optimizer."):
+            continue
+        ms, n = rows.get(name, (0.0, 0))
+        rows[name] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms / reps, n / reps) for k, (ms, n) in rows.items() if ms > 0), key=lambda r: -r[1])
+
+
+def check_rows_against_key_averages(prof, rows: list) -> int:
+    """Raises unless ``rows`` (``device_kernel_rows`` of ``prof``, one call) count each kernel's launches as
+    ``key_averages`` counts them; returns the launches."""
+    from torch.autograd import DeviceType
+
+    ref = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+           and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")}
+    got = {name: n for name, _, n in rows}
+    differ = {k: (got.get(k, 0), ref.get(k, 0)) for k in set(got) | set(ref) if got.get(k, 0) != ref.get(k, 0)}
+    print(f"  the raw events' launches against key_averages' on this profile: {sum(got.values()):g} and "
+          f"{sum(ref.values())}, {len(ref)} kernels, {len(differ)} differ")
+    if differ:
+        raise AssertionError(f"device_kernel_rows and key_averages count launches differently: {differ}")
+    return sum(ref.values())
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_FP32_PER_S):
@@ -3187,10 +3220,11 @@ def check_bf16(name: str, got: list, ref: list) -> float:
     return worst
 
 
-def profile_batch(name: str, fn) -> dict:
+def profile_batch(name: str, fn, against_key_averages: bool = False) -> dict:
     """One call of ``fn`` under torch.profiler: its launches, the device's busy time and idle share
     against the profiled call's own elapsed time (CUDA events inside the profile: the tracing lengthens
-    the kernels, so busy time can exceed an untraced call), and the longest kernels."""
+    the kernels, so busy time can exceed an untraced call), and the longest kernels; with
+    ``against_key_averages``, the launches held to ``key_averages``' count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3202,6 +3236,8 @@ def profile_batch(name: str, fn) -> dict:
         torch.cuda.synchronize()
     call_ms = start.elapsed_time(end)
     rows = device_kernel_rows(prof, 1)
+    if against_key_averages:
+        check_rows_against_key_averages(prof, rows)
     busy, n = sum(r[1] for r in rows), sum(r[2] for r in rows)
     print(f"  profile of one {name} call: {n:g} kernel launches, device busy {busy:.3f} ms in a {call_ms:.3f} ms "
           f"profiled call (idle share {1 - busy / call_ms:.3f}); the longest kernels:")
@@ -3885,9 +3921,9 @@ def compare_step_with_cpu(name: str, model, make_step, card_batch, loss_fn) -> d
     return {"loss": got, "cpu_loss": ref, "loss_rel": rel, "grad_err_of_peak": grad_err}
 
 
-def time_train_step(name: str, one, audio_s: float, card: str) -> dict:
+def time_train_step(name: str, one, audio_s: float, card: str, against_key_averages: bool = False) -> dict:
     """Five timed steps (CUDA events, median) after a warm-up, the peak memory over them, seconds of audio a
-    second, and one profiled step."""
+    second, and one profiled step (see ``profile_batch``)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -3901,7 +3937,7 @@ def time_train_step(name: str, one, audio_s: float, card: str) -> dict:
     print(f"  {name}: {ms:.3f} ms a step (runs {', '.join(f'{r:.3f}' for r in runs)}), {out['audio_s_per_s']:.1f} s "
           f"of audio a second ({audio_s:.2f} s a step), peak memory {peak_gb:.3f} GB; losses "
           f"{[round(v, 4) for v in losses]} on {card}")
-    out["profile"] = profile_batch(name, one)
+    out["profile"] = profile_batch(name, one, against_key_averages)
     return out
 
 
@@ -4123,6 +4159,265 @@ def run_biased_train(recipe, dev, card: str) -> dict:
                                        lambda s, b: s.loss(*b))
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 16: the AVSR recipe
+# examples/avsr/train.py at its defaults with --num-symbols 1024: 8 clips of up to 200 frames of 96x96 (the
+# preprocessing's --resize default) with 640 samples a frame, 8 x 200 = 1600 frames (the recipe's --max-frames)
+AV_V, AV_PARAMS = 1024, 45_637_440
+AV_B, AV_FRAMES, AV_MIN_FRAMES, AV_SIZE, AV_U = 8, 200, 100, 96, 40
+AV_CMP_B, AV_CMP_FRAMES, AV_CMP_MIN_FRAMES, AV_CMP_U = 2, 16, 8, 10  # the card against the CPU in f32
+AV_SEED = 190  # the CUDA and numpy seeds of phase 16 are 190-219
+AV_TF32_GRAD_TOL = 1e-4  # the front ends' gradients with TF32 on against off, of each peak, where runs differ
+AV_FPS = 25
+# the recipe's memorization gate with the arguments of the JAX package's slow test of it
+AV_OVERFIT = ["--synthetic", "--tiny", "--steps", "400", "--global-batch", "8", "--overfit", "--learning-rate", "2e-3",
+              "--warmup-steps", "40"]
+
+
+def av_batch(dev, b: int, frames: int, min_frames: int, u: int, v: int, seed: int):
+    """Lip crops in [0, 1) of AV_SIZE x AV_SIZE and 0.1-scaled noise audio at 640 samples a frame, from a CUDA
+    generator seeded ``seed``, zero past each clip's frames (the first at full length, the others ``min_frames``
+    to ``frames``) as ``LRS3Batches`` pads, and up to ``u`` targets in [1, v - 1)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(min_frames, frames + 1, (b,), generator=g, device=dev)
+    lengths[0] = frames
+    spf = SR // AV_FPS
+    videos = torch.rand((b, frames, AV_SIZE, AV_SIZE), generator=g, device=dev)
+    videos *= (torch.arange(frames, device=dev)[None, :] < lengths[:, None])[:, :, None, None]
+    audios = 0.1 * torch.randn((b, frames * spf), generator=g, device=dev)
+    audios *= torch.arange(frames * spf, device=dev)[None, :] < lengths[:, None] * spf
+    tgt, tgt_lens = conformer_targets(dev, b, u, v, seed + 1)
+    return videos, audios, lengths.to(torch.int32), tgt, tgt_lens
+
+
+def step_flops(step, batch) -> float:
+    """Floating-point operations of one forward and backward of ``step.loss`` on ``batch`` (convolutions,
+    products and attention, as ``torch.utils.flop_counter`` counts them from the shapes; K8 and the
+    element-wise work are not counted)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step.optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad(), FlopCounterMode(display=False) as counter:
+        step.loss(*batch).backward()
+    step.optimizer.zero_grad(set_to_none=True)
+    return float(counter.get_total_flops())
+
+
+def check_step_lattice(recipe, step, batch, card: str) -> dict:
+    """K8 on the lattice the AVSR step gives it: the model's f32 logits (B, t, U+1, V) on the step's ``batch``
+    (dropout off), blank 0, each row's label the targets padded by the unused row U and expanded over t as
+    ``ops/rnnt.py`` builds them.  Held to the plain version, a batch block at a time, at the f32 limit of the JAX
+    kernel's tests, 1e-5; the same bits over two runs; the kernel's time there beside the plain version's and
+    the bound."""
+    import torch
+
+    from audio_tpu_torch.ops import cuda_rnnt_lps
+
+    videos, audios, lengths, targets, tgt_lens = batch
+    blank = recipe.BLANK_FIRST_TOKEN
+    training = step.model.training
+    with torch.no_grad():
+        x = step.model.eval()(videos, audios, lengths, torch.nn.functional.pad(targets, (1, 0), value=blank),
+                              tgt_lens + 1)[0]
+    step.model.train(training)
+    tgt = torch.nn.functional.pad(targets, (0, 1))[:, None, :].expand(x.shape[:-1])
+    b, t, rows, v = x.shape
+    label = f"f32 AVSR step lattice {tuple(x.shape)}, blank {blank}"
+    got = cuda_rnnt_lps.lattice_row_stats(x, tgt, blank)
+    torch.cuda.synchronize()
+    block = 2
+    ref = [torch.cat(part) for part in zip(*(cuda_rnnt_lps.lattice_row_stats_plain(x[i : i + block], tgt[i : i + block],
+                                                                                    blank)
+                                             for i in range(0, b, block)))]
+    err = max(check_close(f"K8 lattice_row_stats [stream] {label} {part}", g, r, 1e-5, 1e-5)
+              for part, g, r in zip(("lse", "blank", "label"), got, ref))
+    del ref
+    again = cuda_rnnt_lps.lattice_row_stats(x, tgt, blank)
+    same = [torch.equal(a, b_) for a, b_ in zip(got, again)]
+    print(f"  K8 bits {label}: equal over two runs: {same}")
+    if not all(same):
+        raise AssertionError(f"K8 {label}: two runs gave different bits {same}")
+    n = b * t * rows
+    ms = cuda_ms(lambda: cuda_rnnt_lps.lattice_row_stats(x, tgt, blank), 5)
+    plain_ms = cuda_ms(lambda: cuda_rnnt_lps.lattice_row_stats_plain(x, tgt, blank), 3)
+    # the lattice read once, tgt read and three f32 outputs written once a row
+    bound = bound_ms(4 * n * v + n * (4 + 12), 3 * n * v)
+    print(f"  K8 lattice_row_stats {label}: route stream {ms:.4f} ms, plain {plain_ms:.4f} ms (bound {bound[0]:.4f} "
+          f"ms by {bound[1]}) on {card}")
+    del x, tgt, got, again
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+
+
+def check_front_end_grads_tf32(model, inputs) -> dict:
+    """The front ends' f32 gradients of a scalar of ``fuse`` with cuDNN's TF32 on while the backward runs, against
+    two runs with it off: autograd runs a convolution's backward under the flags of that moment, and every
+    front-end convolution turns TF32 off in its backward too.  Equal bits where the two runs with TF32 off
+    agree bit for bit; else (cuDNN's weight gradients may add in any order) within AV_TF32_GRAD_TOL of each
+    gradient's peak: TF32 rounds each operand to 2^-11 of itself, which moves the largest of these gradients
+    by about 1e-3 of its peak."""
+    import torch
+
+    def grads(tf32: bool) -> dict:
+        previous = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            model.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                model.fuse(*inputs)[0].square().mean().backward()
+        finally:
+            torch.backends.cudnn.allow_tf32 = previous
+        out = {n: p.grad.clone() for n, p in model.named_parameters()
+               if n.startswith(("video_frontend.", "audio_frontend."))}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def worst(got: dict, ref: dict) -> float:
+        return max(float((got[n] - r).abs().max()) / max(float(r.abs().max()), 1e-30) for n, r in ref.items())
+
+    off, again, on = grads(False), grads(False), grads(True)
+    repeat_err, tf32_err = worst(again, off), worst(on, off)
+    print(f"  the front ends' {len(off)} f32 gradients with cuDNN's TF32 on in the backward: {tf32_err:.3e} of their "
+          f"peaks off those with it off (two runs with it off: {repeat_err:.3e}; limit "
+          f"{'0, the same bits' if repeat_err == 0 else f'{AV_TF32_GRAD_TOL:g}'})")
+    if tf32_err > (0.0 if repeat_err == 0 else AV_TF32_GRAD_TOL):
+        raise AssertionError("AVSR: cuDNN's TF32 changed the front ends' f32 gradients")
+    return {"tf32_err_of_peak": tf32_err, "repeat_err_of_peak": repeat_err}
+
+
+def run_avsr_train(recipe, dev, card: str) -> dict:
+    """Phase 16 (a)-(c): the AVSR train step at the recipe's full width (weights from CUDA seed 190), f32,
+    dropout on, at the schedule's peak: video and audio front ends -> fusion -> Conformer -> ``rnnt_loss`` (K8)
+    -> backward -> clip -> AdamW, on 8 clips of 100-200 frames with up to 40 targets.  Then at B=2 x 16 frames
+    against the CPU, and ``fuse``'s bits with cuDNN's TF32 on."""
+    import torch
+
+    model = recipe.AVConformerRNNT(AV_V, device=dev, generator=torch.Generator(device=dev).manual_seed(AV_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  AVConformerRNNT({AV_V}): {n_params} parameters ({n_params / 1e6:.2f}M), from CUDA seed {AV_SEED}")
+    if n_params != AV_PARAMS:
+        raise AssertionError(f"AVConformerRNNT({AV_V}) has {n_params} parameters, not the JAX recipe's {AV_PARAMS}")
+    batch = av_batch(dev, AV_B, AV_FRAMES, AV_MIN_FRAMES, AV_U, AV_V, AV_SEED + 1)
+    frames = int(batch[2].sum())
+    name = (f"AVSR train step, f32, B={AV_B} x {AV_MIN_FRAMES}-{AV_FRAMES} frames of {AV_SIZE}x{AV_SIZE}, "
+            f"U <= {AV_U}, V={AV_V}")
+    print(f"  the lattice ({AV_B}, {AV_FRAMES}, {AV_U + 1}, {AV_V}) f32, "
+          f"{AV_B * AV_FRAMES * (AV_U + 1) * AV_V * 4 / 1e6:.1f} MB; {frames} valid frames")
+    torch.manual_seed(AV_SEED + 3)  # dropout
+    step = recipe.make_train_step(model.train(), step=recipe.WARMUP_STEPS)  # at the schedule's peak
+
+    def one():
+        with torch.enable_grad():
+            return step(*batch)
+
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one {name}", counts, ["lattice_row_stats"])
+    require_route(f"one {name}", counts, "lattice_row_stats", "stream")
+    check_finite_step(name, first, step.params)
+    out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first),
+           "frames": frames}
+    out.update(time_train_step(name, one, frames / AV_FPS, card, against_key_averages=True))
+    out["frames_per_s"] = frames / (out["ms"] / 1e3)
+    flops = step_flops(step, batch)
+    out.update(model_tflop=flops / 1e12, share_of_fp32_peak=flops / (out["ms"] / 1e3) / PEAK_FP32_PER_S)
+    print(f"  {name}: {out['frames_per_s']:.1f} video frames a second; forward and backward "
+          f"{out['model_tflop']:.3f} TFLOP (flop_counter), {out['share_of_fp32_peak']:.3f} of the "
+          f"{PEAK_FP32_PER_S / 1e12:g} TFLOP/s FP32 peak on {card}")
+    out["k8"] = check_step_lattice(recipe, step, batch, card)
+    del step
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at B=2 x 16 frames, dropout off, seeded weights
+    model = recipe.AVConformerRNNT(AV_V, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(AV_SEED + 5))
+    batch2 = av_batch(dev, AV_CMP_B, AV_CMP_FRAMES, AV_CMP_MIN_FRAMES, AV_CMP_U, AV_V, AV_SEED + 6)
+    reset_kernel_counts()
+    out["cpu"] = compare_step_with_cpu(f"AVSR step, f32, B={AV_CMP_B} x {AV_CMP_FRAMES} frames", model,
+                                       lambda m: recipe.make_train_step(m, step=recipe.WARMUP_STEPS), batch2,
+                                       lambda s, b: s.loss(*b))
+    require_launches(f"the f32 AVSR step at B={AV_CMP_B}", kernel_counts(), ["lattice_row_stats"])
+    # fuse's bits with cuDNN's TF32 on: every front-end convolution turns TF32 off inside the call
+    with torch.no_grad():
+        fused_off, lens_off = model.eval().fuse(*batch2[:3])
+        previous = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            fused_on, lens_on = model.fuse(*batch2[:3])
+        finally:
+            torch.backends.cudnn.allow_tf32 = previous
+    same = torch.equal(fused_on, fused_off) and torch.equal(lens_on, lens_off)
+    print(f"  the f32 fuse (front ends and fusion) with cuDNN's TF32 on gives the same bits as with it off: {same}")
+    if not same:
+        raise AssertionError("AVSR: cuDNN's TF32 changed the f32 fuse output")
+    out["front_end_grads_tf32"] = check_front_end_grads_tf32(model, batch2[:3])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_avsr_eval(evaluate, dev, card: str) -> dict:
+    """Phase 16 (d): ``eval_torch.py``'s decode (``fuse`` -> ``rnnt_greedy_decode(blank 0, max_tokens 64)``) on
+    8 clips of 100-200 frames at full width (weights from CUDA seed 200), timed and profiled; at B=2 x 16 frames
+    the tokens and counts equal to the CPU's; then the recipe's ``--overfit`` gate on the card."""
+    import torch
+
+    recipe = evaluate.train
+    model = recipe.AVConformerRNNT(AV_V, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(AV_SEED + 10)).eval()
+    videos, audios, lengths, _, _ = av_batch(dev, AV_B, AV_FRAMES, AV_MIN_FRAMES, AV_U, AV_V, AV_SEED + 11)
+    name = f"AVSR greedy decode, f32, B={AV_B} x {AV_MIN_FRAMES}-{AV_FRAMES} frames, max_tokens {recipe.MAX_TOKENS}"
+
+    def one():
+        return evaluate.decode(model, videos, audios, lengths)
+
+    reset_kernel_counts()
+    tokens, counts = one()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernel_counts().items() if c}
+    print(f"  launches of the port's kernels in one {name}: {launches} (the greedy loop runs the plain predictor "
+          f"and joiner)")
+    tokens, counts = tokens.cpu(), counts.cpu()
+    emitted = torch.arange(recipe.MAX_TOKENS)[None, :] < counts[:, None]
+    if not (bool(((counts >= 0) & (counts <= recipe.MAX_TOKENS)).all()) and bool((tokens[~emitted] == -1).all())
+            and bool(((tokens[emitted] > recipe.BLANK_FIRST_TOKEN) & (tokens[emitted] < AV_V)).all())):
+        raise AssertionError(f"{name}: counts {counts.tolist()} or the tokens are not well formed")
+    torch.cuda.reset_peak_memory_stats()
+    ms, runs, _ = timed_steps(lambda: (one(), None)[1], 0, 2)  # the call above was the warm-up
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = int(lengths.sum())
+    print(f"  {name}: {ms:.3f} ms a batch (runs {', '.join(f'{r:.3f}' for r in runs)}), {frames / (ms / 1e3):.1f} "
+          f"video frames a second, peak memory {peak_gb:.3f} GB; tokens a clip {counts.tolist()} on {card}")
+    out = {"ms": ms, "runs_ms": runs, "frames_per_s": frames / (ms / 1e3), "peak_gb": peak_gb,
+           "counts": counts.tolist(), "kernel_launches": launches, "profile": profile_batch(name, one)}
+
+    # the decode at B=2 x 16 frames against the CPU's: tokens and counts equal
+    v2, a2, l2, _, _ = av_batch(dev, AV_CMP_B, AV_CMP_FRAMES, AV_CMP_MIN_FRAMES, AV_CMP_U, AV_V, AV_SEED + 12)
+    got = [t.cpu() for t in evaluate.decode(model, v2, a2, l2)]
+    ref = evaluate.decode(copy.deepcopy(model).cpu(), v2.cpu(), a2.cpu(), l2.cpu())
+    check_equal(f"AVSR greedy counts at B={AV_CMP_B} vs the CPU", got[1], ref[1])
+    check_equal(f"AVSR greedy tokens at B={AV_CMP_B} vs the CPU", got[0], ref[0])
+    out["cpu_counts"] = got[1].tolist()
+    del model
+    torch.cuda.empty_cache()
+
+    # the memorization gate: the tiny model on one fixed batch, 400 steps, every transcript decoded exactly
+    print(f"  the recipe's --overfit gate on the card: train_torch.py {' '.join(AV_OVERFIT)} --device cuda")
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with torch.enable_grad():
+        recipe.main(AV_OVERFIT + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    out["overfit_s"] = time.perf_counter() - t0
+    out["overfit_launches"] = {n: c for n, c in kernel_counts().items() if c}
+    require_launches("the --overfit gate's 400 steps", kernel_counts(), ["lattice_row_stats"])
+    print(f"  the --overfit gate passed in {out['overfit_s']:.1f} s on {card}")
     return out
 
 
@@ -4610,6 +4905,20 @@ def main(argv=None) -> int:
           f"{phase15_launches}")
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
+    # ---------------------------------------------------------------- phase 16
+    print(f"phase 16: the AVSR recipe at full width: the train step (f32, B={AV_B} x {AV_MIN_FRAMES}-{AV_FRAMES} "
+          f"frames of {AV_SIZE}x{AV_SIZE}, V={AV_V}), the greedy decode and the --overfit gate")
+    t16 = time.perf_counter()
+    avsr_eval = load_example("avsr_eval_torch", "avsr", "eval_torch.py")
+    avsr = {"train": run_avsr_train(avsr_eval.train, dev, card)}
+    avsr["eval"] = run_avsr_eval(avsr_eval, dev, card)
+    torch.cuda.empty_cache()
+    phase16_launches = {"lattice_row_stats": avsr["train"]["launches"].get("lattice_row_stats", 0)}
+    s2_err["lattice_row_stats"] = max(s2_err["lattice_row_stats"], avsr["train"]["k8"]["err"])
+    print(f"  kernel launches in phase 16 (one AVSR train step): {phase16_launches}")
+    avsr["seconds"] = time.perf_counter() - t16
+    print(f"  phase 16 took {avsr['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -4725,6 +5034,9 @@ def main(argv=None) -> int:
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
         if name in phase15_launches:
             kernels[-1]["phase15_launches"] = phase15_launches[name]
+        if name in phase16_launches:
+            kernels[-1]["phase16_launches"] = phase16_launches[name]
+            kernels[-1]["phase16_f32"] = {k: avsr["train"]["k8"][k] for k in ("err", "ms", "plain_ms", "bound_ms")}
     kernels[-4]["kernel_route"] = "wgmma"  # K5
     # K6: the routes it replaced on this path ("row") and past k = 32 ("row", "global"), timed at the
     # tick's shape beside "stream", and torch.topk of the candidates alone (it computes less: no
@@ -4811,7 +5123,7 @@ def main(argv=None) -> int:
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
-                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer},
+                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ import math
 import os
 import sys
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +57,30 @@ BLANK_FIRST_TOKEN = 0  # predictor SOS = blank, as in the JAX recipe
 CLIP_NORM, WEIGHT_DECAY = 5.0, 1e-6
 LEARNING_RATE, WARMUP_STEPS = 8e-4, 40
 FREQ_MASK, TIME_MASK = 27, 100
+
+
+LECUN_STD = 0.87962566103423978  # the standard deviation of a unit normal truncated to [-2, 2]
+
+
+def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw ``model``'s parameters from ``generator`` as flax's default initialisers draw a JAX recipe's tree:
+    each kernel from lecun-normal (variance 1 / fan_in, a normal truncated at two of its deviations), each
+    embedding from N(0, 1 / E), every bias zero, every norm scale one.  The numbers are drawn on the generator's
+    own device."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("embedding.weight"):
+                draw = torch.empty(p.shape, device=generator.device).normal_(0.0, p.shape[1] ** -0.5,
+                                                                             generator=generator)
+            elif p.dim() >= 2:
+                std = p[0].numel() ** -0.5 / LECUN_STD
+                draw = nn.init.trunc_normal_(torch.empty(p.shape, device=generator.device), 0.0, std, -2 * std,
+                                             2 * std, generator=generator)
+            elif name.endswith("bias"):
+                draw = torch.zeros(p.shape)
+            else:
+                draw = torch.ones(p.shape)
+            p.copy_(draw)
 
 
 class ConformerTransducer(nn.Module):
@@ -203,15 +227,19 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> tor
 class TrainStep:
     """One optimizer step over (features, feature lengths, targets, target lengths); returns the loss.
     ``params`` holds the model's parameters by name (the optimizer updates the module's parameters in
-    place); ``step`` counts the updates made, and the schedule gives each update's rate from it."""
+    place); ``step`` counts the updates made, and the schedule gives each update's rate from it.  AdamW
+    takes ``betas`` and ``weight_decay`` (optax's ``b1``, ``b2`` and ``weight_decay``); a recipe with other
+    inputs overrides ``loss``."""
 
     def __init__(self, model, learning_rate: float = LEARNING_RATE, warmup_steps: int = WARMUP_STEPS,
-                 total_steps: int = 100, step: int = 0):
+                 total_steps: int = 100, step: int = 0, weight_decay: float = WEIGHT_DECAY,
+                 betas: Tuple[float, float] = (0.9, 0.999)):
         self.model, self.step = model, step
         self.schedule = warmup_cosine_decay_schedule(0.0, learning_rate, warmup_steps,
                                                      max(total_steps, warmup_steps + 1))
         self.params: Dict[str, torch.Tensor] = dict(model.named_parameters())
-        self.optimizer = torch.optim.AdamW(self.params.values(), lr=self.schedule(step), weight_decay=WEIGHT_DECAY)
+        self.optimizer = torch.optim.AdamW(self.params.values(), lr=self.schedule(step), betas=betas,
+                                           weight_decay=weight_decay)
 
     def loss(self, feats, feat_lens, targets, target_lengths) -> torch.Tensor:
         tgt_in = nnF.pad(targets, (1, 0), value=BLANK_FIRST_TOKEN)

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import importlib.util
 import math
 import os
 import sys
@@ -39,17 +38,11 @@ from torch import nn
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", "..", ".."))
 
+from audio_tpu_torch._internal.scripts import load_by_path  # noqa: E402
 
-def _load(name: str, path: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    spec.loader.exec_module(module)
-    return module
-
-
-biasing = _load("biasing_torch", os.path.join(_HERE, "biasing_torch.py"))
-conformer_rnnt = _load("conformer_rnnt_train_torch", os.path.join(_HERE, "..", "conformer_rnnt", "train_torch.py"))
+biasing = load_by_path("biasing_torch", os.path.join(_HERE, "biasing_torch.py"))
+conformer_rnnt = load_by_path("conformer_rnnt_train_torch",
+                              os.path.join(_HERE, "..", "conformer_rnnt", "train_torch.py"))
 
 import audio_tpu_torch.functional as F  # noqa: E402
 from audio_tpu_torch._interop import from_jax_params  # noqa: E402

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX and nothing of the JAX package.
 
 Scans every module of ``audio_tpu_torch``, ``chip_smoke.py``, the train
-recipes ``examples/asr/emformer_rnnt/train_torch.py``, the Conformer RNN-T and
-TCPGen-biasing recipes' and the SSL recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
+recipes ``examples/asr/emformer_rnnt/train_torch.py``, the Conformer RNN-T,
+TCPGen-biasing, AVSR and SSL recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
 ``csrc/`` holds one CUDA source for each ported kernel and that no module still
 announces a kernel or a gradient as missing.
 """
@@ -20,7 +20,10 @@ SSL_RECIPES = [ROOT / "examples" / "self_supervised_learning" / f"{name}_torch.p
 SSL_RECIPES.append(ROOT / "examples" / "hubert" / "finetune_torch.py")
 CONFORMER_RECIPES = [ROOT / "examples" / "asr" / "conformer_rnnt" / "train_torch.py"] + [
     ROOT / "examples" / "asr" / "conformer_rnnt_biasing" / f"{name}_torch.py" for name in ("biasing", "train")]
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES
+AVSR_RECIPES = [ROOT / "examples" / "avsr" / f"{name}_torch.py"
+                for name in ("frontends", "lrs3", "train", "average_checkpoints", "eval")]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES
+           + AVSR_RECIPES)
 
 
 def _forbidden(module: str) -> bool:
@@ -45,7 +48,9 @@ def test_scan_covers_the_port():
     for recipe in ("self_supervised_learning/losses_torch.py", "self_supervised_learning/lr_schedulers_torch.py",
                    "self_supervised_learning/train_hubert_torch.py", "self_supervised_learning/train_wav2vec2_torch.py",
                    "hubert/finetune_torch.py", "asr/conformer_rnnt/train_torch.py",
-                   "asr/conformer_rnnt_biasing/biasing_torch.py", "asr/conformer_rnnt_biasing/train_torch.py"):
+                   "asr/conformer_rnnt_biasing/biasing_torch.py", "asr/conformer_rnnt_biasing/train_torch.py",
+                   "avsr/frontends_torch.py", "avsr/lrs3_torch.py", "avsr/train_torch.py",
+                   "avsr/average_checkpoints_torch.py", "avsr/eval_torch.py"):
         assert f"examples/{recipe}" in names and (ROOT / "examples" / recipe).is_file()
     for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
