@@ -27,6 +27,10 @@ predictor alone, for transducers built around it.
 The positional convolution's weight norm gets ``original1 = w`` and
 ``original0 = |w|`` over dims (0, 1), from which it rebuilds ``w`` within a few
 ulp.
+``wav2letter_state_dict_from_jax_params``, ``deepspeech_state_dict_from_jax_params``
+and ``conv_tasnet_state_dict_from_jax_params`` are the inverses of
+``import_wav2letter_state_dict``, ``import_deepspeech_state_dict`` and
+``import_conv_tasnet_state_dict``.
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["conformer_state_dict_from_jax_params", "from_jax_params", "hubert_pretrain_state_dict_from_jax_params",
+__all__ = ["conformer_state_dict_from_jax_params", "conv_tasnet_state_dict_from_jax_params",
+           "deepspeech_state_dict_from_jax_params", "from_jax_params", "hubert_pretrain_state_dict_from_jax_params",
            "predictor_state_dict_from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
-           "wav2vec2_state_dict_from_jax_params", "wavlm_state_dict_from_jax_params"]
+           "wav2letter_state_dict_from_jax_params", "wav2vec2_state_dict_from_jax_params",
+           "wavlm_state_dict_from_jax_params"]
 
 
 def _leaf(value: Any, device) -> torch.Tensor:
@@ -269,4 +275,73 @@ def conformer_state_dict_from_jax_params(variables: Any, device="cuda", prefix: 
             sd[f"{seq}.5.bias"] = _leaf(conv["pointwise_conv2"]["bias"], device)
         _ffn(sd, f"{name}.ffn2", layer["ffn2"], device)
         _norm(sd, f"{name}.final_layer_norm", layer["final_layer_norm"], device)
+    return sd
+
+
+def wav2letter_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``Wav2Letter`` ``state_dict`` from the JAX package's flax parameters ``{conv_{i}}``: twelve
+    convolutions are the waveform model (``acoustic_model.0.0``, then ``acoustic_model.1.{0,2,...,20}``), eleven
+    the spectral one (``acoustic_model.{0,2,...,20}``)."""
+    tree = params["params"] if "params" in params else params
+    n = _count(tree, "conv_")
+    names = ([f"acoustic_model.1.{2 * i}" for i in range(n - 1)] if n == 12 else
+             [f"acoustic_model.{2 * i}" for i in range(n)])
+    if n == 12:
+        names.insert(0, "acoustic_model.0.0")
+    sd: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(names):
+        _conv(sd, name, tree[f"conv_{i}"], device)
+    return sd
+
+
+def deepspeech_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``DeepSpeech`` ``state_dict`` from the JAX package's flax parameters: ``fc1``-``fc4`` and
+    ``out`` transposed, ``rnn_fwd``/``rnn_bwd`` as ``bi_rnn``'s forward and ``_reverse`` weights."""
+    tree = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2", "fc3"):
+        _dense(sd, f"{name}.fc", tree[name]["fc"], device)
+    for direction, suffix in (("rnn_fwd", ""), ("rnn_bwd", "_reverse")):
+        rnn = tree[direction]
+        for kind in ("ih", "hh"):
+            sd[f"bi_rnn.weight_{kind}_l0{suffix}"] = _leaf(rnn[f"w_{kind}"], device).t().contiguous()
+        for kind in ("ih", "hh"):
+            sd[f"bi_rnn.bias_{kind}_l0{suffix}"] = _leaf(rnn[f"b_{kind}"], device)
+    _dense(sd, "fc4.fc", tree["fc4"]["fc"], device)
+    _dense(sd, "out", tree["out"], device)
+    return sd
+
+
+def _conv_tasnet_pointwise(out: dict, name: str, node: dict, device) -> None:
+    """flax Dense {kernel (in, out), bias} -> torch Conv1d of kernel 1 {weight (out, in, 1), bias}."""
+    out[f"{name}.weight"] = _leaf(node["kernel"], device).t()[:, :, None].contiguous()
+    if "bias" in node:
+        out[f"{name}.bias"] = _leaf(node["bias"], device)
+
+
+def conv_tasnet_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``ConvTasNet`` ``state_dict`` from the JAX package's flax parameters: the encoder's kernel
+    (K, 1, F) -> (F, 1, K), the decoder's (K, F, 1) -> (F, 1, K) (``ConvTranspose1d``'s layout), the 1x1
+    convolutions' Dense kernels (in, out) -> (out, in, 1), the depthwise kernels (K, 1, C) -> (C, 1, K), each
+    PReLU's scalar -> (1,), each norm's scale and bias -> weight and bias."""
+    tree = params["params"] if "params" in params else params
+    mg = tree["mask_generator"]
+    sd: Dict[str, torch.Tensor] = {"encoder.weight": _leaf(tree["encoder"]["kernel"], device).permute(2, 1, 0)
+                                   .contiguous()}
+    _norm(sd, "mask_generator.input_norm", mg["input_norm"], device)
+    _conv_tasnet_pointwise(sd, "mask_generator.input_conv", mg["input_conv"], device)
+    for i in range(_count(mg, "conv_layers_")):
+        block, name = mg[f"conv_layers_{i}"], f"mask_generator.conv_layers.{i}"
+        _conv_tasnet_pointwise(sd, f"{name}.conv_layers.0", block["conv1x1_in"], device)
+        sd[f"{name}.conv_layers.1.weight"] = _leaf(block["prelu1"]["alpha"], device).reshape(1)
+        _norm(sd, f"{name}.conv_layers.2", block["norm1"], device)
+        _conv(sd, f"{name}.conv_layers.3", block["depthwise"], device)
+        sd[f"{name}.conv_layers.4.weight"] = _leaf(block["prelu2"]["alpha"], device).reshape(1)
+        _norm(sd, f"{name}.conv_layers.5", block["norm2"], device)
+        if "res_out" in block:
+            _conv_tasnet_pointwise(sd, f"{name}.res_out", block["res_out"], device)
+        _conv_tasnet_pointwise(sd, f"{name}.skip_out", block["skip_out"], device)
+    sd["mask_generator.output_prelu.weight"] = _leaf(mg["output_prelu"]["alpha"], device).reshape(1)
+    _conv_tasnet_pointwise(sd, "mask_generator.output_conv", mg["output_conv"], device)
+    sd["decoder.weight"] = _leaf(tree["decoder_kernel"], device).permute(1, 2, 0).contiguous()
     return sd

@@ -9,7 +9,8 @@ Where the JAX package materialises a gather that grows with the signal, the
 port computes the same sums without it: ``detect_pitch_frequency`` forms the
 NCCF's lagged frames one block of rows at a time, and ``loudness`` averages
 its gating blocks over a window view.  ``convolve`` runs a depthwise
-convolution with TF32 off inside the call, whatever the caller's cuDNN flags.
+convolution with TF32 off in its forward and its backward, whatever the
+caller's cuDNN flags (``utils.precision.exact_conv``).
 ``deemphasis`` runs through ``lfilter`` and ``loudness`` through its biquads,
 so a CUDA float32 signal takes kernel K1 there.  The SpecAugment masks take a
 ``torch.Generator`` where the JAX package takes a key.
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .._internal.windows import hann_window
+from ..utils.precision import exact_conv
 from ._filtering import highpass_biquad, lfilter, treble_biquad
 from ._resample import resample
 from ._spectral import phase_vocoder
@@ -467,7 +469,7 @@ def fftconvolve(x: torch.Tensor, y: torch.Tensor, mode: str = "full") -> torch.T
 
 def convolve(x: torch.Tensor, y: torch.Tensor, mode: str = "full") -> torch.Tensor:
     """True convolution along the last axis via the direct method: a depthwise convolution,
-    one group a row, with TF32 off inside the call."""
+    one group a row, with TF32 off in its forward and its backward (``exact_conv``)."""
     _check_shape_compatible(x, y)
     x_size, y_size = x.shape[-1], y.shape[-1]
     if x.shape[-1] < y.shape[-1]:
@@ -479,8 +481,7 @@ def convolve(x: torch.Tensor, y: torch.Tensor, mode: str = "full") -> torch.Tens
     num = math.prod(x.shape[:-1])
     rx = x.reshape((1, num, x.shape[-1]))  # (N=1, C=num, W) depthwise
     ry = torch.flip(y.reshape((num, 1, y.shape[-1])), (-1,))  # (O=num, I=1, K)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        out = F.conv1d(rx, ry, padding=y.shape[-1] - 1, groups=num)
+    out = exact_conv(rx, ry, padding=y.shape[-1] - 1, groups=num)
     result = out.reshape(x.shape[:-1] + (out.shape[-1],))
     return _apply_convolve_mode(result, x_size, y_size, mode)
 

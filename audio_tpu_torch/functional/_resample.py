@@ -7,8 +7,9 @@ On the CPU the kernel is applied as the JAX package applies it there: a
 frame view of the padded signal times the kernel.  On CUDA that frame
 gather would grow the signal by kernel width / ``orig_freq`` (about 14x at
 48 kHz -> 16 kHz), so the strided product runs as one strided convolution,
-the JAX package's form on the TPU, with TF32 off inside the call whatever
-the caller's cuDNN flags: the DSP products are exact float32.
+the JAX package's form on the TPU, with TF32 off in its forward and its
+backward whatever the caller's cuDNN flags (``utils.precision.exact_conv``):
+the DSP products are exact float32.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.precision import exact_conv
 from ._stft import frame_signal
 
 __all__ = ["resample", "get_sinc_resample_kernel", "apply_sinc_resample_kernel"]
@@ -90,8 +92,7 @@ def apply_sinc_resample_kernel(
     x = F.pad(waveform.reshape(-1, length), (width, width + orig_freq))
     kernel = kernel.to(device=x.device, dtype=x.dtype)
     if x.is_cuda:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            y = F.conv1d(x[:, None, :], kernel[:, None, :], stride=orig_freq)  # (B, new_freq, n_frames)
+        y = exact_conv(x[:, None, :], kernel[:, None, :], stride=orig_freq)  # (B, new_freq, n_frames)
         resampled = y.transpose(1, 2).reshape(x.shape[0], -1)
     else:
         frames = frame_signal(x, kernel.shape[-1], orig_freq)  # (B, n_frames, K)

@@ -1,9 +1,13 @@
-"""Models of the PyTorch port: the Emformer RNN-T and its beam search, Conformer, wav2vec2/HuBERT and WavLM."""
+"""Models of the PyTorch port: the Emformer RNN-T and its beam search, Conformer, wav2vec2/HuBERT, WavLM, Wav2Letter,
+DeepSpeech and Conv-TasNet."""
 
 from .conformer import Conformer
+from .conv_tasnet import ConvTasNet, conv_tasnet_base
+from .deepspeech import DeepSpeech
 from .emformer import Emformer
 from .rnnt import RNNT, emformer_rnnt_base, emformer_rnnt_model
 from .rnnt_decoder import Hypothesis, RNNTBeamSearch, rnnt_greedy_decode
+from .wav2letter import Wav2Letter
 from .wav2vec2 import (
     HuBERTPretrainModel,
     Wav2Vec2Model,
@@ -26,13 +30,17 @@ from .wavlm import WavLMModel, wavlm_base, wavlm_base_plus, wavlm_large, wavlm_m
 
 __all__ = [
     "Conformer",
+    "ConvTasNet",
+    "DeepSpeech",
     "Emformer",
     "HuBERTPretrainModel",
     "Hypothesis",
     "RNNT",
     "RNNTBeamSearch",
+    "Wav2Letter",
     "Wav2Vec2Model",
     "WavLMModel",
+    "conv_tasnet_base",
     "emformer_rnnt_base",
     "emformer_rnnt_model",
     "hubert_base",

@@ -41,6 +41,7 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from ..._interop import weight_norm_pair
+from ...utils.precision import exact_conv_module
 from ..emformer import _uniform_
 
 __all__ = [
@@ -83,15 +84,14 @@ def _reset(module: nn.Module, generator: Optional[torch.Generator]) -> None:
 
 
 def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)``; on the card with cuDNN's TF32 off.  On the CPU a half-precision convolution
-    runs in float32 on the same (rounded) operands and is rounded once: oneDNN's bfloat16 grouped
-    convolution (the positional embedding's) is wrong in some torch CPU builds (2.13)."""
+    """``conv(x)`` with cuDNN's TF32 off in its forward and its backward (``exact_conv_module``).  On the CPU a
+    half-precision convolution runs in float32 on the same (rounded) operands and is rounded once: oneDNN's
+    bfloat16 grouped convolution (the positional embedding's) is wrong in some torch CPU builds (2.13)."""
     if not x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         bias = None if conv.bias is None else conv.bias.float()
         return F.conv1d(x.float(), conv.weight.float(), bias, conv.stride, conv.padding, conv.dilation,
                         conv.groups).to(x.dtype)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        return conv(x)
+    return exact_conv_module(conv, x)
 
 
 class LayerNorm(nn.LayerNorm):

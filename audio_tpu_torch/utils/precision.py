@@ -15,18 +15,25 @@ operations in f32 and so computes another function than the JAX package does.
 Losses whose reductions must stay accurate (``rnnt_loss``'s log-semiring DP)
 compute in f32 from bf16 logits themselves.
 
-``exact_matmul`` is the other side: the DSP products (filterbanks, DCT
-matrices) stay exact float32 on the card whatever the caller set for TF32.
+``exact_matmul``, ``exact_conv`` and ``tf32_off`` are the other side: the DSP
+products (filterbanks, DCT matrices), the models' convolutions and cuDNN's RNN
+stay exact float32 on the card whatever the caller set for TF32, in the forward
+and in the backward.  Autograd runs a backward under the flags of the moment it
+runs, not those of its forward, so a ``cudnn.flags`` block around a forward
+alone leaves its gradients to the caller's setting; ``tf32_off`` turns cuDNN's
+and cuBLAS's TF32 off in both directions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
-__all__ = ["cast_floating", "exact_matmul", "mixed_precision"]
+__all__ = ["cast_floating", "exact_conv", "exact_conv_module", "exact_matmul", "mixed_precision", "tf32_off"]
 
 
 def _is_float(x: Any) -> bool:
@@ -78,14 +85,96 @@ def mixed_precision(fn: Callable, compute_dtype: torch.dtype = torch.bfloat16, *
     return wrapped
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's and cuBLAS's TF32 off inside the block; the caller's flags come back after it."""
+    cudnn, cublas = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, cublas
+
+
+def _record(fn: Callable, args: Sequence, needs: Sequence[bool]):
+    """``fn``'s graph on detached copies of the tensor arguments, under ``_no_tf32``: (those copies, the gradient
+    edges of its outputs, its outputs)."""
+    inputs = [a.detach().requires_grad_(need) if torch.is_tensor(a) else a for a, need in zip(args, needs)]
+    with torch.enable_grad(), _no_tf32():
+        out = fn(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    return inputs, [torch.autograd.graph.get_gradient_edge(o) for o in outs], out
+
+
+class _TF32Off(torch.autograd.Function):
+    """``fn(*args)`` with TF32 off in its forward and in its backward.  The forward records ``fn``'s own graph; the
+    backward differentiates it under ``_no_tf32``.  The graph holds only what ``fn``'s operations save, and is let
+    go after the first backward; a backward through a retained graph records it again from the saved arguments."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        ctx.fn, ctx.needs = fn, ctx.needs_input_grad[1:]
+        ctx.constants = [None if torch.is_tensor(a) else a for a in args]
+        ctx.save_for_backward(*(a if torch.is_tensor(a) else None for a in args))
+        inputs, edges, out = _record(fn, args, ctx.needs)
+        ctx.graph = (inputs, edges)
+        if isinstance(out, tuple):
+            return tuple(o.detach() for o in out)
+        return out.detach()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        if ctx.graph is None:
+            args = [c if t is None else t for t, c in zip(ctx.saved_tensors, ctx.constants)]
+            inputs, edges, _ = _record(ctx.fn, args, ctx.needs)
+        else:
+            (inputs, edges), ctx.graph = ctx.graph, None
+        wanted = [i for i, need in enumerate(ctx.needs) if need]
+        with _no_tf32():
+            got = torch.autograd.grad(edges, [inputs[i] for i in wanted], grads, allow_unused=True)
+        out = [None] * len(inputs)
+        for i, g in zip(wanted, got):
+            out[i] = g
+        return (None, *out)
+
+
+def tf32_off(fn: Callable, *args):
+    """``fn(*args)`` (a tensor or a tuple of tensors) with cuDNN's and cuBLAS's TF32 off in its forward and in its
+    backward, whatever the caller's flags.  Gradients reach the tensors among ``args`` that require them, so
+    ``fn`` takes every parameter it uses as an argument (``torch.func.functional_call`` for a module's)."""
+    if not (torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad for a in args)):
+        with _no_tf32():
+            return fn(*args)
+    return _TF32Off.apply(fn, *args)
+
+
+def _tuple(value, n: int) -> list:
+    return list(value) if isinstance(value, (tuple, list)) else [value] * n
+
+
+def exact_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, stride=1, padding=0,
+               dilation=1, groups: int = 1, transposed: bool = False, output_padding=0) -> torch.Tensor:
+    """A convolution (``F.conv{1,2,3}d``, or ``F.conv_transpose{1,2,3}d`` with ``transposed``; the weight in the
+    matching module's layout) through ``tf32_off``: exact float32 on the card in both directions."""
+    n = weight.dim() - 2
+    conf = (_tuple(stride, n), _tuple(padding, n), _tuple(dilation, n), transposed, _tuple(output_padding, n), groups)
+    return tf32_off(lambda x_, w_, b_: torch.ops.aten.convolution(x_, w_, b_, *conf), x, weight, bias)
+
+
+def exact_conv_module(conv: torch.nn.modules.conv._ConvNd, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for an ``nn.Conv{1,2,3}d`` or ``nn.ConvTranspose{1,2,3}d`` with zero padding given in samples,
+    through ``exact_conv``."""
+    if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
+        raise ValueError(f"exact_conv_module takes zero padding given in samples, not {conv.padding!r} "
+                         f"({conv.padding_mode})")
+    return exact_conv(x, conv.weight, conv.bias, conv.stride, conv.padding, conv.dilation, conv.groups,
+                      conv.transposed, conv.output_padding)
+
+
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with cuBLAS's TF32 turned off inside the call, whatever the caller's flag (as
-    ``functional.convolve`` turns off cuDNN's): a float32 product stays exact float32 on the card."""
+    """``a @ b`` through ``tf32_off`` (cuBLAS's TF32 off in the product and in its gradients, whatever the
+    caller's flag): a float32 product stays exact float32 on the card."""
     if not (a.is_cuda or b.is_cuda):
         return a @ b
-    previous = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = previous
+    return tf32_off(torch.matmul, a, b)

@@ -182,11 +182,28 @@ Phases, each of which raises on failure:
    and audio ResNet1D front ends, FFN fusion, 16-layer Conformer, LSTM predictor, ReLU joiner) in f32 on 8
    clips of 100-200 frames of 96x96 with 640 samples a frame and up to 40 targets, dropout on, at the
    schedule's peak: K8 only on "stream"; timed, profiled once, its peak memory, video frames a second and
-   its operations (``torch.utils.flop_counter``) against the FP32 peak; (b) at B=2 x 16 frames against the
+   its operations (``step_flops``) against the FP32 peak; (b) at B=2 x 16 frames against the
    CPU (loss 1e-4 relative, every gradient 1e-3 of its peak); (c) ``fuse``'s bits with cuDNN's TF32 on;
    (d) ``eval_torch.py``'s greedy decode on 8 clips of 100-200 frames, timed and profiled, at B=2 its
    tokens and counts equal to the CPU's, then the recipe's ``--overfit`` gate on the card (the tiny model,
-   400 steps, batch 8, lr 2e-3, warm-up 40) decoding every transcript exactly.
+   400 steps, batch 8, lr 2e-3, warm-up 40) decoding every transcript exactly; the front ends' gradients with
+   cuDNN's TF32 on in the backward (``check_grads_tf32``);
+17. Wav2Letter, DeepSpeech and Conv-TasNet (``examples/asr/wav2letter/train_torch.py``,
+   ``examples/source_separation/train_torch.py``, weights drawn as flax's ``init`` draws from CUDA seeds 220-249):
+   (a) the Wav2Letter CTC step at full width (23.3M parameters) in f32 on 8 voiced clips of 4-8 s padded to 8 s
+   with 10-15 characters a second (MFCC through K2, only on "fft"; ``ctc_loss`` at (8, 401, 29)), timed,
+   profiled, its peak memory and ``ctc_loss``'s share (timed in turn with the step); at B=2 x 1-2 s the features
+   and the greedy tokens against the CPU, the loss and every gradient in float64 and in float32
+   (``compare_with_cpu_f32_f64``); the recipe's ``--overfit`` gate; (b) ``DeepSpeech(161, 2048, 29)`` on the power
+   spectrogram (n_fft 320, K2 only on "fft") of 16 clips of 10 s: the forward, and the forward with ``ctc_loss``
+   and its backward, timed; at B=2 x 2 s against the CPU likewise; (c) the Conv-TasNet step
+   (``conv_tasnet_base(2)``, Adam, the clip) in f32 on 8 x 3 s at 8 kHz, timed, profiled, its peak memory and FLOPs;
+   at B=2 x 0.5 s against the CPU likewise; the recipe's ``--overfit`` gate; the train steps of phases 14-17 also
+   timed in turn with ``tf32_off`` made a plain call (``helper_cost``); (d) ``check_grads_tf32`` (each f32 gradient with TF32 on while the
+   backward runs against two runs with it off, the same bits where those agree; the fault's size before the
+   repair printed beside) on the three new models, wav2vec2_base's feature extractor and positional convolution at
+   phase 14's batch, one Conformer layer at phase 15's, ``convolve`` and ``resample`` on phase 10's rows and
+   ``exact_matmul`` (cuBLAS's flag).
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -202,6 +219,7 @@ Prints one JSON line of per-kernel numbers, then, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -3513,8 +3531,8 @@ class SSLCase:
         return model_flops(backbone, n_samples, batch, backward="all") + 3 * batch * head
 
 
-def check_ssl_grads(name: str, got: dict, ref: dict) -> float:
-    """Each card gradient within SSL_GRAD_TOL of its largest CPU entry.  The attention's key bias, whose
+def check_ssl_grads(name: str, got: dict, ref: dict, tol: float = SSL_GRAD_TOL) -> float:
+    """Each card gradient within ``tol`` (SSL_GRAD_TOL) of its largest CPU entry.  The attention's key bias, whose
     gradient is zero in exact arithmetic (the softmax ignores it), is held to 1e-6 of the model's largest
     gradient entry on both sides; a gradient not computed (None) must be so on both sides.  The worst error
     over its peak."""
@@ -3536,8 +3554,8 @@ def check_ssl_grads(name: str, got: dict, ref: dict) -> float:
                                      f"past 1e-6 of the largest entry {top:.3e}")
             continue
         err = float((g - r).abs().max())
-        if err > SSL_GRAD_TOL * peak:
-            raise AssertionError(f"{name}: the gradient of {k} is off the CPU's by {err:.3e}, past {SSL_GRAD_TOL:g} "
+        if err > tol * peak:
+            raise AssertionError(f"{name}: the gradient of {k} is off the CPU's by {err:.3e}, past {tol:g} "
                                  f"of its peak {peak:.3e}")
         worst = max(worst, err / peak)
     return worst
@@ -3663,10 +3681,11 @@ def check_span_masks(name: str, model, mask, wav_lengths, starts_fn) -> dict:
     return {"spans": n_spans, "masked_frames": counts}
 
 
-def time_ssl_step(name: str, case: SSLCase, step, batch: tuple, g, card: str, flops: float, peak_rate: float) -> dict:
+def time_ssl_step(name: str, case: SSLCase, step, batch: tuple, g, card: str, flops: float, peak_rate: float,
+                  helper_ab: bool = False) -> dict:
     """``time_train_step`` of the update, and the model FLOPs' share of the peak rate."""
     lengths = batch[-1] if case.kind == "hubert" else batch[1]
-    out = time_train_step(name, lambda: case(step, batch, g), float(lengths.sum()) / SR, card)
+    out = time_train_step(name, lambda: case(step, batch, g), float(lengths.sum()) / SR, card, helper_ab=helper_ab)
     out.update(model_tflop=flops / 1e12, share_of_peak=flops / (out["ms"] / 1e3) / peak_rate)
     print(f"  {name}: model {out['model_tflop']:.3f} TFLOP a step = {out['share_of_peak']:.3f} of "
           f"{peak_rate / 1e12:g} TFLOP/s on {card}")
@@ -3719,7 +3738,7 @@ def run_hubert_pretrain(recipe, dev, card: str) -> dict:
         step = case.step(m, HUBERT_START, dtype)
         first = case(step, batch, g)
         check_finite_step(name, first, step.params)
-        out[label] = time_ssl_step(name, case, step, batch, g, card, flops, rate)
+        out[label] = time_ssl_step(name, case, step, batch, g, card, flops, rate, helper_ab=label == "f32")
         del m, step
         torch.cuda.empty_cache()
     out["pos_conv"] = time_pos_conv(model.wav2vec2, SSL_TRAIN_B, frames_of(model.wav2vec2, wav.shape[1]), card)
@@ -3867,6 +3886,7 @@ CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U = 2, 4, 3, 20  # the card against the
 CF_SEARCH_CMP_S = 2  # the f32 search against the CPU: CF_CMP_B clips of this many seconds
 CF_LOSS_TOL, CF_GRAD_TOL = 1e-4, 1e-3  # loss (relative) and each gradient (of its peak), card against CPU
 CF_SEED = 160  # the CUDA and numpy seeds of phase 15 are 160-189
+TF32_GRAD_TOL = 1e-4  # f32 gradients with TF32 on in the backward against off, of each peak, where two runs differ
 
 
 def conformer_targets(dev, b: int, u: int, v: int, seed: int):
@@ -3921,9 +3941,10 @@ def compare_step_with_cpu(name: str, model, make_step, card_batch, loss_fn) -> d
     return {"loss": got, "cpu_loss": ref, "loss_rel": rel, "grad_err_of_peak": grad_err}
 
 
-def time_train_step(name: str, one, audio_s: float, card: str, against_key_averages: bool = False) -> dict:
+def time_train_step(name: str, one, audio_s: float, card: str, against_key_averages: bool = False,
+                    helper_ab: bool = False) -> dict:
     """Five timed steps (CUDA events, median) after a warm-up, the peak memory over them, seconds of audio a
-    second, and one profiled step (see ``profile_batch``)."""
+    second, and one profiled step (see ``profile_batch``); with ``helper_ab``, then ``helper_cost``."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
@@ -3938,6 +3959,8 @@ def time_train_step(name: str, one, audio_s: float, card: str, against_key_avera
           f"of audio a second ({audio_s:.2f} s a step), peak memory {peak_gb:.3f} GB; losses "
           f"{[round(v, 4) for v in losses]} on {card}")
     out["profile"] = profile_batch(name, one, against_key_averages)
+    if helper_ab:
+        out["helper"] = helper_cost(name, one, card)
     return out
 
 
@@ -3979,7 +4002,7 @@ def run_conformer_rnnt_train(recipe, dev, card: str) -> dict:
     check_finite_step(name, first, step.params)
     out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first),
            "encoder_frames": enc_frames}
-    out.update(time_train_step(name, one, float(lengths.sum()) / SR, card))
+    out.update(time_train_step(name, one, float(lengths.sum()) / SR, card, helper_ab=True))
     del step
     torch.cuda.empty_cache()
 
@@ -4169,7 +4192,6 @@ AV_V, AV_PARAMS = 1024, 45_637_440
 AV_B, AV_FRAMES, AV_MIN_FRAMES, AV_SIZE, AV_U = 8, 200, 100, 96, 40
 AV_CMP_B, AV_CMP_FRAMES, AV_CMP_MIN_FRAMES, AV_CMP_U = 2, 16, 8, 10  # the card against the CPU in f32
 AV_SEED = 190  # the CUDA and numpy seeds of phase 16 are 190-219
-AV_TF32_GRAD_TOL = 1e-4  # the front ends' gradients with TF32 on against off, of each peak, where runs differ
 AV_FPS = 25
 # the recipe's memorization gate with the arguments of the JAX package's slow test of it
 AV_OVERFIT = ["--synthetic", "--tiny", "--steps", "400", "--global-batch", "8", "--overfit", "--learning-rate", "2e-3",
@@ -4194,15 +4216,30 @@ def av_batch(dev, b: int, frames: int, min_frames: int, u: int, v: int, seed: in
     return videos, audios, lengths.to(torch.int32), tgt, tgt_lens
 
 
+def _conv_backward_flops(grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation, transposed,
+                         output_padding, groups, output_mask, out_shape, **kwargs) -> int:
+    """``torch.utils.flop_counter``'s count of a convolution's backward with the weight gradient's term divided
+    by ``groups``: torch's formula pairs every input channel with every output channel there, so a depthwise
+    convolution of C channels counted C times its operations."""
+    from torch.utils.flop_counter import conv_backward_flop
+
+    count = conv_backward_flop.__wrapped__  # on shapes, as this function is called
+    conf = (grad_out_shape, x_shape, w_shape, bias, stride, padding, dilation, transposed, output_padding, groups)
+    grad_input = count(*conf, [output_mask[0], False], out_shape=out_shape)
+    grad_weight = count(*conf, [False, output_mask[1]], out_shape=out_shape)
+    return grad_input + grad_weight // groups
+
+
 def step_flops(step, batch) -> float:
     """Floating-point operations of one forward and backward of ``step.loss`` on ``batch`` (convolutions,
-    products and attention, as ``torch.utils.flop_counter`` counts them from the shapes; K8 and the
-    element-wise work are not counted)."""
+    products and attention, as ``torch.utils.flop_counter`` counts them from the shapes, a grouped convolution's
+    weight gradient by ``_conv_backward_flops``; K8 and the element-wise work are not counted)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     step.optimizer.zero_grad(set_to_none=True)
-    with torch.enable_grad(), FlopCounterMode(display=False) as counter:
+    with torch.enable_grad(), FlopCounterMode(
+            display=False, custom_mapping={torch.ops.aten.convolution_backward: _conv_backward_flops}) as counter:
         step.loss(*batch).backward()
     step.optimizer.zero_grad(set_to_none=True)
     return float(counter.get_total_flops())
@@ -4253,40 +4290,61 @@ def check_step_lattice(recipe, step, batch, card: str) -> dict:
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
 
 
-def check_front_end_grads_tf32(model, inputs) -> dict:
-    """The front ends' f32 gradients of a scalar of ``fuse`` with cuDNN's TF32 on while the backward runs, against
-    two runs with it off: autograd runs a convolution's backward under the flags of that moment, and every
-    front-end convolution turns TF32 off in its backward too.  Equal bits where the two runs with TF32 off
-    agree bit for bit; else (cuDNN's weight gradients may add in any order) within AV_TF32_GRAD_TOL of each
-    gradient's peak: TF32 rounds each operand to 2^-11 of itself, which moves the largest of these gradients
-    by about 1e-3 of its peak."""
+@contextlib.contextmanager
+def tf32_on(flag: str):
+    """cuDNN's ("cudnn") or cuBLAS's ("cublas") TF32 at PyTorch's default, on, inside the block (phase 1 turned
+    both off for the whole process)."""
     import torch
 
-    def grads(tf32: bool) -> dict:
-        previous = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        try:
-            model.zero_grad(set_to_none=True)
-            with torch.enable_grad():
-                model.fuse(*inputs)[0].square().mean().backward()
-        finally:
-            torch.backends.cudnn.allow_tf32 = previous
-        out = {n: p.grad.clone() for n, p in model.named_parameters()
-               if n.startswith(("video_frontend.", "audio_frontend."))}
-        model.zero_grad(set_to_none=True)
-        return out
+    backend = torch.backends.cudnn if flag == "cudnn" else torch.backends.cuda.matmul
+    previous = backend.allow_tf32
+    backend.allow_tf32 = True
+    try:
+        yield
+    finally:
+        backend.allow_tf32 = previous
+
+
+def check_grads_tf32(name: str, loss_fn, leaves: dict, flag: str = "cudnn") -> dict:
+    """The f32 gradients of ``loss_fn()`` with respect to ``leaves`` ({name: tensor}) with TF32 (cuDNN's or
+    cuBLAS's, ``flag``) on while the backward runs, against two runs with it off.  Autograd runs a backward under
+    the flags of that moment; ``utils.precision.tf32_off`` (every convolution of the port, cuDNN's RNN and
+    ``exact_matmul``) turns TF32 off in the backward too.  Equal bits where the two runs with TF32 off agree bit for
+    bit; else (cuDNN's weight gradients may add in any order) within TF32_GRAD_TOL of each gradient's peak: TF32
+    rounds each operand to 2^-11 of itself.  The fault's size before the repair is the same call with
+    ``tf32_off``'s switch made a no-op in the backward (the forward alone ran with TF32 off, as every helper did
+    before): printed, not gated."""
+    from unittest import mock
+
+    import torch
+
+    from audio_tpu_torch.utils import precision
+
+    names = list(leaves)
+
+    def grads(tf32: bool, repaired: bool = True) -> dict:
+        with torch.enable_grad():
+            loss = loss_fn()
+            switch = (contextlib.nullcontext() if repaired
+                      else mock.patch.object(precision, "_no_tf32", contextlib.nullcontext))
+            with (tf32_on(flag) if tf32 else contextlib.nullcontext()), switch:
+                got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
+        return {n: g.detach().clone() for n, g in zip(names, got) if g is not None}
 
     def worst(got: dict, ref: dict) -> float:
         return max(float((got[n] - r).abs().max()) / max(float(r.abs().max()), 1e-30) for n, r in ref.items())
 
-    off, again, on = grads(False), grads(False), grads(True)
-    repeat_err, tf32_err = worst(again, off), worst(on, off)
-    print(f"  the front ends' {len(off)} f32 gradients with cuDNN's TF32 on in the backward: {tf32_err:.3e} of their "
-          f"peaks off those with it off (two runs with it off: {repeat_err:.3e}; limit "
-          f"{'0, the same bits' if repeat_err == 0 else f'{AV_TF32_GRAD_TOL:g}'})")
-    if tf32_err > (0.0 if repeat_err == 0 else AV_TF32_GRAD_TOL):
-        raise AssertionError("AVSR: cuDNN's TF32 changed the front ends' f32 gradients")
-    return {"tf32_err_of_peak": tf32_err, "repeat_err_of_peak": repeat_err}
+    off, again, on, before = grads(False), grads(False), grads(True), grads(True, repaired=False)
+    repeat_err, tf32_err, before_err = worst(again, off), worst(on, off), worst(before, off)
+    limit = 0.0 if repeat_err == 0 else TF32_GRAD_TOL
+    print(f"  {name}: {len(off)} f32 gradients with {flag}'s TF32 on in the backward: {tf32_err:.3e} of their peaks "
+          f"off those with it off (two runs with it off: {repeat_err:.3e}; limit "
+          f"{'0, the same bits' if limit == 0 else f'{limit:g}'}); before the repair (TF32 off in the forward "
+          f"alone): {before_err:.3e}")
+    if tf32_err > limit:
+        raise AssertionError(f"{name}: {flag}'s TF32 changed the f32 gradients")
+    return {"tf32_err_of_peak": tf32_err, "repeat_err_of_peak": repeat_err, "before_repair_err_of_peak": before_err,
+            "gradients": len(off)}
 
 
 def run_avsr_train(recipe, dev, card: str) -> dict:
@@ -4323,12 +4381,12 @@ def run_avsr_train(recipe, dev, card: str) -> dict:
     check_finite_step(name, first, step.params)
     out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first),
            "frames": frames}
-    out.update(time_train_step(name, one, frames / AV_FPS, card, against_key_averages=True))
+    out.update(time_train_step(name, one, frames / AV_FPS, card, against_key_averages=True, helper_ab=True))
     out["frames_per_s"] = frames / (out["ms"] / 1e3)
     flops = step_flops(step, batch)
     out.update(model_tflop=flops / 1e12, share_of_fp32_peak=flops / (out["ms"] / 1e3) / PEAK_FP32_PER_S)
     print(f"  {name}: {out['frames_per_s']:.1f} video frames a second; forward and backward "
-          f"{out['model_tflop']:.3f} TFLOP (flop_counter), {out['share_of_fp32_peak']:.3f} of the "
+          f"{out['model_tflop']:.3f} TFLOP (step_flops), {out['share_of_fp32_peak']:.3f} of the "
           f"{PEAK_FP32_PER_S / 1e12:g} TFLOP/s FP32 peak on {card}")
     out["k8"] = check_step_lattice(recipe, step, batch, card)
     del step
@@ -4356,7 +4414,9 @@ def run_avsr_train(recipe, dev, card: str) -> dict:
     print(f"  the f32 fuse (front ends and fusion) with cuDNN's TF32 on gives the same bits as with it off: {same}")
     if not same:
         raise AssertionError("AVSR: cuDNN's TF32 changed the f32 fuse output")
-    out["front_end_grads_tf32"] = check_front_end_grads_tf32(model, batch2[:3])
+    out["front_end_grads_tf32"] = check_grads_tf32(
+        "the AVSR front ends", lambda: model.fuse(*batch2[:3])[0].square().mean(),
+        {n: p for n, p in model.named_parameters() if n.startswith(("video_frontend.", "audio_frontend."))})
     del model
     torch.cuda.empty_cache()
     return out
@@ -4418,6 +4478,549 @@ def run_avsr_eval(evaluate, dev, card: str) -> dict:
     out["overfit_launches"] = {n: c for n, c in kernel_counts().items() if c}
     require_launches("the --overfit gate's 400 steps", kernel_counts(), ["lattice_row_stats"])
     print(f"  the --overfit gate passed in {out['overfit_s']:.1f} s on {card}")
+    return out
+
+
+# ------------------------------------------------------------------ phase 17: Wav2Letter, DeepSpeech, Conv-TasNet
+# examples/asr/wav2letter/train.py: B=8 clips padded to the JAX LibriSpeechBatches' max_seconds (8 s, 128,000
+# samples: 801 MFCC frames, 401 output frames), each valid for 4-8 s, 10-15 characters a second of valid audio, V 29
+W2L_B, W2L_SECONDS, W2L_MIN_S, W2L_CHARS_PER_S = 8, 8, 4, (10, 15)
+W2L_CMP_B, W2L_CMP_S, W2L_CMP_MIN_S = 2, 2, 1  # the card against the CPU in f32
+DS_B, DS_SECONDS, DS_HIDDEN, DS_N_FFT = 16, 10, 2048, 320  # DeepSpeech on a power spectrogram of 161 bins
+DS_CMP_B, DS_CMP_S = 2, 2
+TN_SR, TN_B, TN_SECONDS, TN_SOURCES = 8000, 8, 3.0, 2  # the JAX recipe's --global-batch and --seconds defaults
+TN_CMP_B, TN_CMP_S = 2, 0.5
+TN_PARAMS = 4_984_881  # conv_tasnet_base(2), as the JAX package's flax tree counts it
+P17_SEED = 220  # the CUDA and numpy seeds of phase 17 are 220-249
+# the three models' steps against the CPU (compare_with_cpu_f32_f64).  In float64 the card and the CPU compute one
+# function to rounding of 2^-53: 1e-10 of the loss, 1e-9 of each gradient's peak.  In float32 each side is held to
+# the CPU's float64 on the same batch and weights and on that side's own side of every kink (a float32 run of
+# Wav2Letter put one input of 5.7e-7 of its layer's peak on the other side, and the gradients below it moved by up to
+# 1.6e-2 of their peaks), and the card's error to F32_VS_CPU_FACTOR times the CPU's own float32 error, or to
+# F32_FLOOR of the peak (the port's CPU tests' float32 gradient limit) where the CPU's is smaller
+F64_LOSS_TOL, F64_GRAD_TOL = 1e-10, 1e-9
+F32_VS_CPU_FACTOR, F32_FLOOR, F32_LOSS_FLOOR = 8.0, 1e-4, 1e-6
+# the recipes' memorization gates with the arguments of the JAX package's slow tests of them
+W2L_OVERFIT = ["--synthetic", "--tiny", "--steps", "120", "--global-batch", "8", "--overfit", "--decode-every", "50"]
+TN_OVERFIT = ["--synthetic", "--tiny", "--steps", "150", "--global-batch", "8", "--overfit", "--learning-rate", "2e-3"]
+
+
+def transcript_batch(dev, b: int, seconds: int, min_seconds: int, seed: int):
+    """``b`` voiced clips at 16 kHz padded to ``seconds`` (the first full, the others valid for ``min_seconds`` to
+    ``seconds``), and for each 10-15 characters in [1, 29) a second of its valid audio, zero-padded."""
+    import torch
+
+    wav, lengths = padded_clips(dev, b, seconds, min_seconds, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rate = torch.randint(W2L_CHARS_PER_S[0], W2L_CHARS_PER_S[1] + 1, (b,), generator=g, device=dev)
+    tgt_lens = lengths * rate // SR
+    u = int(tgt_lens.max())
+    tgt = torch.randint(1, 29, (b, u), generator=g, device=dev) * (torch.arange(u, device=dev)[None, :]
+                                                                  < tgt_lens[:, None])
+    return wav, lengths.to(torch.int32), tgt.to(torch.int32), tgt_lens.to(torch.int32)
+
+
+class GradsOnly:
+    """A model's parameters by name and an optimizer that is never stepped: what ``compare_with_cpu_f32_f64`` reads
+    of a step, for a model that has no recipe step.  The model in training mode: cuDNN's RNN has no backward in
+    eval mode (DeepSpeech's dropout is 0, so the two modes compute the same)."""
+
+    def __init__(self, model):
+        import torch
+
+        self.model = model.train()
+        self.params = dict(model.named_parameters())
+        self.optimizer = torch.optim.SGD(self.params.values(), lr=0.0)
+
+
+@contextlib.contextmanager
+def kink_sides(record: list = None, replay: list = None):
+    """``F.relu``, ``F.prelu`` and ``torch.clamp`` of floating tensors (the kinks of phase 17's models outside
+    cuDNN's RNN) with which side of each kink every input lies on appended to ``record``, or taken, call by call in
+    the same order, from ``replay``: a float64 run then follows a float32 run's side of every kink.  Inputs within
+    rounding of a kink may fall on either side in float32, and the gradient jumps there by the whole incoming
+    gradient of that entry."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    relu, prelu, clamp = F.relu, F.prelu, torch.clamp
+    calls = None if replay is None else iter(replay)
+
+    def side(inside):
+        if calls is None:
+            if record is not None:
+                record.append(inside.cpu())
+            return inside
+        got = next(calls).to(inside.device)
+        if got.shape != inside.shape:
+            raise AssertionError(f"kink_sides: a replayed side of shape {tuple(got.shape)} for {tuple(inside.shape)}")
+        return got
+
+    def relu_(x, inplace=False):
+        above = side(x.detach() > 0)
+        return relu(x) if calls is None else x * above.to(x.dtype)
+
+    def prelu_(x, weight):
+        above = side(x.detach() > 0)
+        if calls is None:
+            return prelu(x, weight)
+        return torch.where(above, x, weight * x)  # the models' PReLUs have one slope
+
+    def clamp_(x, min=None, max=None):
+        if not (torch.is_tensor(x) and x.is_floating_point()):
+            return clamp(x, min, max)
+        above = None if min is None else side(x.detach() > min)
+        below = None if max is None else side(x.detach() < max)
+        if calls is None:
+            return clamp(x, min, max)
+        for inside, bound in ((below, max), (above, min)):
+            if inside is not None:
+                x = torch.where(inside, x, torch.as_tensor(bound, dtype=x.dtype, device=x.device))
+        return x
+
+    with mock.patch.object(F, "relu", relu_), mock.patch.object(F, "prelu", prelu_), \
+            mock.patch.object(torch, "clamp", clamp_):
+        yield
+
+
+def compare_with_cpu_f32_f64(name: str, model, make_step, card_batch, loss_fn, witness: str) -> dict:
+    """The step's loss and every gradient (dropout off) on one batch and one set of weights.  The card and the CPU
+    in float64, held to each other (F64_LOSS_TOL, F64_GRAD_TOL).  The card and the CPU in float32, each against
+    the CPU's float64 run on that side's own side of every kink (``kink_sides``): the card's error of each gradient
+    within F32_VS_CPU_FACTOR times the CPU's or F32_FLOOR of the peak, of the loss within F32_VS_CPU_FACTOR times
+    the CPU's or F32_LOSS_FLOOR (relative).  ``model`` is the float32 model on the card; the gradient ``witness``
+    names is printed on both sides, and beside it the card's error against float64 on float64's own sides."""
+    import torch
+
+    dev = card_batch[0].device
+
+    def side(device, dtype, record=None, replay=None):
+        m = copy.deepcopy(model).to(device=device, dtype=dtype).eval()
+        batch = tuple(t.to(device=device, dtype=dtype) if t.is_floating_point() else t.to(device)
+                      for t in card_batch)
+        with kink_sides(record, replay):
+            return loss_and_grads(make_step(m), lambda s, b=batch: loss_fn(s, b))
+
+    f64_sides = []
+    ref, ref_grads = side("cpu", torch.float64, record=f64_sides)
+    got, got_grads = side(dev, torch.float64)
+    rel = abs(got - ref) / abs(ref)
+    grad_err = check_ssl_grads(f"{name}, f64", got_grads, ref_grads, F64_GRAD_TOL)
+    print(f"  {name}, f64, card against the CPU: loss {got:.12f} vs {ref:.12f} (relative {rel:.3e}, limit "
+          f"{F64_LOSS_TOL:g}); {len(ref_grads)} gradients within {grad_err:.3e} of their peaks (limit "
+          f"{F64_GRAD_TOL:g})")
+    if not rel <= F64_LOSS_TOL or not grad_err <= F64_GRAD_TOL:
+        raise AssertionError(f"{name}: the card disagrees with the CPU in float64")
+
+    present = {k for k, g in ref_grads.items() if g is not None}
+
+    def err(g, r) -> float:
+        return float((g.cpu().double() - r).abs().max()) / max(float(r.abs().max()), 1e-300)
+
+    f32, flips, leaves, loss_err = {}, {}, {}, {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        sides = []
+        f32[where] = side(device, torch.float32, record=sides)
+        if {k for k, g in f32[where][1].items() if g is not None} != present:
+            raise AssertionError(f"{name}: the {where}'s float32 step computed gradients of other parameters")
+        own, own_grads = side("cpu", torch.float64, replay=sides)
+        flips[where] = sum(int((a != b).sum()) for a, b in zip(sides, f64_sides))
+        loss_err[where] = abs(f32[where][0] - own) / abs(own)
+        leaves[where] = {k: err(f32[where][1][k], own_grads[k]) for k in present}
+    for k, e in leaves["card"].items():
+        if not math.isfinite(e):
+            raise AssertionError(f"{name}: the card's float32 gradient of {k} is not finite")
+    limit = {k: max(F32_VS_CPU_FACTOR * leaves["cpu"][k], F32_FLOOR) for k in present}
+    loss_limit = max(F32_VS_CPU_FACTOR * loss_err["cpu"], F32_LOSS_FLOOR)
+    nearest = max(present, key=lambda k: leaves["card"][k] / limit[k])
+    worst = {where: max(present, key=lambda k, w=where: leaves[w][k]) for where in leaves}
+    plain = err(f32["card"][1][witness], ref_grads[witness])
+    print(f"  {name}, f32, each side against the CPU's f64 on its own kink sides (the card took {flips['card']}, the "
+          f"CPU {flips['cpu']} other than f64's): loss relative error card {loss_err['card']:.3e}, CPU "
+          f"{loss_err['cpu']:.3e} (limit {loss_limit:.3e}); of {len(present)} gradients the card's largest error "
+          f"{leaves['card'][worst['card']]:.3e} of the peak ({worst['card']}), the CPU's "
+          f"{leaves['cpu'][worst['cpu']]:.3e} ({worst['cpu']}); nearest its limit {nearest}: card "
+          f"{leaves['card'][nearest]:.3e}, CPU {leaves['cpu'][nearest]:.3e}, limit {limit[nearest]:.3e}; {witness}: card {leaves['card'][witness]:.3e}, "
+          f"CPU {leaves['cpu'][witness]:.3e}, the card on f64's own sides {plain:.3e} (limit {F32_VS_CPU_FACTOR:g} x "
+          f"the CPU's or {F32_FLOOR:g} of each peak)")
+    bad = [k for k in present if not leaves["card"][k] <= limit[k]]
+    if bad or not loss_err["card"] <= loss_limit:
+        raise AssertionError(f"{name}: the card's float32 step is further from float64 than the CPU's allows: "
+                             f"{[(k, leaves['card'][k], leaves['cpu'][k], limit[k]) for k in bad]}, loss {loss_err}")
+    return {"loss_rel_f64": rel, "grad_err_of_peak_f64": grad_err, "f32_kink_flips": flips,
+            "f32_loss_rel_err": loss_err, "f32_card_worst": [worst["card"], leaves["card"][worst["card"]]],
+            "f32_cpu_worst": [worst["cpu"], leaves["cpu"][worst["cpu"]]],
+            "f32_nearest_limit": [nearest, leaves["card"][nearest], leaves["cpu"][nearest], limit[nearest]],
+            "f32_witness": [witness, leaves["card"][witness], leaves["cpu"][witness], plain]}
+
+
+def interleaved_ms(first, second, reps: int = 5) -> dict:
+    """``first()`` and ``second()`` timed in turn (CUDA events around each, one warm-up each): their medians and
+    the median over the pairs of second / first.  The two calls meet the same pace of the host, which moves by up
+    to twice between calls taken apart."""
+    import torch
+
+    first(), second()
+    torch.cuda.synchronize()
+    runs = ([], [])
+    for _ in range(reps):
+        for fn, got in zip((first, second), runs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            got.append(start.elapsed_time(end))
+    return {"first_ms": statistics.median(runs[0]), "second_ms": statistics.median(runs[1]),
+            "ratio": statistics.median(b / a for a, b in zip(*runs)), "first_runs_ms": runs[0],
+            "second_runs_ms": runs[1]}
+
+
+def ctc_share(name: str, one, step_profile: dict, logp, targets, lengths, target_lengths, card: str) -> dict:
+    """``ctc_loss``'s forward and backward alone on the log-probabilities ``logp`` against the step ``one`` that
+    contains it: timed in turn with the step (``interleaved_ms``), and one profiled call's launches and busy time
+    against the step's profile (``step_profile``)."""
+    import torch
+
+    from audio_tpu_torch.ops.ctc import ctc_loss
+
+    def loss_alone():
+        lp = logp.clone().requires_grad_()
+        with torch.enable_grad():
+            ctc_loss(lp, targets, lengths, target_lengths, blank=0, reduction="mean").backward()
+
+    label = f"ctc_loss forward and backward alone at {tuple(logp.shape)}, L <= {targets.shape[1]}"
+    turns = interleaved_ms(one, loss_alone)
+    prof = profile_batch(label, loss_alone)
+    share = {"ms": turns["ratio"], "launches": prof["launches"] / step_profile["launches"],
+             "busy": prof["busy_ms"] / step_profile["busy_ms"]}
+    print(f"  {label}, timed in turn with the {name}: {turns['second_ms']:.3f} ms against {turns['first_ms']:.3f} ms "
+          f"(runs {', '.join(f'{a:.1f}/{b:.1f}' for a, b in zip(turns['second_runs_ms'], turns['first_runs_ms']))}); "
+          f"its share: {share['ms']:.3f} of the time (median over the pairs), {share['launches']:.3f} of the "
+          f"launches, {share['busy']:.3f} of the device's busy time on {card}")
+    return {"alone": turns, "profile": prof, "share": share}
+
+
+def helper_cost(name: str, one, card: str, reps: int = 5) -> dict:
+    """``one()`` as it runs, every convolution, cuDNN RNN and ``exact_matmul`` through ``utils.precision.tf32_off``'s
+    autograd function, timed in turn with ``one()`` where ``tf32_off`` is a plain call of its function: the cost
+    of the helper's recorded graph and nested backward.  The two compute the same numbers here, since phase 1 turned
+    TF32 off for the whole process."""
+    from unittest import mock
+
+    from audio_tpu_torch.utils import precision
+
+    def plain(fn, *args):
+        return fn(*args)
+
+    users = [m for n, m in list(sys.modules.items())
+             if n.startswith("audio_tpu_torch") and getattr(m, "tf32_off", None) is precision.tf32_off]
+
+    def without():
+        with contextlib.ExitStack() as stack:
+            for module in users:
+                stack.enter_context(mock.patch.object(module, "tf32_off", plain))
+            return one()
+
+    turns = interleaved_ms(one, without, reps)
+    pairs = ", ".join(f"{a:.1f}/{b:.1f}" for a, b in zip(turns["first_runs_ms"], turns["second_runs_ms"]))
+    print(f"  {name}: {turns['first_ms']:.3f} ms through tf32_off, {turns['second_ms']:.3f} ms with plain calls in "
+          f"its place (runs {pairs}; plain over helper, median over the pairs, {turns['ratio']:.4f}) on {card}")
+    return {"helper_ms": turns["first_ms"], "plain_ms": turns["second_ms"], "plain_over_helper": turns["ratio"]}
+
+
+def run_overfit_gate(name: str, recipe, argv: list, card: str) -> dict:
+    """A recipe's ``--overfit`` gate on the card (its ``main`` raises if the gate fails): seconds and launches."""
+    import torch
+
+    print(f"  the {name} recipe's --overfit gate on the card: train_torch.py {' '.join(argv)} --device cuda")
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with torch.enable_grad():
+        recipe.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    out = {"overfit_s": time.perf_counter() - t0, "overfit_launches": {n: c for n, c in kernel_counts().items() if c}}
+    print(f"  the {name} --overfit gate passed in {out['overfit_s']:.1f} s on {card}")
+    return out
+
+
+def run_wav2letter(recipe, dev, card: str) -> dict:
+    """Phase 17 (a): the Wav2Letter CTC train step at full width (``Wav2Letter(29, "mfcc", 13)``, weights drawn as
+    flax's ``init`` draws from CUDA seed 220), f32: MFCC (K2, only on "fft") -> normalisation -> the stack ->
+    ``ctc_loss`` (8, 401, 29) -> backward -> clip -> Adadelta, on 8 clips of 4-8 s padded to 8 s.  Timed, profiled,
+    its peak memory, ``helper_cost`` and ``ctc_share``; at B=2 x 1-2 s the features against the CPU, the loss and
+    every gradient in float64 and float32 (``compare_with_cpu_f32_f64``), the greedy tokens equal to the CPU's, the
+    gradients with cuDNN's TF32 on in the backward; the ``--overfit`` gate."""
+    import torch
+
+    from audio_tpu_torch.ops.ctc import ctc_loss
+
+    model = recipe.make_model(dev, torch.Generator(device=dev).manual_seed(P17_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    mfcc = recipe.make_mfcc(dev)
+    wav, lengths, tgt, tgt_lens = transcript_batch(dev, W2L_B, W2L_SECONDS, W2L_MIN_S, P17_SEED + 1)
+    feats, feat_lens = recipe.featurize(mfcc, wav, lengths)
+    with torch.no_grad():
+        t_out = recipe.log_probs(model, feats[:1], feat_lens[:1])[0].shape[1]
+    name = (f"Wav2Letter CTC train step, f32, B={W2L_B} x {W2L_MIN_S}-{W2L_SECONDS} s, L <= {tgt.shape[1]}, "
+            f"({W2L_B}, {t_out}, {len(recipe.LABELS)}) log-probabilities")
+    print(f"  Wav2Letter(29, mfcc, 13): {n_params} parameters ({n_params / 1e6:.2f}M), from CUDA seed {P17_SEED}; "
+          f"MFCC {tuple(feats.shape)}; targets {tgt_lens.tolist()}")
+    step = recipe.TrainStep(model.train())
+
+    def one():
+        f, fl = recipe.featurize(mfcc, wav, lengths)
+        with torch.enable_grad():
+            return step(f, fl, tgt, tgt_lens)[0]
+
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches(f"one {name}", counts, ["power_spectrogram"])
+    require_route(f"one {name}", counts, "power_spectrogram", "fft")
+    check_finite_step(name, first, step.params)
+    out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}, "first_loss": float(first),
+           "log_probs_shape": [W2L_B, t_out, len(recipe.LABELS)]}
+    out.update(time_train_step(name, one, float(lengths.sum()) / SR, card, helper_ab=True))
+    with torch.no_grad():
+        logp, in_lens = recipe.log_probs(model, feats, feat_lens)
+    out["ctc_loss"] = ctc_share("step", one, out["profile"], logp, tgt, in_lens, tgt_lens, card)
+    del step, logp
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at B=2 x 1-2 s
+    model = recipe.make_model(dev, torch.Generator(device=dev).manual_seed(P17_SEED + 3))
+    wav2, len2, tgt2, tl2 = transcript_batch(dev, W2L_CMP_B, W2L_CMP_S, W2L_CMP_MIN_S, P17_SEED + 4)
+    reset_kernel_counts()
+    feats2, fl2 = recipe.featurize(mfcc, wav2, len2)
+    require_route("the B=2 MFCC features", kernel_counts(), "power_spectrogram", "fft")
+    ref_feats, ref_fl = recipe.featurize(recipe.make_mfcc("cpu"), wav2.cpu(), len2.cpu())
+    out["features_err"] = check_close("Wav2Letter's normalised MFCC features (K2) vs the CPU, B=2", feats2.cpu(),
+                                      ref_feats, 1e-3, 0.0)
+    check_equal("Wav2Letter feature lengths vs the CPU", fl2.cpu(), ref_fl)
+    out["cpu"] = compare_with_cpu_f32_f64(f"Wav2Letter step, B={W2L_CMP_B} x {W2L_CMP_MIN_S}-{W2L_CMP_S} s", model,
+                                          recipe.TrainStep, (feats2, fl2, tgt2, tl2), lambda s, b: s.loss(*b)[0],
+                                          "acoustic_model.0.bias")
+    with torch.no_grad():
+        got = [t.cpu() for t in recipe.decode(*recipe.log_probs(model, feats2, fl2))]
+        ref = recipe.decode(*recipe.log_probs(copy.deepcopy(model).cpu(), feats2.cpu(), fl2.cpu()))
+    check_equal(f"Wav2Letter greedy counts at B={W2L_CMP_B} vs the CPU", got[1], ref[1])
+    check_equal(f"Wav2Letter greedy tokens at B={W2L_CMP_B} vs the CPU", got[0], ref[0])
+    out["cpu_counts"] = got[1].tolist()
+
+    def loss_fn():
+        lp, il = recipe.log_probs(model, feats2, fl2)
+        return ctc_loss(lp, tgt2, il, tl2, blank=0, reduction="mean")
+
+    out["grads_tf32"] = check_grads_tf32(f"Wav2Letter, B={W2L_CMP_B}", loss_fn, dict(model.named_parameters()))
+    del model
+    torch.cuda.empty_cache()
+    out.update(run_overfit_gate("Wav2Letter", recipe, W2L_OVERFIT, card))
+    if out["overfit_launches"].get("power_spectrogram", 0) < 1:
+        raise AssertionError("the Wav2Letter --overfit gate did not launch K2")
+    return out
+
+
+def deepspeech_flops(n_frames: int, n_feature: int, h: int, n_class: int) -> float:
+    """Forward FLOPs of DeepSpeech on ``n_frames`` frames (the batch's): fc1, fc2-fc4, both directions' input and
+    recurrent products, the output layer."""
+    return 2.0 * n_frames * (n_feature * h + 3 * h * h + 2 * (h * h + h * h) + h * n_class)
+
+
+def run_deepspeech(recipe, dev, card: str) -> dict:
+    """Phase 17 (b): ``DeepSpeech(161, 2048, 29)`` (weights drawn as flax's ``init`` draws, an orthogonal recurrent
+    matrix, from CUDA seed 230) on the power spectrogram (n_fft 320, hop 160: K2, only on "fft") of 16 clips of
+    10 s: the forward timed, then the forward with ``ctc_loss`` and its backward (``helper_cost``, ``ctc_share``); at
+    B=2 x 2 s the features against the CPU, the loss and every gradient in float64 and float32
+    (``compare_with_cpu_f32_f64``), and the gradients with cuDNN's TF32 on in the backward (cuDNN's RNN reads it)."""
+    import torch
+
+    from audio_tpu_torch.models import DeepSpeech
+    from audio_tpu_torch.ops.ctc import ctc_loss
+    from audio_tpu_torch.transforms import Spectrogram
+
+    n_feature, n_class = DS_N_FFT // 2 + 1, len(recipe.LABELS)
+
+    def make(seed):
+        model = DeepSpeech(n_feature, DS_HIDDEN, n_class, device=dev)
+        recipe.conformer_rnnt.flax_init_(model, torch.Generator(device=dev).manual_seed(seed))
+        return model
+
+    def features(spec, wav, lengths):
+        return spec(wav).transpose(1, 2)[:, None], torch.div(lengths, HOP, rounding_mode="floor") + 1
+
+    model = make(P17_SEED + 10)
+    n_params = sum(p.numel() for p in model.parameters())
+    spec = Spectrogram(n_fft=DS_N_FFT, hop_length=HOP, power=2.0, device=dev)
+    wav, lengths, tgt, tgt_lens = transcript_batch(dev, DS_B, DS_SECONDS, DS_SECONDS, P17_SEED + 11)
+    reset_kernel_counts()
+    x, frames = features(spec, wav, lengths)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    name = f"DeepSpeech({n_feature}, {DS_HIDDEN}, {n_class}), f32, B={DS_B} x {DS_SECONDS} s, input {tuple(x.shape)}"
+    require_launches(f"the power spectrogram of {name}", counts, ["power_spectrogram"])
+    require_route(f"the power spectrogram of {name}", counts, "power_spectrogram", "fft")
+    print(f"  {name}: {n_params} parameters ({n_params / 1e6:.2f}M), from CUDA seed {P17_SEED + 10}")
+    out = {"params": n_params, "launches": {n: c for n, c in counts.items() if c}}
+    logp = model(x)
+    if tuple(logp.shape) != (DS_B, x.shape[2], n_class) or not bool(torch.isfinite(logp).all()):
+        raise AssertionError(f"{name}: log-probabilities {tuple(logp.shape)} or not finite")
+    flops = deepspeech_flops(DS_B * x.shape[2], n_feature, DS_HIDDEN, n_class)
+    out["forward"] = time_batch(f"{name} forward", lambda: model(x), card, DS_B * DS_SECONDS, flops, PEAK_FP32_PER_S)
+
+    def one():
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = ctc_loss(model(x), tgt, frames, tgt_lens, blank=0, reduction="mean")
+            loss.backward()
+        return loss.detach()
+
+    out["train"] = time_train_step(f"{name} forward, ctc_loss and backward", one, DS_B * DS_SECONDS, card,
+                                   helper_ab=True)
+    check_finite_step(name, out["train"]["losses"][-1], dict(model.named_parameters()))
+    out["ctc_loss"] = ctc_share("forward and backward", one, out["train"]["profile"], logp.detach(), tgt, frames,
+                                tgt_lens, card)
+    del model, x, logp
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at B=2 x 2 s
+    model = make(P17_SEED + 13)
+    wav2, len2, tgt2, tl2 = transcript_batch(dev, DS_CMP_B, DS_CMP_S, DS_CMP_S, P17_SEED + 14)
+    x2, fr2 = features(spec, wav2, len2)
+    ref_x, ref_fr = features(copy.deepcopy(spec).cpu(), wav2.cpu(), len2.cpu())
+    out["features_err"] = check_close("DeepSpeech's power spectrogram (K2) vs the CPU, B=2", x2.cpu(), ref_x,
+                                      5e-4 * float(ref_x.abs().max()), 0.0)
+    check_equal("DeepSpeech frame counts vs the CPU", fr2.cpu(), ref_fr)
+
+    def loss_of(step, batch):
+        return ctc_loss(step.model(batch[0]), *batch[1:], blank=0, reduction="mean")
+
+    out["cpu"] = compare_with_cpu_f32_f64(f"DeepSpeech forward and ctc_loss, B={DS_CMP_B} x {DS_CMP_S} s", model,
+                                          GradsOnly, (x2, tgt2, fr2, tl2), loss_of, "fc1.fc.bias")
+    out["grads_tf32"] = check_grads_tf32(f"DeepSpeech, B={DS_CMP_B}",
+                                         lambda: loss_of(GradsOnly(model), (x2, tgt2, fr2, tl2)),
+                                         dict(model.named_parameters()))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_conv_tasnet(recipe, dev, card: str) -> dict:
+    """Phase 17 (c): the Conv-TasNet separation step at full width (``conv_tasnet_base(2)``, weights drawn as
+    flax's ``init`` draws from CUDA seed 240), f32: mixture -> encoder -> 3 x 8 blocks -> masks -> the transposed
+    decoder -> permutation-invariant negative Si-SNR -> backward -> clip -> Adam, on the recipe's synthetic
+    sources, 8 x 3 s at 8 kHz.  Timed, profiled, its peak memory and its operations (``step_flops``) against the
+    FP32 peak; at B=2 x 0.5 s the loss and every gradient against the CPU in float64 and float32, and the gradients
+    with cuDNN's TF32 on in the backward (the decoder's among them); the ``--overfit`` gate."""
+    import torch
+
+    model = recipe.make_model(False, TN_SOURCES, dev, torch.Generator(device=dev).manual_seed(P17_SEED + 20))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  conv_tasnet_base({TN_SOURCES}): {n_params} parameters ({n_params / 1e6:.2f}M), from CUDA seed "
+          f"{P17_SEED + 20}")
+    if n_params != TN_PARAMS:
+        raise AssertionError(f"conv_tasnet_base({TN_SOURCES}) has {n_params} parameters, not the JAX model's "
+                             f"{TN_PARAMS}")
+    sources = torch.as_tensor(next(iter(recipe.SyntheticMixtures(TN_B, TN_SOURCES, TN_SECONDS, P17_SEED + 21))),
+                              device=dev)
+    name = f"Conv-TasNet separation step, f32, B={TN_B} x {TN_SECONDS:g} s at {TN_SR} Hz, {TN_SOURCES} sources"
+    step = recipe.TrainStep(model.train())
+
+    def one():
+        with torch.enable_grad():
+            return step(sources)
+
+    reset_kernel_counts()
+    first = one()
+    torch.cuda.synchronize()
+    out = {"params": n_params, "launches": {n: c for n, c in kernel_counts().items() if c},
+           "first_loss": float(first)}
+    print(f"  launches of the port's kernels in one {name}: {out['launches']} (no TPU kernel is on this path)")
+    check_finite_step(name, first, step.params)
+    out.update(time_train_step(name, one, TN_B * TN_SECONDS, card, helper_ab=True))
+    flops = step_flops(step, (sources,))
+    out.update(model_tflop=flops / 1e12, share_of_fp32_peak=flops / (out["ms"] / 1e3) / PEAK_FP32_PER_S)
+    print(f"  {name}: forward and backward {out['model_tflop']:.3f} TFLOP (step_flops), "
+          f"{out['share_of_fp32_peak']:.3f} of the {PEAK_FP32_PER_S / 1e12:g} TFLOP/s FP32 peak on {card}")
+    del step
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at B=2 x 0.5 s
+    model = recipe.make_model(False, TN_SOURCES, dev, torch.Generator(device=dev).manual_seed(P17_SEED + 22))
+    src2 = torch.as_tensor(next(iter(recipe.SyntheticMixtures(TN_CMP_B, TN_SOURCES, TN_CMP_S, P17_SEED + 23))),
+                           device=dev)
+    out["cpu"] = compare_with_cpu_f32_f64(f"Conv-TasNet step, B={TN_CMP_B} x {TN_CMP_S:g} s", model, recipe.TrainStep,
+                                          (src2,), lambda s, b: s.loss(*b), "encoder.weight")
+    out["grads_tf32"] = check_grads_tf32(f"Conv-TasNet (its transposed decoder included), B={TN_CMP_B}",
+                                         lambda: recipe.pit_neg_si_snr(model(recipe.mixture_of(src2)), src2),
+                                         dict(model.named_parameters()))
+    del model
+    torch.cuda.empty_cache()
+    out.update(run_overfit_gate("Conv-TasNet", recipe, TN_OVERFIT, card))
+    return out
+
+
+def run_tf32_checks(conformer_recipe, dev, card: str) -> dict:
+    """Phase 17 (d): the TF32 check of ``check_grads_tf32`` on the port's other users of ``utils.precision``:
+    ``wav2vec2_base``'s feature extractor and positional convolution at phase 14's batch (8 clips of 10-12 s, f32),
+    one Conformer layer of the Conformer RNN-T recipe at phase 15's batch (16 clips of 5-10 s), ``convolve`` (64
+    taps) and ``resample`` (16 -> 8 kHz) on 1,024 rows of phase 10's effects chain, and ``exact_matmul`` on the
+    Wav2Letter recipe's DCT product (cuBLAS's flag)."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch.models import wav2vec2_base
+    from audio_tpu_torch.transforms import MelSpectrogram
+    from audio_tpu_torch.utils.precision import exact_matmul
+
+    out = {}
+    model = wav2vec2_base(device=dev, generator=torch.Generator(device=dev).manual_seed(P17_SEED + 30)).eval()
+    wav, lengths = SSLCase("wav2vec2", None, dev, 0).batch(SSL_TRAIN_B, SSL_TRAIN_MIN_S, SSL_TRAIN_MAX_S,
+                                                            SSL_LENGTH_SEED)
+    enc = model.encoder
+
+    def w2v_loss():
+        x, _ = model.feature_extractor(wav, lengths)
+        return enc.transformer.pos_conv_embed(enc.feature_projection(x)).square().mean()
+
+    out["wav2vec2"] = check_grads_tf32(
+        f"wav2vec2_base's feature extractor and positional convolution, B={SSL_TRAIN_B} x {SSL_TRAIN_MIN_S}-"
+        f"{SSL_TRAIN_MAX_S} s", w2v_loss, {n: p for n, p in model.named_parameters()
+                                           if n.startswith(("feature_extractor.", "encoder.transformer.pos_conv"))})
+    del model, wav
+    torch.cuda.empty_cache()
+
+    layer = conformer_recipe.ConformerRNNT(CF_V, conformer_layers=1, device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(P17_SEED + 31)).eval()
+    melspec = conformer_recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0,
+                                              device=dev)
+    wav, lengths, _, _ = conformer_step_data(dev, CF_TRAIN_B, CF_MAX_S, CF_MIN_S, CF_U, CF_V, CF_SEED + 1)
+    feats, feat_lens = conformer_recipe.featurize(melspec, wav, lengths, layer.time_reduction_stride, train=False)
+    out["conformer"] = check_grads_tf32(
+        f"one Conformer layer of the Conformer RNN-T recipe, B={CF_TRAIN_B} x {CF_MIN_S}-{CF_MAX_S} s",
+        lambda: layer.transcribe(feats, feat_lens)[0].square().mean(),
+        {n: p for n, p in layer.named_parameters() if n.startswith("conformer.")})
+    del layer, wav, feats
+    torch.cuda.empty_cache()
+
+    rows = torch.as_tensor(np.random.default_rng(30).standard_normal((1024, T)).astype(np.float32) * 0.3,
+                           device=dev).requires_grad_()
+    fir = (torch.randn((1, 64), generator=torch.Generator(device=dev).manual_seed(52), device=dev) / 8).requires_grad_()
+    out["convolve"] = check_grads_tf32(f"convolve, 64 taps, on phase 10's first 1024 rows of {T}",
+                                       lambda: F.convolve(rows, fir).square().mean(), {"rows": rows, "taps": fir})
+    out["resample"] = check_grads_tf32(f"resample 16 -> 8 kHz on phase 10's first 1024 rows of {T}",
+                                       lambda: F.resample(rows, SR, SR // 2).square().mean(), {"rows": rows})
+    del rows
+
+    wav, _, _, _ = transcript_batch(dev, W2L_B, W2L_SECONDS, W2L_MIN_S, P17_SEED + 1)
+    mel = MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=40, device=dev)(wav).requires_grad_()
+    dct = F.create_dct(13, 40, "ortho", device=dev).requires_grad_()
+    out["exact_matmul"] = check_grads_tf32(
+        f"exact_matmul, the Wav2Letter recipe's DCT product {tuple(mel.shape)} x {tuple(dct.shape)}",
+        lambda: exact_matmul(mel.transpose(-1, -2), dct).square().mean(), {"mel": mel, "dct": dct}, flag="cublas")
     return out
 
 
@@ -4919,6 +5522,27 @@ def main(argv=None) -> int:
     avsr["seconds"] = time.perf_counter() - t16
     print(f"  phase 16 took {avsr['seconds']:.1f} s")
 
+    # ---------------------------------------------------------------- phase 17
+    print(f"phase 17: Wav2Letter's CTC step (f32, B={W2L_B} x {W2L_MIN_S}-{W2L_SECONDS} s), DeepSpeech (n_hidden "
+          f"{DS_HIDDEN}, B={DS_B} x {DS_SECONDS} s), Conv-TasNet's separation step (f32, B={TN_B} x {TN_SECONDS:g} s "
+          f"at {TN_SR} Hz), both recipes' --overfit gates, and the TF32 check of every TF32-off convolution")
+    t17 = time.perf_counter()
+    w2l_recipe = load_example("wav2letter_train_torch", "asr", "wav2letter", "train_torch.py")
+    zoo = {"wav2letter": run_wav2letter(w2l_recipe, dev, card)}
+    torch.cuda.empty_cache()
+    zoo["deepspeech"] = run_deepspeech(w2l_recipe, dev, card)
+    torch.cuda.empty_cache()
+    zoo["conv_tasnet"] = run_conv_tasnet(load_example("source_separation_train_torch", "source_separation",
+                                                      "train_torch.py"), dev, card)
+    torch.cuda.empty_cache()
+    zoo["tf32"] = run_tf32_checks(conformer_recipe, dev, card)
+    torch.cuda.empty_cache()
+    phase17_launches = {"power_spectrogram": zoo["wav2letter"]["launches"].get("power_spectrogram", 0)
+                        + zoo["deepspeech"]["launches"].get("power_spectrogram", 0)}
+    print(f"  kernel launches in phase 17 (one Wav2Letter step, DeepSpeech's spectrogram): {phase17_launches}")
+    zoo["seconds"] = time.perf_counter() - t17
+    print(f"  phase 17 took {zoo['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -4978,7 +5602,8 @@ def main(argv=None) -> int:
                         replaces="audio_tpu/ops/pallas_spectrogram.py:194",
                         launches=launches["power_spectrogram"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                         bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft",
-                        phase15_launches=phase15_launches["power_spectrogram"]))
+                        phase15_launches=phase15_launches["power_spectrogram"],
+                        phase17_launches=phase17_launches["power_spectrogram"]))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
     k3_block_ms = cuda_ms(lambda: cuda_viterbi._launch("block", *k3_args), 20)
@@ -5123,7 +5748,7 @@ def main(argv=None) -> int:
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
-                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr},
+                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

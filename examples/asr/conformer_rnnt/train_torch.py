@@ -64,19 +64,27 @@ LECUN_STD = 0.87962566103423978  # the standard deviation of a unit normal trunc
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
     """Draw ``model``'s parameters from ``generator`` as flax's default initialisers draw a JAX recipe's tree:
-    each kernel from lecun-normal (variance 1 / fan_in, a normal truncated at two of its deviations), each
-    embedding from N(0, 1 / E), every bias zero, every norm scale one.  The numbers are drawn on the generator's
-    own device."""
+    each kernel from lecun-normal (variance 1 / fan_in, a normal truncated at two of its deviations; a transposed
+    convolution's fan-in is its input channels times its kernel, as flax's (K, in, out) kernel counts it), each
+    recurrent matrix of an ``nn.RNN`` orthogonal, each embedding from N(0, 1 / E), every bias zero, every norm
+    scale one, every ``PReLU`` slope 0.25.  The numbers are drawn on the generator's own device."""
+    modules = dict(model.named_modules())
     with torch.no_grad():
         for name, p in model.named_parameters():
+            owner, leaf = modules[name.rpartition(".")[0]], name.rpartition(".")[2]
             if name.endswith("embedding.weight"):
                 draw = torch.empty(p.shape, device=generator.device).normal_(0.0, p.shape[1] ** -0.5,
                                                                              generator=generator)
+            elif isinstance(owner, nn.PReLU):
+                draw = torch.full(p.shape, 0.25)
+            elif leaf.startswith("weight_hh"):
+                draw = nn.init.orthogonal_(torch.empty(p.shape, device=generator.device), generator=generator)
             elif p.dim() >= 2:
-                std = p[0].numel() ** -0.5 / LECUN_STD
+                fan_in = p.shape[0] * p[0, 0].numel() if getattr(owner, "transposed", False) else p[0].numel()
+                std = fan_in ** -0.5 / LECUN_STD
                 draw = nn.init.trunc_normal_(torch.empty(p.shape, device=generator.device), 0.0, std, -2 * std,
                                              2 * std, generator=generator)
-            elif name.endswith("bias"):
+            elif leaf.endswith("bias") or leaf.startswith("bias"):  # "in_proj_bias", "bias_ih_l0"
                 draw = torch.zeros(p.shape)
             else:
                 draw = torch.ones(p.shape)
@@ -215,9 +223,10 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the gradients in place: each becomes ``g / norm * max_norm``
     when the global norm reaches ``max_norm``, else stays (no epsilon, unlike ``clip_grad_norm_``).
-    Nothing is read back to the host.  Returns the norm."""
+    The norm accumulates in float64: torch's float32 ``vector_norm`` on the CPU drifts by ~6e-4 over a tensor of
+    16M entries (Wav2Letter's largest).  Nothing is read back to the host.  Returns the norm."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads]))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))

@@ -12,10 +12,10 @@ LayerNorm has flax's epsilon, 1e-6.  The stem's GroupNorm normalises over the wh
 frames included; in the 2D trunk each frame is normalised alone.  A block has a downsample branch (a 1x1
 convolution and its GroupNorm) only where it changes the stride or the width.  The module names are the flax
 ones (``frontend3d``, ``frontend3d_norm``, ``layer1_0.conv1``, ``downsample_norm``, ``stem``, ``stem_norm``,
-``norm``, ``linear1``, ``linear2``).  Every convolution runs with cuDNN's TF32 off, its backward too, so an
-f32 front end and its gradients compute in f32.  The modules make their parameters on CUDA unless the caller
-names another device (``conformer_rnnt/train_torch.py``'s ``flax_init_`` draws them as the JAX recipe's ``init``
-does).
+``norm``, ``linear1``, ``linear2``).  Every convolution runs with cuDNN's TF32 off, its backward too
+(``audio_tpu_torch.utils.precision.exact_conv_module``), so an f32 front end and its gradients compute in f32.
+The modules make their parameters on CUDA unless the caller names another device (``conformer_rnnt/
+train_torch.py``'s ``flax_init_`` draws them as the JAX recipe's ``init`` does).
 """
 
 from __future__ import annotations
@@ -26,37 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audio_tpu_torch.utils.precision import exact_conv_module as _conv
+
 EPS = 1e-6  # flax's GroupNorm and LayerNorm
 SAMPLES_PER_FRAME = 640  # 16 kHz audio at the 25 fps video rate
 POOL = 20  # audio frames a video frame after the trunk's 32x stride
-
-
-class _F32Conv(torch.autograd.Function):
-    """A convolution whose forward and backward both run with cuDNN's TF32 off.  Autograd runs a convolution's
-    backward under the flags of the moment it runs, not those of its forward, so a ``cudnn.flags`` block around
-    the forward alone leaves the gradients to the global setting."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, groups):
-        ctx.save_for_backward(x, weight)
-        ctx.conf = (stride, padding, [1] * len(stride), False, [0] * len(stride), groups)
-        ctx.has_bias = bias is not None
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return torch.ops.aten.convolution(x, weight, bias, *ctx.conf)
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, weight = ctx.saved_tensors
-        bias_sizes = [weight.shape[0]] if ctx.has_bias else None
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            gx, gw, gb = torch.ops.aten.convolution_backward(grad, x, weight, bias_sizes, *ctx.conf,
-                                                             list(ctx.needs_input_grad[:3]))
-        return gx, gw, gb, None, None, None
-
-
-def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``conv(x)`` with cuDNN's TF32 off in its forward and its backward."""
-    return _F32Conv.apply(x, conv.weight, conv.bias, list(conv.stride), list(conv.padding), conv.groups)
 
 
 def _group_norm(channels: int, **kw) -> nn.GroupNorm:

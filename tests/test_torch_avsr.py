@@ -36,6 +36,8 @@ import audio_tpu
 import audio_tpu.functional as JF
 from audio_tpu.models.rnnt_decoder import rnnt_greedy_decode as jax_greedy_decode
 
+from audio_tpu_torch.utils.precision import exact_conv
+
 from .test_torch_conformer import _attention_f64_softmax
 from .test_torch_wav2vec2 import FAST_COMPILE
 
@@ -448,6 +450,6 @@ def test_front_end_convolution_and_its_gradients_equal_torch_s(make, shape):
     for a, b in zip(torch.autograd.grad(got, [x, *conv.parameters()], g),
                     torch.autograd.grad(want, [x, *conv.parameters()], g)):
         assert torch.equal(a, b)
-    assert torch.autograd.gradcheck(lambda x_, *w: t_train.frontends._F32Conv.apply(
-        x_, w[0], w[1] if len(w) > 1 else None, list(conv.stride), list(conv.padding), conv.groups),
+    assert torch.autograd.gradcheck(lambda x_, *w: exact_conv(
+        x_, w[0], w[1] if len(w) > 1 else None, conv.stride, conv.padding, groups=conv.groups),
         (x, *conv.parameters()))

@@ -2,7 +2,7 @@
 
 Scans every module of ``audio_tpu_torch``, ``chip_smoke.py``, the train
 recipes ``examples/asr/emformer_rnnt/train_torch.py``, the Conformer RNN-T,
-TCPGen-biasing, AVSR and SSL recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
+TCPGen-biasing, AVSR, SSL, Wav2Letter and source-separation recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
 ``csrc/`` holds one CUDA source for each ported kernel and that no module still
 announces a kernel or a gradient as missing.
 """
@@ -22,8 +22,10 @@ CONFORMER_RECIPES = [ROOT / "examples" / "asr" / "conformer_rnnt" / "train_torch
     ROOT / "examples" / "asr" / "conformer_rnnt_biasing" / f"{name}_torch.py" for name in ("biasing", "train")]
 AVSR_RECIPES = [ROOT / "examples" / "avsr" / f"{name}_torch.py"
                 for name in ("frontends", "lrs3", "train", "average_checkpoints", "eval")]
+CTC_AND_SEPARATION_RECIPES = [ROOT / "examples" / "asr" / "wav2letter" / "train_torch.py",
+                              ROOT / "examples" / "source_separation" / "train_torch.py"]
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES
-           + AVSR_RECIPES)
+           + AVSR_RECIPES + CTC_AND_SEPARATION_RECIPES)
 
 
 def _forbidden(module: str) -> bool:
@@ -50,7 +52,8 @@ def test_scan_covers_the_port():
                    "hubert/finetune_torch.py", "asr/conformer_rnnt/train_torch.py",
                    "asr/conformer_rnnt_biasing/biasing_torch.py", "asr/conformer_rnnt_biasing/train_torch.py",
                    "avsr/frontends_torch.py", "avsr/lrs3_torch.py", "avsr/train_torch.py",
-                   "avsr/average_checkpoints_torch.py", "avsr/eval_torch.py"):
+                   "avsr/average_checkpoints_torch.py", "avsr/eval_torch.py", "asr/wav2letter/train_torch.py",
+                   "source_separation/train_torch.py"):
         assert f"examples/{recipe}" in names and (ROOT / "examples" / recipe).is_file()
     for sub in ("models/rnnt_decoder.py", "models/emformer.py", "pipelines/rnnt_pipeline.py",
                 "transforms/__init__.py", "ops/cuda_rnnt_lps.py", "ops/cuda_lstm.py", "ops/cuda_attention.py",
@@ -58,9 +61,10 @@ def test_scan_covers_the_port():
                 "functional/_resample.py", "functional/_misc.py", "functional/_beamforming.py", "functional/_vad.py",
                 "ops/ctc.py", "transforms/_transforms.py", "transforms/_multi_channel.py", "compliance/__init__.py",
                 "compliance/kaldi.py", "models/wav2vec2/components.py", "models/wav2vec2/model.py",
-                "models/wavlm.py", "models/conformer.py"):
+                "models/wavlm.py", "models/conformer.py", "models/wav2letter.py", "models/deepspeech.py",
+                "models/conv_tasnet.py"):
         assert f"audio_tpu_torch/{sub}" in names
-    assert len(names) >= 47
+    assert len(names) >= 52
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -302,11 +306,13 @@ WAV2VEC2_NAMES = ["Wav2Vec2Model", "WavLMModel", "wav2vec2_model", "wav2vec2_bas
 
 HUBERT_PRETRAIN_NAMES = ["HuBERTPretrainModel", "hubert_pretrain_model", "hubert_pretrain_base",
                          "hubert_pretrain_large", "hubert_pretrain_xlarge"]
+ZOO_NAMES = ["Wav2Letter", "DeepSpeech", "ConvTasNet", "conv_tasnet_base"]
 
 
 def test_models_export_a_subset_of_the_jax_package_s_names():
-    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (29 of them), the 16 of
-    wav2vec2/HuBERT and WavLM, the 5 of HuBERT pretraining and ``Conformer`` among them;
+    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (33 of them), the 16 of
+    wav2vec2/HuBERT and WavLM, the 5 of HuBERT pretraining, ``Conformer``, ``Wav2Letter``, ``DeepSpeech``,
+    ``ConvTasNet`` and ``conv_tasnet_base`` among them;
     ``audio_tpu_torch.models.wav2vec2`` exports exactly the 16 names of ``audio_tpu.models.wav2vec2``."""
     import audio_tpu.models as jm
     import audio_tpu.models.wav2vec2 as jw
@@ -315,17 +321,17 @@ def test_models_export_a_subset_of_the_jax_package_s_names():
     import audio_tpu_torch.models.wav2vec2 as tw
 
     assert set(tm.__all__) <= set(jm.__all__)
-    assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES + ["Conformer"]) <= set(tm.__all__)
-    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 29
+    assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES + ["Conformer"] + ZOO_NAMES) <= set(tm.__all__)
+    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 33
     assert all(callable(getattr(tm, n)) for n in tm.__all__)
     assert sorted(tw.__all__) == sorted(jw.__all__) and len(set(tw.__all__)) == 16
 
 
 @pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES if n[0].islower()]
-                         + ["emformer_rnnt_base", "emformer_rnnt_model"])
+                         + ["emformer_rnnt_base", "emformer_rnnt_model"] + ZOO_NAMES)
 def test_every_model_factory_defaults_to_cuda(name):
-    """Each factory makes its parameters on the card unless the caller names another device, and takes a
-    ``dtype`` and a ``generator``."""
+    """Each factory (and each of the zoo's model classes) makes its parameters on the card unless the caller names
+    another device, and takes a ``dtype`` and a ``generator``."""
     import inspect
 
     import audio_tpu_torch.models as tm
