@@ -27,10 +27,13 @@ predictor alone, for transducers built around it.
 The positional convolution's weight norm gets ``original1 = w`` and
 ``original0 = |w|`` over dims (0, 1), from which it rebuilds ``w`` within a few
 ulp.
-``wav2letter_state_dict_from_jax_params``, ``deepspeech_state_dict_from_jax_params``
-and ``conv_tasnet_state_dict_from_jax_params`` are the inverses of
-``import_wav2letter_state_dict``, ``import_deepspeech_state_dict`` and
-``import_conv_tasnet_state_dict``.
+``wav2letter_state_dict_from_jax_params``, ``deepspeech_state_dict_from_jax_params``,
+``conv_tasnet_state_dict_from_jax_params``, ``hdemucs_state_dict_from_jax_params``,
+``squim_objective_state_dict_from_jax_params`` and
+``squim_subjective_state_dict_from_jax_params`` are the inverses of
+``import_wav2letter_state_dict``, ``import_deepspeech_state_dict``,
+``import_conv_tasnet_state_dict``, ``import_hdemucs_state_dict``,
+``import_squim_objective_state_dict`` and ``import_squim_subjective_state_dict``.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ import numpy as np
 import torch
 
 __all__ = ["conformer_state_dict_from_jax_params", "conv_tasnet_state_dict_from_jax_params",
-           "deepspeech_state_dict_from_jax_params", "from_jax_params", "hubert_pretrain_state_dict_from_jax_params",
-           "predictor_state_dict_from_jax_params", "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
+           "deepspeech_state_dict_from_jax_params", "from_jax_params", "hdemucs_state_dict_from_jax_params",
+           "hubert_pretrain_state_dict_from_jax_params", "predictor_state_dict_from_jax_params",
+           "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
+           "squim_objective_state_dict_from_jax_params", "squim_subjective_state_dict_from_jax_params",
            "wav2letter_state_dict_from_jax_params", "wav2vec2_state_dict_from_jax_params",
            "wavlm_state_dict_from_jax_params"]
 
@@ -344,4 +349,122 @@ def conv_tasnet_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[s
     sd["mask_generator.output_prelu.weight"] = _leaf(mg["output_prelu"]["alpha"], device).reshape(1)
     _conv_tasnet_pointwise(sd, "mask_generator.output_conv", mg["output_conv"], device)
     sd["decoder.weight"] = _leaf(tree["decoder_kernel"], device).permute(1, 2, 0).contiguous()
+    return sd
+
+
+def _torch_named(out: dict, name: str, node: dict, keys, device) -> None:
+    """Leaves already in torch's layout, under torch's names: ``node[k]`` -> ``{name}.{k}`` for the ``keys`` present."""
+    for k in keys:
+        if k in node:
+            out[f"{name}.{k}"] = _leaf(node[k], device)
+
+
+_LSTM_KEYS = [f"{kind}_{part}_l{layer}{rev}" for layer in range(2) for rev in ("", "_reverse")
+              for kind in ("weight", "bias") for part in ("ih", "hh")]
+
+
+def _hdemucs_dconv(out: dict, name: str, node: dict, device) -> None:
+    """flax ``layers_{d}_{conv1, norm1, blstm, attn, conv2, norm2, scale}`` -> torchaudio's Sequential
+    ``layers.{d}.{0, 1, [3: lstm], [3 or 4: attention], 3 + n, 4 + n, 6 + n}``, n the extra modules."""
+    for d in range(1 + max(int(k.split("_")[1]) for k in node)):
+        base, seq = f"{name}.layers.{d}", 3
+        _torch_named(out, f"{base}.0", node[f"layers_{d}_conv1"], ("weight", "bias"), device)
+        _torch_named(out, f"{base}.1", node.get(f"layers_{d}_norm1", {}), ("weight", "bias"), device)
+        if f"layers_{d}_blstm" in node:
+            blstm = node[f"layers_{d}_blstm"]
+            _torch_named(out, f"{base}.{seq}.lstm", blstm, sorted(
+                (k for k in blstm if not k.startswith("linear_")), key=_LSTM_KEYS.index), device)
+            out[f"{base}.{seq}.linear.weight"] = _leaf(blstm["linear_weight"], device)
+            out[f"{base}.{seq}.linear.bias"] = _leaf(blstm["linear_bias"], device)
+            seq += 1
+        if f"layers_{d}_attn" in node:
+            for conv in ("content", "query", "key", "query_decay", "proj"):
+                _torch_named(out, f"{base}.{seq}.{conv}", node[f"layers_{d}_attn"][conv], ("weight", "bias"), device)
+            seq += 1
+        _torch_named(out, f"{base}.{seq}", node[f"layers_{d}_conv2"], ("weight", "bias"), device)
+        _torch_named(out, f"{base}.{seq + 1}", node.get(f"layers_{d}_norm2", {}), ("weight", "bias"), device)
+        out[f"{base}.{seq + 3}.scale"] = _leaf(node[f"layers_{d}_scale"]["scale"], device)
+
+
+def hdemucs_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``HDemucs`` ``state_dict`` from the JAX package's flax parameters, whose convolutions already hold
+    torch's layout: ``{branch}_{i}`` -> ``{branch}.{i}`` (a decoder's index reversed: torchaudio holds the deepest
+    first), each layer's ``conv``/``conv_tr``, ``norm1``, ``rewrite``, ``norm2`` and ``dconv`` (``_hdemucs_dconv``),
+    and ``freq_emb_weight`` -> ``freq_emb.embedding.weight``.  An empty layer's ``norm1``, which torchaudio keeps
+    and the JAX model never reads, comes across where the tree holds it (the JAX importer keeps it)."""
+    tree = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for branch in ("freq_encoder", "freq_decoder", "time_encoder", "time_decoder"):
+        n = _count(tree, f"{branch}_")
+        parts = ("conv", "norm1", "rewrite", "norm2") if branch.endswith("encoder") else (
+            "conv_tr", "norm2", "rewrite", "norm1")
+        for i in range(n):
+            node = tree[f"{branch}_{n - 1 - i if branch.endswith('decoder') else i}"]
+            for part in parts:
+                _torch_named(sd, f"{branch}.{i}.{part}", node.get(part, {}), ("weight", "bias"), device)
+            if "dconv" in node:
+                _hdemucs_dconv(sd, f"{branch}.{i}.dconv", node["dconv"], device)
+    if "freq_emb_weight" in tree:
+        sd["freq_emb.embedding.weight"] = _leaf(tree["freq_emb_weight"], device)
+    return sd
+
+
+def _bilstm(out: dict, name: str, node: dict, device) -> None:
+    """The JAX package's one-layer bidirectional LSTM {w_ih_f (in, 4H), ...} -> ``nn.LSTM``'s
+    ``weight_ih_l0`` (4H, in), ..., ``bias_hh_l0_reverse``."""
+    for rev, suffix in (("", "f"), ("_reverse", "b")):
+        out[f"{name}.weight_ih_l0{rev}"] = _leaf(node[f"w_ih_{suffix}"], device).t().contiguous()
+        out[f"{name}.weight_hh_l0{rev}"] = _leaf(node[f"w_hh_{suffix}"], device).t().contiguous()
+        out[f"{name}.bias_ih_l0{rev}"] = _leaf(node[f"b_ih_{suffix}"], device)
+        out[f"{name}.bias_hh_l0{rev}"] = _leaf(node[f"b_hh_{suffix}"], device)
+
+
+def squim_objective_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``SquimObjective`` ``state_dict`` from the JAX package's flax parameters: the encoder's kernel
+    (K, 1, F) -> (F, 1, K), the LSTMs' kernels transposed, the Dense kernels transposed (the 1x1 ``Conv2d``'s to
+    (out, in, 1, 1)), each PReLU's scalar -> (1,), the norms' scale -> weight."""
+    tree = params["params"] if "params" in params else params
+    dp = tree["dprnn"]
+    n = _count(dp, "row_rnn_")
+    sd: Dict[str, torch.Tensor] = {"encoder.conv1d.weight": _leaf(tree["encoder"]["kernel"], device).permute(2, 1, 0)
+                                   .contiguous()}
+    for which in ("row", "col"):
+        for i in range(n):
+            _bilstm(sd, f"dprnn.{which}_rnn.{i}.rnn", dp[f"{which}_rnn_{i}"]["rnn"], device)
+            _dense(sd, f"dprnn.{which}_rnn.{i}.proj", dp[f"{which}_rnn_{i}"]["proj"], device)
+    for which in ("row", "col"):
+        for i in range(n):
+            _norm(sd, f"dprnn.{which}_norm.{i}", dp[f"{which}_norm_{i}"], device)
+    sd["dprnn.conv.0.weight"] = _leaf(dp["conv"]["kernel"], device).t()[:, :, None, None].contiguous()
+    sd["dprnn.conv.0.bias"] = _leaf(dp["conv"]["bias"], device)
+    sd["dprnn.conv.1.weight"] = _leaf(dp["conv_prelu"]["alpha"], device).reshape(1)
+    for bi, metric in enumerate(("stoi", "pesq", "sisdr")):
+        branch, name = tree[f"branch_{metric}"], f"branches.{bi}"
+        tr = branch["transformer"]
+        sd[f"{name}.0.self_attn.in_proj_weight"] = _leaf(tr["in_proj"]["kernel"], device).t().contiguous()
+        sd[f"{name}.0.self_attn.in_proj_bias"] = _leaf(tr["in_proj"]["bias"], device)
+        _dense(sd, f"{name}.0.self_attn.out_proj", tr["out_proj"], device)
+        _dense(sd, f"{name}.0.linear1", tr["linear1"], device)
+        _dense(sd, f"{name}.0.linear2", tr["linear2"], device)
+        _norm(sd, f"{name}.0.norm1", tr["norm1"], device)
+        _norm(sd, f"{name}.0.norm2", tr["norm2"], device)
+        sd[f"{name}.1.alpha"] = _leaf(branch["autopool"]["alpha"], device)
+        _dense(sd, f"{name}.2.0", branch["linear1"], device)
+        sd[f"{name}.2.1.weight"] = _leaf(branch["prelu"]["alpha"], device).reshape(1)
+        _dense(sd, f"{name}.2.2", branch["linear2"], device)
+    return sd
+
+
+def squim_subjective_state_dict_from_jax_params(params: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``SquimSubjective`` ``state_dict`` from the JAX package's flax parameters: the SSL model as
+    ``wav2vec2_state_dict_from_jax_params`` carries it, under ``ssl_model.``, then ``projector`` and
+    ``predictor.att_pool_layer.{linear1, linear2}`` transposed."""
+    tree = params["params"] if "params" in params else params
+    ssl = tree["ssl_model"]
+    sd = {f"ssl_model.{k}": v for k, v in _wav2vec2_like(ssl, ssl["encoder"]["feature_projection"],
+                                                         ssl["encoder"]["transformer"], device, wavlm=False).items()}
+    _dense(sd, "projector", tree["projector"], device)
+    pool = tree["predictor"]["att_pool_layer"]
+    _dense(sd, "predictor.att_pool_layer.linear1", pool["linear1"], device)
+    _dense(sd, "predictor.att_pool_layer.linear2", pool["linear2"], device)
     return sd

@@ -87,6 +87,19 @@ def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
     return y.reshape(lead + (out_len,))
 
 
+def _real_edge_bins(frames_f: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The DC bin, and the Nyquist bin of an even ``n_fft``, without their imaginary parts, which a one-sided
+    inverse DFT reads as zero (numpy's and JAX's ``irfft``).  cuFFT's complex64 C2R transform of 4096 points reads the
+    DC bin's imaginary part (``chip_smoke.py`` phase 18 prints what that changes)."""
+    if not frames_f.is_complex():
+        return frames_f
+    keep = torch.ones(frames_f.shape[-1], dtype=frames_f.real.dtype, device=frames_f.device)
+    keep[0] = 0
+    if n_fft % 2 == 0 and n_fft // 2 < keep.shape[0]:
+        keep[n_fft // 2] = 0
+    return torch.complex(frames_f.real, frames_f.imag * keep)
+
+
 def istft(
     spec: torch.Tensor,
     n_fft: int,
@@ -111,7 +124,7 @@ def istft(
     if normalized:
         frames_f = frames_f * math.sqrt(n_fft)
     if onesided:
-        frames = torch.fft.irfft(frames_f, n=n_fft, dim=-1)
+        frames = torch.fft.irfft(_real_edge_bins(frames_f, n_fft), n=n_fft, dim=-1)
     else:
         frames = torch.fft.ifft(frames_f, dim=-1).real
     frames = frames * window  # (..., n_frames, n_fft)

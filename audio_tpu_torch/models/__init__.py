@@ -1,12 +1,21 @@
 """Models of the PyTorch port: the Emformer RNN-T and its beam search, Conformer, wav2vec2/HuBERT, WavLM, Wav2Letter,
-DeepSpeech and Conv-TasNet."""
+DeepSpeech, Conv-TasNet, Hybrid Demucs and SQUIM."""
 
 from .conformer import Conformer
 from .conv_tasnet import ConvTasNet, conv_tasnet_base
 from .deepspeech import DeepSpeech
 from .emformer import Emformer
+from .hdemucs import HDemucs, hdemucs_high, hdemucs_low, hdemucs_medium
 from .rnnt import RNNT, emformer_rnnt_base, emformer_rnnt_model
 from .rnnt_decoder import Hypothesis, RNNTBeamSearch, rnnt_greedy_decode
+from .squim import (
+    SquimObjective,
+    SquimSubjective,
+    squim_objective_base,
+    squim_objective_model,
+    squim_subjective_base,
+    squim_subjective_model,
+)
 from .wav2letter import Wav2Letter
 from .wav2vec2 import (
     HuBERTPretrainModel,
@@ -33,16 +42,22 @@ __all__ = [
     "ConvTasNet",
     "DeepSpeech",
     "Emformer",
+    "HDemucs",
     "HuBERTPretrainModel",
     "Hypothesis",
     "RNNT",
     "RNNTBeamSearch",
+    "SquimObjective",
+    "SquimSubjective",
     "Wav2Letter",
     "Wav2Vec2Model",
     "WavLMModel",
     "conv_tasnet_base",
     "emformer_rnnt_base",
     "emformer_rnnt_model",
+    "hdemucs_high",
+    "hdemucs_low",
+    "hdemucs_medium",
     "hubert_base",
     "hubert_large",
     "hubert_pretrain_base",
@@ -51,6 +66,10 @@ __all__ = [
     "hubert_pretrain_xlarge",
     "hubert_xlarge",
     "rnnt_greedy_decode",
+    "squim_objective_base",
+    "squim_objective_model",
+    "squim_subjective_base",
+    "squim_subjective_model",
     "wav2vec2_base",
     "wav2vec2_large",
     "wav2vec2_large_lv60k",

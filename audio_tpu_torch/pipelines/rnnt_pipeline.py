@@ -44,6 +44,15 @@ def _download_asset(key: str) -> str:
     return str(path)
 
 
+def _state_dict(key: str, dl_kwargs=None) -> dict:
+    """``dl_kwargs["state_dict"]`` (torchaudio's names; numpy arrays or tensors) as tensors, or else the asset
+    ``key``'s checkpoint."""
+    dl_kwargs = dl_kwargs or {}
+    if "state_dict" in dl_kwargs:
+        return {k: torch.as_tensor(v) for k, v in dl_kwargs["state_dict"].items()}
+    return torch.load(_download_asset(key), map_location="cpu", weights_only=True)
+
+
 def _piecewise_linear_log(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > math.e, torch.log(torch.clamp(x, min=1e-20)), x / math.e)
 
@@ -150,12 +159,7 @@ class RNNTBundle:
 
     def _get_model(self, dl_kwargs=None, device="cuda") -> RNNT:
         model = self._rnnt_factory_func(device=device)
-        dl_kwargs = dl_kwargs or {}
-        if "state_dict" in dl_kwargs:
-            sd = {k: torch.as_tensor(v) for k, v in dl_kwargs["state_dict"].items()}
-        else:
-            sd = torch.load(_download_asset(self._rnnt_path), map_location="cpu", weights_only=True)
-        model.load_state_dict(sd, strict=True)
+        model.load_state_dict(_state_dict(self._rnnt_path, dl_kwargs), strict=True)
         return model.eval()
 
     def get_decoder(self, *, dl_kwargs=None, device="cuda") -> RNNTBeamSearch:

@@ -15,10 +15,11 @@ operations in f32 and so computes another function than the JAX package does.
 Losses whose reductions must stay accurate (``rnnt_loss``'s log-semiring DP)
 compute in f32 from bf16 logits themselves.
 
-``exact_matmul``, ``exact_conv`` and ``tf32_off`` are the other side: the DSP
-products (filterbanks, DCT matrices), the models' convolutions and cuDNN's RNN
-stay exact float32 on the card whatever the caller set for TF32, in the forward
-and in the backward.  Autograd runs a backward under the flags of the moment it
+``exact_matmul``, ``exact_linear``, ``exact_conv``, ``tf32_off`` and
+``tf32_off_call`` are the other side: the DSP products (filterbanks, DCT
+matrices), the models' convolutions, linear layers and cuDNN's RNNs stay exact
+float32 on the card whatever the caller set for TF32, in the forward and in the
+backward.  Autograd runs a backward under the flags of the moment it
 runs, not those of its forward, so a ``cudnn.flags`` block around a forward
 alone leaves its gradients to the caller's setting; ``tf32_off`` turns cuDNN's
 and cuBLAS's TF32 off in both directions.
@@ -33,7 +34,8 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
-__all__ = ["cast_floating", "exact_conv", "exact_conv_module", "exact_matmul", "mixed_precision", "tf32_off"]
+__all__ = ["cast_floating", "exact_conv", "exact_conv_module", "exact_linear", "exact_matmul", "mixed_precision",
+           "tf32_off", "tf32_off_call"]
 
 
 def _is_float(x: Any) -> bool:
@@ -149,6 +151,25 @@ def tf32_off(fn: Callable, *args):
     return _TF32Off.apply(fn, *args)
 
 
+def tf32_off_call(module: torch.nn.Module, *inputs):
+    """``module(*inputs)`` through ``tf32_off``, its first output where it returns a tuple (``nn.LSTM``'s).  The
+    module's parameters are passed as arguments (``torch.func.functional_call``), so their gradients arrive; with no
+    gradient wanted the module is called as it is, with TF32 off."""
+    params = list(module.parameters())
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in [*params, *inputs] if torch.is_tensor(t))):
+        with _no_tf32():
+            out = module(*inputs)
+        return out[0] if isinstance(out, tuple) else out
+    names = [name for name, _ in module.named_parameters()]
+    n_in = len(inputs)
+
+    def run(*args):
+        out = torch.func.functional_call(module, dict(zip(names, args[n_in:])), args[:n_in])
+        return out[0] if isinstance(out, tuple) else out
+
+    return tf32_off(run, *inputs, *params)
+
+
 def _tuple(value, n: int) -> list:
     return list(value) if isinstance(value, (tuple, list)) else [value] * n
 
@@ -178,3 +199,11 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_cuda or b.is_cuda):
         return a @ b
     return tf32_off(torch.matmul, a, b)
+
+
+def exact_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear(x, weight, bias)`` through ``tf32_off`` on the card (cuBLAS's TF32 off in the product and in its
+    gradients, whatever the caller's flag); ``F.linear`` elsewhere."""
+    if not x.is_cuda:
+        return torch.nn.functional.linear(x, weight, bias)
+    return tf32_off(torch.nn.functional.linear, x, weight, bias)

@@ -204,6 +204,20 @@ Phases, each of which raises on failure:
    repair printed beside) on the three new models, wav2vec2_base's feature extractor and positional convolution at
    phase 14's batch, one Conformer layer at phase 15's, ``convolve`` and ``resample`` on phase 10's rows and
    ``exact_matmul`` (cuBLAS's flag).
+18. Hybrid Demucs and SQUIM through their bundles (weights from CUDA seeds 250-269, injected as
+   ``dl_kwargs={"state_dict": ...}``): (a) ``istft`` at n_fft 4096 on complex64 bins with imaginary DC and Nyquist
+   parts against the CPU (1e-5 of the peak; the fault before the repair, cuFFT reading those parts, printed beside,
+   and on ``hdemucs_high``'s float32 output below); ``HDEMUCS_HIGH_MUSDB_PLUS`` (``hdemucs_high``, four sources, stereo,
+   44.1 kHz) in the Hybrid Demucs tutorial's ``separate_sources`` (``examples/tutorials/
+   hybrid_demucs_tutorial_torch.py``: segments of 10 s, overlap 0.1 s) over a 30 s synthetic mixture in float32:
+   its parameter count, ms a 10 s segment, the real-time factor, launches a segment and the idle share, sample 0 of
+   every source 0 (the fade-in's first weight); one 2 s segment against the CPU in float64 (1e-9 of the output's
+   peak) and float32 (1e-4), and ``hdemucs_low`` (8 kHz) and ``hdemucs_medium`` (16 kHz, the ``nfft == 2048`` plan)
+   likewise; (b) ``SQUIM_OBJECTIVE`` and ``SQUIM_SUBJECTIVE`` on 8 voiced clips of 4 s at 16 kHz, clean and with
+   noise at 3 dB, MOS against non-matching references of 3 s: ms a batch and the idle share, each score against the
+   CPU in float64 (1e-9 of its peak over the batch) and float32 (1e-4); (c) the 10 s segment and both SQUIM batches
+   with cuDNN's and cuBLAS's TF32 on, within two TF32-off runs' spread of each other; (d) the K1-K9 launch counters
+   over the phase, which must stay at zero (no TPU kernel is on these paths).
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -307,6 +321,25 @@ def device_kernel_rows(prof, reps: int) -> list:
         ms, n = rows.get(name, (0.0, 0))
         rows[name] = (ms + e.duration_ns() / 1e6, n + 1)
     return sorted(((k, ms / reps, n / reps) for k, (ms, n) in rows.items() if ms > 0), key=lambda r: -r[1])
+
+
+def device_busy_union_ms(prof) -> float:
+    """ms in which at least one kernel (or copy) ran on the device in a profile: the union of the intervals that
+    ``device_kernel_rows`` sums.  cuDNN runs a bidirectional LSTM's two directions on streams of its own, so the sum
+    of the kernels' times can exceed the call that holds them (phase 18's SQUIM batches)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+                   and not e.name().startswith("Optimizer.") and e.duration_ns() > 0)
+    total, start, end = 0, None, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += 0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    return (total + (0 if end is None else end - start)) / 1e6
 
 
 def check_rows_against_key_averages(prof, rows: list) -> int:
@@ -3239,10 +3272,11 @@ def check_bf16(name: str, got: list, ref: list) -> float:
 
 
 def profile_batch(name: str, fn, against_key_averages: bool = False) -> dict:
-    """One call of ``fn`` under torch.profiler: its launches, the device's busy time and idle share
-    against the profiled call's own elapsed time (CUDA events inside the profile: the tracing lengthens
-    the kernels, so busy time can exceed an untraced call), and the longest kernels; with
-    ``against_key_averages``, the launches held to ``key_averages``' count."""
+    """One call of ``fn`` under torch.profiler: its launches, the kernels' summed time (``busy_ms``), the time the
+    device was busy (the union of the kernels' intervals, ``device_busy_union_ms``) and the idle share it leaves of
+    the profiled call's own elapsed time (CUDA events inside the profile: the tracing lengthens the kernels, so busy
+    time can exceed an untraced call), and the longest kernels; with ``against_key_averages``, the launches held to
+    ``key_averages``' count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3257,12 +3291,14 @@ def profile_batch(name: str, fn, against_key_averages: bool = False) -> dict:
     if against_key_averages:
         check_rows_against_key_averages(prof, rows)
     busy, n = sum(r[1] for r in rows), sum(r[2] for r in rows)
-    print(f"  profile of one {name} call: {n:g} kernel launches, device busy {busy:.3f} ms in a {call_ms:.3f} ms "
-          f"profiled call (idle share {1 - busy / call_ms:.3f}); the longest kernels:")
+    union = device_busy_union_ms(prof)
+    print(f"  profile of one {name} call: {n:g} kernel launches, {busy:.3f} ms of kernel time, device busy "
+          f"{union:.3f} ms in a {call_ms:.3f} ms profiled call (idle share {1 - union / call_ms:.3f}); the longest "
+          "kernels:")
     for kernel, ms, count in rows[:8]:
         print(f"    {ms:8.3f} ms  x{count:g}  {kernel[:100]}")
-    return {"launches": n, "busy_ms": busy, "profiled_call_ms": call_ms, "idle_share": 1 - busy / call_ms,
-            "by_kernel": rows[:12]}
+    return {"launches": n, "busy_ms": busy, "busy_union_ms": union, "profiled_call_ms": call_ms,
+            "idle_share": 1 - union / call_ms, "by_kernel": rows[:12]}
 
 
 def time_batch(name: str, fn, card: str, audio_s: float, flops: float, peak_rate: float) -> dict:
@@ -5024,6 +5060,253 @@ def run_tf32_checks(conformer_recipe, dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 18: Hybrid Demucs and SQUIM
+HD_SOURCES = ["drums", "bass", "other", "vocals"]
+HD_SR, HD_SECONDS, HD_SEGMENT, HD_OVERLAP = 44100, 30, 10.0, 0.1  # the torchaudio tutorial's segment and overlap
+HD_CMP_SECONDS = 2  # the card against the CPU on one segment of this many seconds
+HD_PARAMS = {"high": 83_639_368, "medium": 78_908_488, "low": 20_040_296}  # four sources (tests/test_torch_hdemucs.py)
+HD_RATES = {"high": 44100, "medium": 16000, "low": 8000}  # torchaudio's sample rates for each plan
+SQ_B, SQ_SECONDS, SQ_REF_SECONDS, SQ_SR, SQ_SNR_DB = 8, 4, 3, 16000, 3.0  # the SQUIM tutorial's 3 dB of noise
+SQ_PARAMS = {"objective": 7_387_658, "subjective": 94_395_942}
+P18_SEED = 250  # the CUDA and numpy seeds of phase 18 are 250-269
+P18_F32_TOL, P18_F64_TOL = 1e-4, 1e-9  # of each output's peak
+
+
+def music_mixture(dev, b: int, seconds: float, sr: int, seed: int):
+    """``b`` stereo mixtures of ``seconds`` at ``sr`` made on the device: a bass line, a chord, a voice-like tone
+    with vibrato and decaying noise bursts twice a second, panned apart (float32, (b, 2, n))."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = int(seconds * sr)
+    t = torch.arange(n, device=dev, dtype=torch.float64) / sr
+    shift = torch.rand((b, 1), generator=g, device=dev, dtype=torch.float64)
+    bass = 0.4 * torch.sin(2 * math.pi * (55 + 55 * shift) * t)
+    chord = sum(0.15 * torch.sin(2 * math.pi * f * (1 + 0.1 * shift) * t) for f in (220.0, 277.18, 329.63))
+    voice = 0.3 * torch.sin(2 * math.pi * (440 * (1 + 0.2 * shift)) * t + 3 * torch.sin(2 * math.pi * 5 * t))
+    drums = torch.exp(-30 * ((2 * t) % 1)) * torch.randn((b, n), generator=g, device=dev, dtype=torch.float64) * 0.5
+    left, right = bass + chord + 0.8 * voice + drums, bass + 0.7 * chord + voice + drums
+    return torch.stack([left, right], dim=1).float()
+
+
+def check_against_cpu(name: str, run, model, inputs: tuple) -> dict:
+    """``run(model, *inputs)`` (a tensor or a list of them) on the card against a copy of ``model`` on the CPU, in
+    float64 on both sides (within P18_F64_TOL of each output's peak) and in float32 (P18_F32_TOL); the errors
+    relative to each output's peak."""
+    import torch
+
+    out = {}
+    for dtype, tol in ((torch.float64, P18_F64_TOL), (torch.float32, P18_F32_TOL)):
+        card_model = copy.deepcopy(model).to(dtype)
+        got = run(card_model, *(x.to(dtype) for x in inputs))
+        del card_model
+        got = [g.cpu() for g in (got if isinstance(got, (list, tuple)) else [got])]
+        cpu_model = copy.deepcopy(model).cpu().to(dtype)
+        ref = run(cpu_model, *(x.cpu().to(dtype) for x in inputs))
+        del cpu_model
+        ref = ref if isinstance(ref, (list, tuple)) else [ref]
+        errs = []
+        for i, (a, r) in enumerate(zip(got, ref)):
+            peak = float(r.abs().max())
+            errs.append(check_close(f"{name}, {str(dtype)[6:]}, output {i} against the CPU", a, r, tol * peak, 0.0,
+                                    quiet=True) / peak)
+        print(f"  {name} against the CPU: {str(dtype)[6:]} within {max(errs):.3e} of each output's peak at worst "
+              f"over {len(errs)} output(s) (limit {tol:g})")
+        out[str(dtype)[6:]] = errs
+    return out
+
+
+def check_forward_tf32(name: str, fn) -> dict:
+    """``fn()`` (a list of f32 tensors) with cuDNN's and cuBLAS's TF32 on (PyTorch's default for cuDNN) against two
+    runs with both off: within the two runs' own spread of each other, elementwise (the same bits where they
+    agree)."""
+    import torch
+
+    off, again = fn(), fn()
+    with tf32_on("cudnn"), tf32_on("cublas"):
+        on = fn()
+    spread = max(float((a - o).abs().max()) for a, o in zip(again, off))
+    err = max(float((t - o).abs().max()) for t, o in zip(on, off))
+    moved = sum(int(((t - o).abs() > (a - o).abs()).sum()) for t, o, a in zip(on, off, again))
+    print(f"  {name}: with cuDNN's and cuBLAS's TF32 on, max |difference| {err:.3e} from the run with them off (two "
+          f"runs with them off: {spread:.3e}); {moved} entries outside the two runs' spread (limit 0)")
+    if moved:
+        raise AssertionError(f"{name}: TF32 changed the float32 outputs")
+    return {"tf32_max_abs_diff": err, "repeat_max_abs_diff": spread}
+
+
+def run_hdemucs(dev, card: str) -> dict:
+    """Phase 18 (a): music separation at full width.  First the port's ``istft`` at n_fft 4096 on complex64 bins
+    with imaginary DC and Nyquist parts against the CPU (1e-5 of the peak; the fault before PR 19's repair printed
+    beside, here and on ``hdemucs_high``'s float32 output).  ``HDEMUCS_HIGH_MUSDB_PLUS.get_model``
+    on a seeded ``state_dict`` (CUDA seed 250: ``hdemucs_high``, four sources, stereo, 44.1 kHz), the tutorial's
+    ``separate_sources`` (``examples/tutorials/hybrid_demucs_tutorial_torch.py``: segments of 10 s, overlap 0.1 s)
+    on a 30 s synthetic mixture in float32: ms a 10 s segment, the real-time factor, launches a segment and the idle
+    share; one 2 s segment against the CPU in float64 and float32; ``hdemucs_low`` and ``hdemucs_medium`` likewise
+    at 2 s of 8 and 16 kHz (medium alone takes the ``nfft == 2048`` empty time layer: kernel 4, stride 2); (c) the
+    10 s segment with TF32 on."""
+    import torch
+
+    from audio_tpu_torch import models, pipelines
+
+    from unittest import mock
+
+    from audio_tpu_torch._internal.windows import hann_window
+    from audio_tpu_torch.functional import _stft
+    from audio_tpu_torch.functional._stft import istft
+
+    def before_repair():
+        """``istft`` as it was before PR 19: the DC and Nyquist bins handed to cuFFT with their imaginary parts."""
+        return mock.patch.object(_stft, "_real_edge_bins", lambda frames, n_fft: frames)
+
+    # the inverse STFT of HDemucs's frequency branch (n_fft 4096) on bins whose DC and Nyquist bins carry imaginary
+    # parts, as a network's output does: the port's istft drops them, as numpy's irfft (cuFFT's complex64 C2R of
+    # 4096 points reads the DC bin's)
+    bins = torch.randn((8, 2049, 87), generator=torch.Generator(device=dev).manual_seed(P18_SEED + 6), device=dev,
+                       dtype=torch.complex64)
+    window = hann_window(4096, device=dev)
+    got = istft(bins, 4096, 1024, 4096, window, center=True, normalized=True, length=1024 * 86)
+    ref = istft(bins.cpu(), 4096, 1024, 4096, window.cpu(), center=True, normalized=True, length=1024 * 86)
+    peak = float(ref.abs().max())
+    out = {"istft_4096_err_of_peak": check_close("istft, n_fft 4096, complex64 bins with imaginary DC and Nyquist "
+                                                 "parts, against the CPU", got.cpu(), ref, 1e-5 * peak, 0.0) / peak}
+    with before_repair():
+        before = istft(bins, 4096, 1024, 4096, window, center=True, normalized=True, length=1024 * 86)
+    out["istft_4096_before_repair_err_of_peak"] = float((before.cpu() - ref).abs().max()) / peak
+    print(f"  the same istft before the repair (cuFFT's complex64 C2R given the imaginary parts): "
+          f"{out['istft_4096_before_repair_err_of_peak']:.3e} of the peak off the CPU (printed, not gated)")
+    tutorial = load_example("hybrid_demucs_tutorial_torch", "tutorials", "hybrid_demucs_tutorial_torch.py")
+    seeded = models.hdemucs_high(HD_SOURCES, device=dev, generator=torch.Generator(device=dev).manual_seed(P18_SEED))
+    state = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    del seeded
+    model = pipelines.HDEMUCS_HIGH_MUSDB_PLUS.get_model(dl_kwargs={"state_dict": state}, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  HDEMUCS_HIGH_MUSDB_PLUS on a state_dict from CUDA seed {P18_SEED}: hdemucs_high, {len(HD_SOURCES)} "
+          f"sources, {n_params} parameters ({n_params / 1e6:.2f}M), nfft {model.nfft}, depth {model.depth}")
+    if n_params != HD_PARAMS["high"] or pipelines.HDEMUCS_HIGH_MUSDB_PLUS.sample_rate != HD_SR:
+        raise AssertionError(f"hdemucs_high has {n_params} parameters, not {HD_PARAMS['high']}")
+    mix = music_mixture(dev, 1, HD_SECONDS, HD_SR, P18_SEED + 1)
+    ref_std = mix.std()
+    seg = mix[:, :, : int(HD_SEGMENT * HD_SR)] / ref_std
+
+    def separate():
+        return tutorial.separate_sources(model, mix / ref_std, segment=HD_SEGMENT, overlap=HD_OVERLAP,
+                                         sample_rate=HD_SR) * ref_std
+
+    sources = separate()
+    torch.cuda.synchronize()
+    shape = (1, len(HD_SOURCES), 2, HD_SECONDS * HD_SR)
+    if tuple(sources.shape) != shape or not bool(torch.isfinite(sources).all()):
+        raise AssertionError(f"separate_sources: shape {tuple(sources.shape)} (want {shape}) or not finite")
+    if not bool((sources[..., 0] == 0).all()):
+        raise AssertionError("separate_sources: sample 0 is not 0 (the first chunk's fade-in starts at 0)")
+    rms = [float(sources[0, i].pow(2).mean().sqrt()) for i in range(len(HD_SOURCES))]
+    print(f"  separate_sources on {HD_SECONDS} s of stereo at {HD_SR} Hz: {shape}, finite, sample 0 of every source "
+          f"0 (the fade-in's first weight), source RMS {', '.join(f'{r:.4f}' for r in rms)}")
+    out.update(params=n_params, source_rms=rms)
+    seg_ms, seg_runs = median_call_ms(lambda: model(seg))
+    sep_ms, sep_runs = median_call_ms(separate, reps=3)
+    n_segments = math.ceil((HD_SECONDS * HD_SR - int(HD_OVERLAP * HD_SR)) / int((HD_SEGMENT - HD_OVERLAP) * HD_SR))
+    out.update(segment_ms=seg_ms, segment_runs_ms=seg_runs, separate_ms=sep_ms, separate_runs_ms=sep_runs,
+               segments=n_segments, rtf=sep_ms / 1e3 / HD_SECONDS)
+    print(f"  hdemucs_high on one {HD_SEGMENT:g} s segment: {seg_ms:.3f} ms (runs "
+          f"{', '.join(f'{r:.3f}' for r in seg_runs)}); separate_sources over {HD_SECONDS} s ({n_segments} segments): "
+          f"{sep_ms:.3f} ms, real-time factor {out['rtf']:.5f}, on {card}")
+    _, out["segment_peak_gb"] = peak_call(lambda: model(seg))
+    out["profile"] = profile_batch(f"hdemucs_high {HD_SEGMENT:g} s segment", lambda: model(seg))
+    out["tf32"] = check_forward_tf32(f"hdemucs_high on a {HD_SEGMENT:g} s segment", lambda: [model(seg)])
+    n = HD_CMP_SECONDS * HD_SR
+    out["cpu"] = check_against_cpu(f"hdemucs_high, {HD_CMP_SECONDS} s at {HD_SR} Hz", lambda m, x: m(x), model,
+                                   (seg[:, :, :n],))
+    with before_repair():
+        before = model(seg[:, :, :n]).cpu()
+    ref = copy.deepcopy(model).cpu()(seg[:, :, :n].cpu())
+    out["before_repair_f32_err_of_peak"] = float((before - ref).abs().max() / ref.abs().max())
+    print(f"  hdemucs_high, {HD_CMP_SECONDS} s, float32, with istft as before the repair: "
+          f"{out['before_repair_f32_err_of_peak']:.3e} of the output's peak off the CPU (printed, not gated)")
+    del model, sources
+    torch.cuda.empty_cache()
+
+    for i, plan in enumerate(("low", "medium")):
+        sr = HD_RATES[plan]
+        small = getattr(models, f"hdemucs_{plan}")(HD_SOURCES, device=dev,
+                                                   generator=torch.Generator(device=dev).manual_seed(P18_SEED + 2 + i))
+        small.eval()
+        n_params = sum(p.numel() for p in small.parameters())
+        merge = next(layer for layer in small.time_encoder if layer.empty)
+        print(f"  hdemucs_{plan}: {n_params} parameters, nfft {small.nfft}, depth {small.depth}, its empty time layer "
+              f"kernel {merge.kernel_size} stride {merge.stride}")
+        if n_params != HD_PARAMS[plan] or (merge.kernel_size, merge.stride) != ((4, 2) if plan == "medium" else (8, 4)):
+            raise AssertionError(f"hdemucs_{plan}: {n_params} parameters or the empty time layer's plan is off")
+        clip = music_mixture(dev, 1, HD_CMP_SECONDS, sr, P18_SEED + 4 + i)
+        clip = clip / clip.std()
+        out[plan] = check_against_cpu(f"hdemucs_{plan}, {HD_CMP_SECONDS} s at {sr} Hz", lambda m, x: m(x), small,
+                                      (clip,))
+        del small
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_squim(dev, card: str) -> dict:
+    """Phase 18 (b): speech-quality scoring.  ``SQUIM_OBJECTIVE`` and ``SQUIM_SUBJECTIVE`` on seeded ``state_dict``s
+    (CUDA seeds 260 and 261) score 8 voiced clips of 4 s at 16 kHz, clean and with white noise at 3 dB
+    (``F.add_noise``, as the SQUIM tutorial), MOS against non-matching references of 3 s (tiled by the model):
+    ms a batch and the idle share; each score against the CPU in float64 and float32; (c) both with TF32 on."""
+    import torch
+
+    import audio_tpu_torch.functional as F
+    from audio_tpu_torch import models, pipelines
+
+    out = {}
+    bundles = {}
+    for i, (kind, bundle) in enumerate((("objective", pipelines.SQUIM_OBJECTIVE),
+                                        ("subjective", pipelines.SQUIM_SUBJECTIVE))):
+        g = torch.Generator(device=dev).manual_seed(P18_SEED + 10 + i)
+        seeded = getattr(models, f"squim_{kind}_base")(device=dev, generator=g)
+        state = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+        del seeded
+        bundles[kind] = bundle.get_model(dl_kwargs={"state_dict": state}, device=dev)
+        n_params = sum(p.numel() for p in bundles[kind].parameters())
+        print(f"  SQUIM_{kind.upper()} on a state_dict from CUDA seed {P18_SEED + 10 + i}: {n_params} parameters, "
+              f"{bundle.sample_rate} Hz")
+        if n_params != SQ_PARAMS[kind] or bundle.sample_rate != SQ_SR:
+            raise AssertionError(f"squim_{kind}_base has {n_params} parameters, not {SQ_PARAMS[kind]}")
+        out[f"{kind}_params"] = n_params
+    objective, subjective = bundles["objective"], bundles["subjective"]
+    clean = voiced_rows(dev, SQ_B, SQ_SECONDS * SQ_SR, P18_SEED + 12)
+    noise = torch.randn(clean.shape, generator=torch.Generator(device=dev).manual_seed(P18_SEED + 13), device=dev)
+    noisy = F.add_noise(clean, noise, torch.full((SQ_B,), SQ_SNR_DB, device=dev))
+    reference = voiced_rows(dev, SQ_B, SQ_REF_SECONDS * SQ_SR, P18_SEED + 14)
+
+    scores = {}
+    for label, wav in (("clean", clean), ("noisy", noisy)):
+        stoi, pesq, si_sdr = objective(wav)
+        mos = subjective(wav, reference)
+        scores[label] = {"stoi": stoi.tolist(), "pesq": pesq.tolist(), "si_sdr": si_sdr.tolist(), "mos": mos.tolist()}
+        for name, s in scores[label].items():
+            if len(s) != SQ_B or not all(math.isfinite(v) for v in s):
+                raise AssertionError(f"SQUIM {label} {name}: {s}")
+        print(f"  {label} ({SQ_B} x {SQ_SECONDS} s): STOI {np.mean(scores[label]['stoi']):.4f}, PESQ "
+              f"{np.mean(scores[label]['pesq']):.4f}, SI-SDR {np.mean(scores[label]['si_sdr']):.4f} dB, MOS "
+              f"{np.mean(scores[label]['mos']):.4f} (batch means; random weights)")
+    out["scores"] = scores
+    for kind, fn in (("objective", lambda: objective(noisy)), ("subjective", lambda: subjective(noisy, reference))):
+        ms, runs = median_call_ms(fn)
+        out[kind] = {"ms": ms, "runs_ms": runs, "audio_s_per_s": SQ_B * SQ_SECONDS / (ms / 1e3)}
+        print(f"  SQUIM {kind} on {SQ_B} x {SQ_SECONDS} s: {ms:.3f} ms a batch (runs "
+              f"{', '.join(f'{r:.3f}' for r in runs)}), {out[kind]['audio_s_per_s']:.1f} s of audio a second on {card}")
+        out[kind]["profile"] = profile_batch(f"SQUIM {kind} batch", fn)
+    out["tf32"] = check_forward_tf32(f"SQUIM objective and subjective on {SQ_B} x {SQ_SECONDS} s",
+                                     lambda: [*objective(noisy), subjective(noisy, reference)])
+    out["cpu_objective"] = check_against_cpu(f"SQUIM objective (STOI, PESQ, SI-SDR), {SQ_B} x {SQ_SECONDS} s",
+                                             lambda m, x: m(x), objective, (noisy,))
+    out["cpu_subjective"] = check_against_cpu(f"SQUIM subjective (MOS), {SQ_B} x {SQ_SECONDS} s",
+                                              lambda m, x, r: m(x, r), subjective, (noisy, reference))
+    del objective, subjective, bundles
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -5543,6 +5826,23 @@ def main(argv=None) -> int:
     zoo["seconds"] = time.perf_counter() - t17
     print(f"  phase 17 took {zoo['seconds']:.1f} s")
 
+    # ---------------------------------------------------------------- phase 18
+    print(f"phase 18: music separation (HDEMUCS_HIGH_MUSDB_PLUS, separate_sources over {HD_SECONDS} s of stereo at "
+          f"{HD_SR} Hz, segments of {HD_SEGMENT:g} s), hdemucs_low and hdemucs_medium, and speech-quality scoring "
+          f"(SQUIM_OBJECTIVE and SQUIM_SUBJECTIVE on {SQ_B} x {SQ_SECONDS} s at {SQ_SR} Hz)")
+    t18 = time.perf_counter()
+    reset_kernel_counts()
+    phase18 = {"separation": run_hdemucs(dev, card)}
+    phase18["squim"] = run_squim(dev, card)
+    torch.cuda.synchronize()
+    phase18["kernel_launches"] = {n: c for n, c in kernel_counts().items() if c}
+    print(f"  launches of K1-K9 (every route) in phase 18: {phase18['kernel_launches']} (none expected: no TPU kernel "
+          "is on these paths; HDemucs's STFT is a complex torch.fft, not K2's power spectrogram)")
+    if phase18["kernel_launches"]:
+        raise AssertionError(f"phase 18 launched the port's kernels: {phase18['kernel_launches']}")
+    phase18["seconds"] = time.perf_counter() - t18
+    print(f"  phase 18 took {phase18['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -5748,7 +6048,8 @@ def main(argv=None) -> int:
                        "filter_grad": {str(o): {k: v for k, v in r.items() if k not in ("a", "b")}
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
-                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo},
+                       "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo,
+                       "phase18": phase18},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

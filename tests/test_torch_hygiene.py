@@ -306,13 +306,15 @@ WAV2VEC2_NAMES = ["Wav2Vec2Model", "WavLMModel", "wav2vec2_model", "wav2vec2_bas
 
 HUBERT_PRETRAIN_NAMES = ["HuBERTPretrainModel", "hubert_pretrain_model", "hubert_pretrain_base",
                          "hubert_pretrain_large", "hubert_pretrain_xlarge"]
-ZOO_NAMES = ["Wav2Letter", "DeepSpeech", "ConvTasNet", "conv_tasnet_base"]
+ZOO_NAMES = ["Wav2Letter", "DeepSpeech", "ConvTasNet", "conv_tasnet_base", "HDemucs", "hdemucs_low", "hdemucs_medium",
+             "hdemucs_high", "SquimObjective", "SquimSubjective", "squim_objective_model", "squim_objective_base",
+             "squim_subjective_model", "squim_subjective_base"]
 
 
 def test_models_export_a_subset_of_the_jax_package_s_names():
-    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (33 of them), the 16 of
+    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (43 of them), the 16 of
     wav2vec2/HuBERT and WavLM, the 5 of HuBERT pretraining, ``Conformer``, ``Wav2Letter``, ``DeepSpeech``,
-    ``ConvTasNet`` and ``conv_tasnet_base`` among them;
+    ``ConvTasNet``, ``conv_tasnet_base``, the 4 of Hybrid Demucs and the 6 of SQUIM among them;
     ``audio_tpu_torch.models.wav2vec2`` exports exactly the 16 names of ``audio_tpu.models.wav2vec2``."""
     import audio_tpu.models as jm
     import audio_tpu.models.wav2vec2 as jw
@@ -322,7 +324,7 @@ def test_models_export_a_subset_of_the_jax_package_s_names():
 
     assert set(tm.__all__) <= set(jm.__all__)
     assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES + ["Conformer"] + ZOO_NAMES) <= set(tm.__all__)
-    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 33
+    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 43
     assert all(callable(getattr(tm, n)) for n in tm.__all__)
     assert sorted(tw.__all__) == sorted(jw.__all__) and len(set(tw.__all__)) == 16
 
