@@ -1,7 +1,10 @@
-"""Loading a recipe's sibling script by path."""
+"""Helpers of the recipe scripts: loading a sibling script by path, and cuDNN's deterministic algorithms for a gate."""
 
+import contextlib
 import importlib.util
 import sys
+
+import torch
 
 
 def load_by_path(name: str, path: str):
@@ -15,3 +18,20 @@ def load_by_path(name: str, path: str):
     sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, and no benchmarking, inside the block; the caller's settings after it.
+
+    A recipe's ``--overfit`` gate trains a few hundred steps at a high learning rate without clipping, and its loss
+    spikes now and then, so where it ends depends on the last bits of every step.  cuDNN's default backward
+    algorithms add their partial sums in an order that changes from run to run, and the same command then passes or
+    fails the gate by chance on the card.  Under this block the run is the same on every call (cuBLAS, on one stream,
+    is already).  On the CPU it changes nothing."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved

@@ -33,12 +33,14 @@ ulp.
 ``squim_subjective_state_dict_from_jax_params`` are the inverses of
 ``import_wav2letter_state_dict``, ``import_deepspeech_state_dict``,
 ``import_conv_tasnet_state_dict``, ``import_hdemucs_state_dict``,
-``import_squim_objective_state_dict`` and ``import_squim_subjective_state_dict``.
+``import_squim_objective_state_dict`` and ``import_squim_subjective_state_dict``;
+``tacotron2_state_dict_from_jax_params`` and ``wavernn_state_dict_from_jax_params`` of
+``import_tacotron2_state_dict`` and ``import_wavernn_state_dict`` (flax ``params`` and ``batch_stats``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,7 +50,8 @@ __all__ = ["conformer_state_dict_from_jax_params", "conv_tasnet_state_dict_from_
            "hubert_pretrain_state_dict_from_jax_params", "predictor_state_dict_from_jax_params",
            "rnnt_state_dict_from_jax_params", "simple_heads_from_jax_params",
            "squim_objective_state_dict_from_jax_params", "squim_subjective_state_dict_from_jax_params",
-           "wav2letter_state_dict_from_jax_params", "wav2vec2_state_dict_from_jax_params",
+           "tacotron2_state_dict_from_jax_params", "wav2letter_state_dict_from_jax_params",
+           "wavernn_state_dict_from_jax_params", "wav2vec2_state_dict_from_jax_params",
            "wavlm_state_dict_from_jax_params"]
 
 
@@ -467,4 +470,108 @@ def squim_subjective_state_dict_from_jax_params(params: Any, device="cuda") -> D
     pool = tree["predictor"]["att_pool_layer"]
     _dense(sd, "predictor.att_pool_layer.linear1", pool["linear1"], device)
     _dense(sd, "predictor.att_pool_layer.linear2", pool["linear2"], device)
+    return sd
+
+
+def _batch_norm(out: dict, name: str, node: dict, stats: Optional[dict], device) -> None:
+    """flax BatchNorm {scale, bias} and its batch statistics {mean, var} -> torch's {weight, bias, running_mean,
+    running_var, num_batches_tracked (0)}; a tree without statistics (a gradient tree) gives the first two."""
+    _norm(out, name, node, device)
+    if stats is not None:
+        out[f"{name}.running_mean"] = _leaf(stats["mean"], device)
+        out[f"{name}.running_var"] = _leaf(stats["var"], device)
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _variables(variables: Any):
+    """(params, batch_stats or None) of ``{"params": ..., "batch_stats": ...}`` or of a bare params tree."""
+    if "params" in variables:
+        return variables["params"], variables.get("batch_stats")
+    return variables, None
+
+
+def _stats(stats: Optional[dict], *path: str) -> Optional[dict]:
+    for p in path:
+        if stats is None:
+            return None
+        stats = stats.get(p)
+    return stats
+
+
+def _lstm_cell(out: dict, name: str, node: dict, device, suffix: str = "") -> None:
+    """{w_ih (in, G), w_hh (H, G), b_ih, b_hh} -> torch's {weight_ih (G, in), weight_hh, bias_ih, bias_hh} (with
+    ``suffix``, ``_l0`` for an ``nn.GRU``)."""
+    out[f"{name}.weight_ih{suffix}"] = _leaf(node["w_ih"], device).t().contiguous()
+    out[f"{name}.weight_hh{suffix}"] = _leaf(node["w_hh"], device).t().contiguous()
+    out[f"{name}.bias_ih{suffix}"] = _leaf(node["b_ih"], device)
+    out[f"{name}.bias_hh{suffix}"] = _leaf(node["b_hh"], device)
+
+
+def tacotron2_state_dict_from_jax_params(variables: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``Tacotron2`` ``state_dict`` from the JAX package's flax variables (``{"params", "batch_stats"}``
+    as ``import_tacotron2_state_dict`` returns them, or a bare params or gradient tree): ``encoder_conv_{i}`` and
+    ``encoder_bn_{i}`` -> ``encoder.convolutions.{i}.{0,1}`` (kernels (K, in, out) -> (out, in, K)), the encoder's
+    ``w_*_f``/``w_*_b`` -> ``encoder.lstm``'s ``*_l0``/``*_l0_reverse``, the prenet, the two LSTM cells, the
+    attention's layers under ``decoder.attention_layer``, the projections and ``postnet_conv_{i}``/``postnet_bn_{i}``
+    -> ``postnet.convolutions.{i}.{0,1}``; in the model's own order."""
+    tree, stats = _variables(variables)
+    sd: Dict[str, torch.Tensor] = {"embedding.weight": _leaf(tree["embedding"]["embedding"], device)}
+    for i in range(_count(tree, "encoder_conv_")):
+        _conv(sd, f"encoder.convolutions.{i}.0", tree[f"encoder_conv_{i}"], device)
+        _batch_norm(sd, f"encoder.convolutions.{i}.1", tree[f"encoder_bn_{i}"], _stats(stats, f"encoder_bn_{i}"),
+                    device)
+    lstm = tree["encoder_lstm"]
+    for rev, d in (("", "f"), ("_reverse", "b")):
+        _lstm_cell(sd, "encoder.lstm", {k: lstm[f"{k}_{d}"] for k in ("w_ih", "w_hh", "b_ih", "b_hh")}, device,
+                   f"_l0{rev}")
+    for i in range(2):
+        sd[f"decoder.prenet.layers.{i}.weight"] = _leaf(tree[f"prenet_{i + 1}"]["kernel"], device).t().contiguous()
+    _lstm_cell(sd, "decoder.attention_rnn", tree["attention_rnn"], device)
+    for name in ("query_layer", "memory_layer", "v"):
+        _dense(sd, f"decoder.attention_layer.{name}", tree[name], device)
+    _conv(sd, "decoder.attention_layer.location_layer.location_conv", tree["location_conv"], device)
+    _dense(sd, "decoder.attention_layer.location_layer.location_dense", tree["location_dense"], device)
+    _lstm_cell(sd, "decoder.decoder_rnn", tree["decoder_rnn"], device)
+    _dense(sd, "decoder.linear_projection", tree["linear_projection"], device)
+    _dense(sd, "decoder.gate_layer", tree["gate_layer"], device)
+    for i in range(_count(tree, "postnet_conv_")):
+        _conv(sd, f"postnet.convolutions.{i}.0", tree[f"postnet_conv_{i}"], device)
+        _batch_norm(sd, f"postnet.convolutions.{i}.1", tree[f"postnet_bn_{i}"], _stats(stats, f"postnet_bn_{i}"),
+                    device)
+    return sd
+
+
+def wavernn_state_dict_from_jax_params(variables: Any, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``WaveRNN`` ``state_dict`` from the JAX package's flax variables (or a bare params or gradient
+    tree): the MelResNet under ``upsample.resnet.melresnet_model`` (``conv_in`` (K, in, out) -> ``0`` (out, in, K),
+    ``bn_in`` -> ``1``, ``resblock_{i}`` -> ``{3 + i}.resblock_model.{0, 1, 3, 4}`` with the Dense kernels
+    (in, out) as ``Conv1d(k=1)`` weights (out, in, 1), ``conv_out`` -> ``{3 + n}``), ``up_conv_{j}`` ->
+    ``upsample.upsample_layers.{2j + 1}`` (already torch's layout), ``fc``, ``rnn1``/``rnn2`` as ``nn.GRU``
+    (``*_l0``), ``fc1``-``fc3``; in the model's own order."""
+    tree, stats = _variables(variables)
+    up, up_stats = tree["upsample"], _stats(stats, "upsample", "resnet")
+    res, mel = up["resnet"], "upsample.resnet.melresnet_model"
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{mel}.0", res["conv_in"], device)
+    _batch_norm(sd, f"{mel}.1", res["bn_in"], _stats(up_stats, "bn_in"), device)
+
+    def pointwise(name: str, node: dict) -> None:
+        sd[f"{name}.weight"] = _leaf(node["kernel"], device).t()[:, :, None].contiguous()
+        if "bias" in node:
+            sd[f"{name}.bias"] = _leaf(node["bias"], device)
+
+    n = _count(res, "resblock_")
+    for i in range(n):
+        block, name = res[f"resblock_{i}"], f"{mel}.{3 + i}.resblock_model"
+        for conv, bn, at in (("conv1", "bn1", 0), ("conv2", "bn2", 3)):
+            pointwise(f"{name}.{at}", block[conv])
+            _batch_norm(sd, f"{name}.{at + 1}", block[bn], _stats(up_stats, f"resblock_{i}", bn), device)
+    pointwise(f"{mel}.{3 + n}", res["conv_out"])
+    for j in range(_count(up, "up_conv_")):
+        sd[f"upsample.upsample_layers.{2 * j + 1}.weight"] = _leaf(up[f"up_conv_{j}"], device)
+    _dense(sd, "fc", tree["fc"], device)
+    for rnn in ("rnn1", "rnn2"):
+        _lstm_cell(sd, rnn, tree[rnn], device, "_l0")
+    for lin in ("fc1", "fc2", "fc3"):
+        _dense(sd, lin, tree[lin], device)
     return sd

@@ -1,5 +1,5 @@
 """Models of the PyTorch port: the Emformer RNN-T and its beam search, Conformer, wav2vec2/HuBERT, WavLM, Wav2Letter,
-DeepSpeech, Conv-TasNet, Hybrid Demucs and SQUIM."""
+DeepSpeech, Conv-TasNet, Hybrid Demucs, SQUIM, Tacotron2 and WaveRNN."""
 
 from .conformer import Conformer
 from .conv_tasnet import ConvTasNet, conv_tasnet_base
@@ -16,6 +16,7 @@ from .squim import (
     squim_subjective_base,
     squim_subjective_model,
 )
+from .tacotron2 import Tacotron2
 from .wav2letter import Wav2Letter
 from .wav2vec2 import (
     HuBERTPretrainModel,
@@ -35,6 +36,7 @@ from .wav2vec2 import (
     wav2vec2_xlsr_2b,
     wav2vec2_xlsr_300m,
 )
+from .wavernn import WaveRNN
 from .wavlm import WavLMModel, wavlm_base, wavlm_base_plus, wavlm_large, wavlm_model
 
 __all__ = [
@@ -49,8 +51,10 @@ __all__ = [
     "RNNTBeamSearch",
     "SquimObjective",
     "SquimSubjective",
+    "Tacotron2",
     "Wav2Letter",
     "Wav2Vec2Model",
+    "WaveRNN",
     "WavLMModel",
     "conv_tasnet_base",
     "emformer_rnnt_base",

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -98,12 +99,19 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, cublas
 
 
+_recording = threading.local()  # ``depth``: how many ``_record`` calls this thread is inside
+
+
 def _record(fn: Callable, args: Sequence, needs: Sequence[bool]):
     """``fn``'s graph on detached copies of the tensor arguments, under ``_no_tf32``: (those copies, the gradient
     edges of its outputs, its outputs)."""
     inputs = [a.detach().requires_grad_(need) if torch.is_tensor(a) else a for a, need in zip(args, needs)]
-    with torch.enable_grad(), _no_tf32():
-        out = fn(*inputs)
+    _recording.depth = getattr(_recording, "depth", 0) + 1
+    try:
+        with torch.enable_grad(), _no_tf32():
+            out = fn(*inputs)
+    finally:
+        _recording.depth -= 1
     outs = out if isinstance(out, tuple) else (out,)
     return inputs, [torch.autograd.graph.get_gradient_edge(o) for o in outs], out
 
@@ -144,7 +152,11 @@ class _TF32Off(torch.autograd.Function):
 def tf32_off(fn: Callable, *args):
     """``fn(*args)`` (a tensor or a tuple of tensors) with cuDNN's and cuBLAS's TF32 off in its forward and in its
     backward, whatever the caller's flags.  Gradients reach the tensors among ``args`` that require them, so
-    ``fn`` takes every parameter it uses as an argument (``torch.func.functional_call`` for a module's)."""
+    ``fn`` takes every parameter it uses as an argument (``torch.func.functional_call`` for a module's).  Inside
+    another ``tf32_off``'s ``fn`` it is a plain call: that one's graph, forward and backward, already runs with TF32
+    off (a model's decoder loop makes one wrapper, not one a product a step)."""
+    if getattr(_recording, "depth", 0):
+        return fn(*args)
     if not (torch.is_grad_enabled() and any(torch.is_tensor(a) and a.requires_grad for a in args)):
         with _no_tf32():
             return fn(*args)

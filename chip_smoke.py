@@ -218,6 +218,20 @@ Phases, each of which raises on failure:
    CPU in float64 (1e-9 of its peak over the batch) and float32 (1e-4); (c) the 10 s segment and both SQUIM batches
    with cuDNN's and cuBLAS's TF32 on, within two TF32-off runs' spread of each other; (d) the K1-K9 launch counters
    over the phase, which must stay at zero (no TPU kernel is on these paths).
+19. Text-to-speech (weights from CUDA seeds 270-289): (a) ``TACOTRON2_WAVERNN_CHAR_LJSPEECH`` and
+   ``TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH`` at full width on injected ``state_dict``s: the character processor on 4
+   sentences, ``Tacotron2.infer`` over 2,000 steps in float32 (no host read inside; the two bundles' models the same
+   bits), the Griffin-Lim vocoder on the whole mel, the WaveRNN vocoder on its first 40 frames (11,000 samples a
+   row): parameter counts, ms, steps, ``out_len``, launches a step or a sample, idle shares; each with cuDNN's and
+   cuBLAS's TF32 on against two runs with them off; (b) Tacotron2 teacher forced at B=2 on rows of unequal length
+   against the CPU in float64 (1e-9 of each output's peak) and float32 (1e-4), its ``infer`` over 64 steps in
+   float64 with ``out_len`` equal, WaveRNN's ``forward`` likewise and its ``infer`` over two frames in float64 with
+   both samplers on the argmax, the samples equal; (c) the two recipes' train steps at full width
+   (``examples/tts/*/train_torch.py``): Tacotron2 at B=8 with up to 128 tokens and 512 frames, WaveRNN at B=8 x 24
+   frames of hop 200, their log-mel targets built from voiced waveforms by the recipes' ``MelSpectrogram`` (K2, only
+   on "fft"): ms a step, launches, idle share, peak memory, the gradients with TF32 on in the backward, at B=2
+   against the CPU in float64, the BatchNorms' statistics unmoved; both ``--overfit`` gates with the JAX slow tests'
+   arguments; (d) the launch counters over the phase: K2 while the targets are built, no other kernel.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -4343,7 +4357,7 @@ def tf32_on(flag: str):
 
 def check_grads_tf32(name: str, loss_fn, leaves: dict, flag: str = "cudnn") -> dict:
     """The f32 gradients of ``loss_fn()`` with respect to ``leaves`` ({name: tensor}) with TF32 (cuDNN's or
-    cuBLAS's, ``flag``) on while the backward runs, against two runs with it off.  Autograd runs a backward under
+    cuBLAS's, ``flag``, or ``"both"``) on while the backward runs, against two runs with it off.  Autograd runs a backward under
     the flags of that moment; ``utils.precision.tf32_off`` (every convolution of the port, cuDNN's RNN and
     ``exact_matmul``) turns TF32 off in the backward too.  Equal bits where the two runs with TF32 off agree bit for
     bit; else (cuDNN's weight gradients may add in any order) within TF32_GRAD_TOL of each gradient's peak: TF32
@@ -4358,12 +4372,18 @@ def check_grads_tf32(name: str, loss_fn, leaves: dict, flag: str = "cudnn") -> d
 
     names = list(leaves)
 
-    def grads(tf32: bool, repaired: bool = True) -> dict:
+    def tf32(on: bool):
+        stack = contextlib.ExitStack()
+        for f in (("cudnn", "cublas") if flag == "both" else (flag,)) if on else ():
+            stack.enter_context(tf32_on(f))
+        return stack
+
+    def grads(on: bool, repaired: bool = True) -> dict:
         with torch.enable_grad():
             loss = loss_fn()
             switch = (contextlib.nullcontext() if repaired
                       else mock.patch.object(precision, "_no_tf32", contextlib.nullcontext))
-            with (tf32_on(flag) if tf32 else contextlib.nullcontext()), switch:
+            with tf32(on), switch:
                 got = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
         return {n: g.detach().clone() for n, g in zip(names, got) if g is not None}
 
@@ -4373,12 +4393,13 @@ def check_grads_tf32(name: str, loss_fn, leaves: dict, flag: str = "cudnn") -> d
     off, again, on, before = grads(False), grads(False), grads(True), grads(True, repaired=False)
     repeat_err, tf32_err, before_err = worst(again, off), worst(on, off), worst(before, off)
     limit = 0.0 if repeat_err == 0 else TF32_GRAD_TOL
-    print(f"  {name}: {len(off)} f32 gradients with {flag}'s TF32 on in the backward: {tf32_err:.3e} of their peaks "
+    print(f"  {name}: {len(off)} f32 gradients with {'cuDNN and cuBLAS' if flag == 'both' else flag}'s TF32 on in "
+          f"the backward: {tf32_err:.3e} of their peaks "
           f"off those with it off (two runs with it off: {repeat_err:.3e}; limit "
           f"{'0, the same bits' if limit == 0 else f'{limit:g}'}); before the repair (TF32 off in the forward "
           f"alone): {before_err:.3e}")
     if tf32_err > limit:
-        raise AssertionError(f"{name}: {flag}'s TF32 changed the f32 gradients")
+        raise AssertionError(f"{name}: TF32 ({flag}) changed the f32 gradients")
     return {"tf32_err_of_peak": tf32_err, "repeat_err_of_peak": repeat_err, "before_repair_err_of_peak": before_err,
             "gradients": len(off)}
 
@@ -4768,7 +4789,8 @@ def helper_cost(name: str, one, card: str, reps: int = 5) -> dict:
 
 
 def run_overfit_gate(name: str, recipe, argv: list, card: str) -> dict:
-    """A recipe's ``--overfit`` gate on the card (its ``main`` raises if the gate fails): seconds and launches."""
+    """A recipe's ``--overfit`` gate on the card (its ``main`` raises if the gate fails; the TTS recipes' train under
+    ``deterministic_cudnn``, so that their verdict is the same on every run): seconds and launches."""
     import torch
 
     print(f"  the {name} recipe's --overfit gate on the card: train_torch.py {' '.join(argv)} --device cuda")
@@ -5091,18 +5113,18 @@ def music_mixture(dev, b: int, seconds: float, sr: int, seed: int):
 
 def check_against_cpu(name: str, run, model, inputs: tuple) -> dict:
     """``run(model, *inputs)`` (a tensor or a list of them) on the card against a copy of ``model`` on the CPU, in
-    float64 on both sides (within P18_F64_TOL of each output's peak) and in float32 (P18_F32_TOL); the errors
-    relative to each output's peak."""
+    float64 on both sides (within P18_F64_TOL of each output's peak) and in float32 (P18_F32_TOL), the floating
+    inputs in that type (integer inputs, token ids, as they are); the errors relative to each output's peak."""
     import torch
 
     out = {}
     for dtype, tol in ((torch.float64, P18_F64_TOL), (torch.float32, P18_F32_TOL)):
         card_model = copy.deepcopy(model).to(dtype)
-        got = run(card_model, *(x.to(dtype) for x in inputs))
+        got = run(card_model, *(x.to(dtype) if x.is_floating_point() else x for x in inputs))
         del card_model
         got = [g.cpu() for g in (got if isinstance(got, (list, tuple)) else [got])]
         cpu_model = copy.deepcopy(model).cpu().to(dtype)
-        ref = run(cpu_model, *(x.cpu().to(dtype) for x in inputs))
+        ref = run(cpu_model, *(x.cpu().to(dtype) if x.is_floating_point() else x.cpu() for x in inputs))
         del cpu_model
         ref = ref if isinstance(ref, (list, tuple)) else [ref]
         errs = []
@@ -5304,6 +5326,334 @@ def run_squim(dev, card: str) -> dict:
                                               lambda m, x, r: m(x, r), subjective, (noisy, reference))
     del objective, subjective, bundles
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 19: text-to-speech
+# the two character bundles at full width (audio_tpu_torch/pipelines/_tts.py: Tacotron2(38 symbols) and WaveRNN at
+# hop 275), weights from CUDA seeds; the recipes at full width (examples/tts/*/train_torch.py): Tacotron2 on B=8 with
+# up to the LJSpeech loader's 128 tokens and 512 frames, WaveRNN at B=8 x 24 frames at hop 200
+P19_SEED = 270  # the CUDA and numpy seeds of phase 19 are 270-289
+TTS_TEXTS = ["Hello world! Text to speech, on the card.", "The quick brown fox jumps over the lazy dog.",
+             "Printing, in the only sense with which we are at present concerned, differs from most arts.",
+             "Hi."]
+TTS_PARAMS = {"tacotron2": 28_136_833, "wavernn": 4_349_613, "wavernn_recipe": 4_349_607}  # the meta device's counts
+TTS_VOCODER_FRAMES = 40  # the WaveRNN vocoder's frames of each mel: 11,000 samples at hop 275
+TTS_PROFILED_FRAMES = 4  # the WaveRNN vocoder's profile and TF32 check: 1,100 samples
+TTS_PROFILED_STEPS = 250  # Tacotron2.infer's profile, TF32 check and second bundle: the loop's steps are alike
+TACO_B, TACO_MAX_TEXT, TACO_MAX_FRAMES = 8, 128, 512
+WRNN_B, WRNN_FRAMES = 8, 24
+TTS_CMP_STEPS = 64  # Tacotron2.infer against the CPU in float64
+TTS_GATE_BIAS = -1.0  # the seeded models' gate bias: torch's default range fires every gate at the first step
+# the recipes' memorization gates with the arguments of the JAX package's slow tests of them
+TACO_OVERFIT = ["--synthetic", "--tiny", "--steps", "500", "--global-batch", "8", "--overfit", "--learning-rate", "3e-3"]
+WRNN_OVERFIT = ["--synthetic", "--tiny", "--steps", "400", "--global-batch", "8", "--overfit", "--learning-rate", "3e-3"]
+
+
+def require_no_launch(what: str) -> None:
+    """No kernel of K1-K9 launched since the counters were last set to 0."""
+    counts = {n: c for n, c in kernel_counts().items() if c}
+    if counts:
+        raise AssertionError(f"{what} launched the port's kernels: {counts}")
+
+
+def run_tts_serving(dev, card: str) -> dict:
+    """Phase 19 (a): ``TACOTRON2_WAVERNN_CHAR_LJSPEECH`` and ``TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH`` at full width on
+    seeded ``state_dict``s (CUDA seeds 270 and 271; the gate's bias at ``TTS_GATE_BIAS``): the character processor on
+    4 sentences, ``Tacotron2.infer`` over ``decoder_max_step`` (2,000) steps in float32 with the bundles' prenet
+    dropout (no host read inside: run under ``set_sync_debug_mode("error")``), the Griffin-Lim vocoder on the whole
+    mel, the WaveRNN vocoder on its first 40 frames (11,000 samples a row); ms, launches and idle shares; each with TF32
+    on against two runs with it off (the profile, the TF32 check and the second bundle's model on ``infer``'s first
+    250 steps, the WaveRNN vocoder's on 4 frames)."""
+    import torch
+
+    from audio_tpu_torch import models, pipelines
+    from audio_tpu_torch.pipelines import _tts
+
+    wb, gb = pipelines.TACOTRON2_WAVERNN_CHAR_LJSPEECH, pipelines.TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH
+    seeded = models.Tacotron2(**_tts._get_taco_params(38), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(P19_SEED))
+    taco_state = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    taco_state["decoder.gate_layer.bias"].fill_(TTS_GATE_BIAS)
+    seeded = models.WaveRNN(**_tts._get_wrnn_params(), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(P19_SEED + 1))
+    wrnn_state = {k: v.detach().clone() for k, v in seeded.state_dict().items()}
+    del seeded
+    tacotron2 = wb.get_tacotron2(dl_kwargs={"state_dict": taco_state}, device=dev)
+    vocoder = wb.get_vocoder(dl_kwargs={"state_dict": wrnn_state}, device=dev)
+    griffin_lim = gb.get_vocoder(device=dev)
+    out = {"tacotron2_params": sum(p.numel() for p in tacotron2.parameters()),
+           "wavernn_params": sum(p.numel() for p in vocoder._model.parameters())}
+    print(f"  TACOTRON2_WAVERNN_CHAR_LJSPEECH on state_dicts from CUDA seeds {P19_SEED} and {P19_SEED + 1}: Tacotron2 "
+          f"{out['tacotron2_params']} parameters, WaveRNN {out['wavernn_params']} (hop {vocoder._model.hop_length}, "
+          f"{vocoder._model.n_classes} classes), {vocoder.sample_rate} Hz")
+    if (out["tacotron2_params"], out["wavernn_params"]) != (TTS_PARAMS["tacotron2"], TTS_PARAMS["wavernn"]):
+        raise AssertionError(f"the bundles' models have {out['tacotron2_params']} and {out['wavernn_params']} "
+                             f"parameters, not {TTS_PARAMS['tacotron2']} and {TTS_PARAMS['wavernn']}")
+    tokens, lengths = wb.get_text_processor()(TTS_TEXTS)
+    tokens, lengths = tokens.to(dev), lengths.to(dev)
+    steps = tacotron2.decoder_max_step
+
+    def synth():
+        return tacotron2.infer(tokens, lengths)
+
+    mel, out_len, aligns = no_host_sync(synth)()
+    torch.cuda.synchronize()
+    b, n_tokens = tokens.shape
+    if (tuple(mel.shape) != (b, 80, steps) or tuple(aligns.shape) != (b, steps, n_tokens)
+            or not bool(torch.isfinite(mel).all()) or not bool(((out_len >= 1) & (out_len <= steps)).all())):
+        raise AssertionError(f"Tacotron2.infer: mel {tuple(mel.shape)}, alignments {tuple(aligns.shape)}, out_len "
+                             f"{out_len.tolist()}")
+    n_frames = int(out_len.max())
+    if not bool((mel[..., n_frames:] == 0).all()):
+        raise AssertionError("Tacotron2.infer: frames past max(out_len) are not zero")
+    ms, runs, _ = timed_steps(synth, 0, 2)  # warm from the call above
+
+    def synth_short():  # the profile, the second bundle's model and TF32 over the first TTS_PROFILED_STEPS steps
+        return tacotron2.infer(tokens, lengths, max_steps=TTS_PROFILED_STEPS)
+
+    gb_mel = gb.get_tacotron2(dl_kwargs={"state_dict": taco_state}, device=dev).infer(
+        tokens, lengths, max_steps=TTS_PROFILED_STEPS)[0]
+    if not torch.equal(gb_mel, synth_short()[0]):
+        raise AssertionError("the two character bundles' Tacotron2 on one state_dict gave different mels")
+    prof = profile_batch(f"Tacotron2.infer (B={b}, {TTS_PROFILED_STEPS} steps)", synth_short)
+    per_step = prof["launches"] / TTS_PROFILED_STEPS
+    out["tacotron2"] = {"ms": ms, "runs_ms": runs, "steps": steps, "out_len": out_len.tolist(), "tokens": n_tokens,
+                        "launches_per_step": per_step, "profile": prof}
+    print(f"  Tacotron2.infer on {b} sentences ({lengths.tolist()} characters): {ms:.3f} ms a batch (runs "
+          f"{', '.join(f'{r:.3f}' for r in runs)}) over {steps} steps, {ms / steps:.4f} ms a step, out_len "
+          f"{out_len.tolist()}; {per_step:.1f} launches a step and idle share {prof['idle_share']:.3f} over "
+          f"{TTS_PROFILED_STEPS} steps, on {card}; no host read inside (set_sync_debug_mode('error'))")
+
+    wav_gl, _ = griffin_lim(mel, out_len)
+    if tuple(wav_gl.shape) != (b, (steps - 1) * 256) or not bool(torch.isfinite(wav_gl).all()):
+        raise AssertionError(f"Griffin-Lim vocoder: {tuple(wav_gl.shape)} or not finite")
+    gl_ms, gl_runs = median_call_ms(lambda: griffin_lim(mel, out_len), reps=3)
+    out["griffin_lim"] = {"ms": gl_ms, "runs_ms": gl_runs,
+                          "profile": profile_batch("Griffin-Lim vocoder", lambda: griffin_lim(mel, out_len))}
+    print(f"  Griffin-Lim vocoder (InverseMelScale, 32 iterations at n_fft 1024, hop 256) on ({b}, 80, {steps}): "
+          f"{gl_ms:.3f} ms (runs {', '.join(f'{r:.3f}' for r in gl_runs)}), waveform {tuple(wav_gl.shape)} on {card}")
+
+    mel40, short = mel[:, :, :TTS_VOCODER_FRAMES], mel[:, :, :TTS_PROFILED_FRAMES]
+    no_host_sync(lambda: vocoder(short))()
+    hop = vocoder._model.hop_length
+    wav, wav_len = vocoder(mel40, torch.full((b,), TTS_VOCODER_FRAMES, device=dev))
+    torch.cuda.synchronize()
+    n = TTS_VOCODER_FRAMES * hop
+    if (tuple(wav.shape) != (b, n) or wav_len.tolist() != [n] * b or not bool(torch.isfinite(wav).all())
+            or float(wav.abs().max()) > 1.0):
+        raise AssertionError(f"WaveRNN vocoder: {tuple(wav.shape)}, lengths {wav_len.tolist()}")
+    wr_ms = timed_steps(lambda: vocoder(mel40), 0, 1)[0]
+    prof = profile_batch(f"WaveRNN vocoder ({TTS_PROFILED_FRAMES} frames, {TTS_PROFILED_FRAMES * hop} samples)",
+                         lambda: vocoder(short))
+    out["wavernn"] = {"ms": wr_ms, "samples": n, "samples_per_s": b * n / (wr_ms / 1e3),
+                      "launches_per_sample": prof["launches"] / (TTS_PROFILED_FRAMES * hop), "profile": prof}
+    print(f"  WaveRNN vocoder on ({b}, 80, {TTS_VOCODER_FRAMES}): {wr_ms:.3f} ms for {n} samples a row, "
+          f"{out['wavernn']['samples_per_s']:.1f} samples a second ({out['wavernn']['samples_per_s'] / 22050:.4f} "
+          f"of real time), {out['wavernn']['launches_per_sample']:.1f} launches a sample, idle share "
+          f"{prof['idle_share']:.3f} on {card}")
+    out["tf32"] = {
+        "tacotron2": check_forward_tf32(f"Tacotron2.infer (B={b}, {TTS_PROFILED_STEPS} steps)",
+                                        lambda: list(synth_short())),
+        "griffin_lim": check_forward_tf32("Griffin-Lim vocoder", lambda: [griffin_lim(mel, out_len)[0]]),
+        "wavernn": check_forward_tf32(f"WaveRNN vocoder ({TTS_PROFILED_FRAMES} frames)",
+                                      lambda: [vocoder(short)[0]])}
+    del tacotron2, vocoder, griffin_lim
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tts_against_cpu(dev) -> dict:
+    """Phase 19 (b): full-width Tacotron2 (CUDA seed 272) teacher forced at B=2 on rows of 24 and 17 tokens and 32
+    and 25 frames, against the CPU in float64 (1e-9 of each output's peak) and float32 (1e-4); its ``infer`` over 64
+    steps in float64 with ``out_len`` equal; full-width WaveRNN (CUDA seed 273) ``forward`` at B=2 x 6 frames
+    likewise, and its ``infer`` over two frames in float64 with both sides' samplers on the argmax, the samples
+    equal."""
+    from unittest import mock
+
+    import torch
+
+    import audio_tpu_torch.models.wavernn as wavernn_module
+    from audio_tpu_torch import models
+    from audio_tpu_torch.pipelines import _tts
+
+    g = torch.Generator(device=dev).manual_seed(P19_SEED + 4)
+    taco = models.Tacotron2(**_tts._get_taco_params(38), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(P19_SEED + 2)).eval()
+    taco.decoder.gate_layer.bias.fill_(TTS_GATE_BIAS)
+    tokens = torch.randint(1, 38, (2, 24), generator=g, device=dev)
+    tok_lens = torch.tensor([24, 17], device=dev)
+    tokens[1, 17:] = 0
+    mel = torch.randn((2, 80, 32), generator=g, device=dev)
+    mel_lens = torch.tensor([32, 25], device=dev)
+    out = {"tacotron2_forward": check_against_cpu(
+        "Tacotron2 teacher forced, B=2 (24 and 17 tokens, 32 and 25 frames)",
+        lambda m, t, tl, x, xl: list(m(t, tl, x, xl, prenet_dropout=False)), taco, (tokens, tok_lens, mel, mel_lens))}
+    got = copy.deepcopy(taco).double().infer(tokens, tok_lens, prenet_dropout=False, max_steps=TTS_CMP_STEPS)
+    ref = copy.deepcopy(taco).cpu().double().infer(tokens.cpu(), tok_lens.cpu(), prenet_dropout=False,
+                                                   max_steps=TTS_CMP_STEPS)
+    if got[1].tolist() != ref[1].tolist():
+        raise AssertionError(f"Tacotron2.infer: out_len {got[1].tolist()} on the card, {ref[1].tolist()} on the CPU")
+    errs = []
+    for name, a, r in (("mel", got[0], ref[0]), ("alignments", got[2], ref[2])):
+        peak = float(r.abs().max())
+        errs.append(check_close(f"Tacotron2.infer {name}, float64, against the CPU", a.cpu(), r,
+                                P18_F64_TOL * peak, 0.0, quiet=True) / peak)
+    out["tacotron2_infer"] = {"out_len": got[1].tolist(), "err_of_peak": errs}
+    print(f"  Tacotron2.infer over {TTS_CMP_STEPS} steps against the CPU, float64: out_len {got[1].tolist()} on both, "
+          f"mel and alignments within {max(errs):.3e} of their peaks (limit {P18_F64_TOL:g})")
+    del taco
+    wrnn = models.WaveRNN(**_tts._get_wrnn_params(), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(P19_SEED + 3)).eval()
+    spec = torch.randn((2, 1, 80, 10), generator=g, device=dev)
+    wav = torch.rand((2, 1, 6 * 275), generator=g, device=dev) * 2 - 1
+    out["wavernn_forward"] = check_against_cpu("WaveRNN forward, B=2 x 6 frames", lambda m, w, s: m(w, s), wrnn,
+                                               (wav, spec))
+    argmax = lambda logits, generator: torch.argmax(logits, dim=-1)  # noqa: E731
+    spec2 = torch.randn((2, 80, 2), generator=g, device=dev, dtype=torch.float64)
+    with mock.patch.object(wavernn_module, "sample_categorical", argmax):
+        got, _ = copy.deepcopy(wrnn).double().infer(spec2)
+        ref, _ = copy.deepcopy(wrnn).cpu().double().infer(spec2.cpu())
+    if not torch.equal(got.cpu(), ref):
+        raise AssertionError(f"WaveRNN.infer on the argmax: {int((got.cpu() != ref).sum())} samples differ from the "
+                             "CPU's")
+    out["wavernn_infer_classes"] = len(torch.unique(ref))
+    print(f"  WaveRNN.infer over 2 frames ({ref.shape[-1]} samples a row), float64, both samplers on the argmax: the "
+          f"samples equal the CPU's ({out['wavernn_infer_classes']} distinct classes)")
+    del wrnn
+    torch.cuda.empty_cache()
+    return out
+
+
+def tts_step_grads_against_cpu(name: str, model, loss_fn, batch: tuple) -> dict:
+    """``loss_fn(model, batch)`` and every gradient of a float64 copy of ``model`` on the card against one on the CPU:
+    the loss within 1e-10, each gradient within 1e-9 of its peak."""
+    import torch
+
+    def run(m, dev_batch):
+        with torch.enable_grad():
+            loss = loss_fn(m, dev_batch)
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+        return loss.detach().cpu(), [gr.cpu() for gr in grads]
+
+    cast = lambda x, d: x.to(d).double() if x.is_floating_point() else x.to(d)  # noqa: E731
+    card = next(model.parameters()).device
+    got = run(copy.deepcopy(model).double(), tuple(cast(x, card) for x in batch))
+    ref = run(copy.deepcopy(model).cpu().double(), tuple(cast(x, "cpu") for x in batch))
+    loss_err = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    if loss_err > 1e-10:
+        raise AssertionError(f"{name}: loss {float(got[0])!r} on the card, {float(ref[0])!r} on the CPU")
+    worst = 0.0
+    for (pname, _), a, r in zip(model.named_parameters(), got[1], ref[1]):
+        peak = max(float(r.abs().max()), 1e-30)
+        worst = max(worst, check_close(f"{name}: gradient of {pname}, float64", a, r, 1e-9 * peak, 0.0,
+                                       quiet=True) / peak)
+    print(f"  {name} against the CPU in float64: loss within {loss_err:.3e} (limit 1e-10), {len(got[1])} gradients "
+          f"within {worst:.3e} of their peaks (limit 1e-9)")
+    return {"loss_rel_err": loss_err, "grad_err_of_peak": worst}
+
+
+def time_tts_step(name: str, step, card: str, tf32_loss_fn, leaves: dict) -> dict:
+    """ms a step (median of 2 after a warm-up), the peak memory of those steps, one profiled step, the f32 gradients of
+    ``tf32_loss_fn`` with respect to ``leaves`` with cuDNN's and cuBLAS's TF32 on in the backward."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        ms, runs, losses = timed_steps(step, 1, 2)
+        peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+        prof = profile_batch(name, step)
+    if not all(math.isfinite(float(v)) for v in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    print(f"  {name}: {ms:.3f} ms a step (runs {', '.join(f'{r:.3f}' for r in runs)}), peak {peak_gb:.3f} GB above "
+          f"the model, {prof['launches']:g} launches, idle share {prof['idle_share']:.3f}, loss {float(losses[-1]):.4f} "
+          f"on {card}")
+    return {"ms": ms, "runs_ms": runs, "peak_gb": peak_gb, "profile": prof, "losses": [float(v) for v in losses],
+            "tf32": check_grads_tf32(name, tf32_loss_fn, leaves, flag="both")}
+
+
+def run_tts_train(dev, card: str) -> dict:
+    """Phase 19 (c): the two recipes' train steps at full width.  Tacotron2 (38 symbols, CUDA seed 276, drawn as
+    flax's ``init`` draws) at B=8: 64-128 tokens, log-mel targets of 384-512 frames built from voiced waveforms by the
+    recipe's ``log_mel`` (``MelSpectrogram`` at 22,050 Hz, n_fft 1024, hop 256, power 1: K2) one clip at a time and
+    collated, as the LJSpeech loader does; WaveRNN (the recipe's widths, CUDA seed 278) at B=8 x 24 frames of hop 200,
+    crops and their log-mels by the recipe's ``crop`` (K2).  Each step's ms, launches, idle share, peak memory, its
+    gradients with TF32 on, and at B=2 against the CPU in float64; both ``--overfit`` gates.  K2 launches while the
+    targets are built and nowhere else."""
+    import torch
+
+    taco_recipe = load_example("tacotron2_train_torch", "tts", "tacotron2", "train_torch.py")
+    wrnn_recipe = load_example("wavernn_train_torch", "tts", "wavernn", "train_torch.py")
+    rng = np.random.default_rng(P19_SEED + 5)
+    out = {}
+    # Tacotron2's batch: the loader's caps at the longest row
+    n_frames = rng.integers(TACO_MAX_FRAMES * 3 // 4, TACO_MAX_FRAMES + 1, TACO_B)
+    n_frames[0] = TACO_MAX_FRAMES
+    tok_lens = rng.integers(TACO_MAX_TEXT // 2, TACO_MAX_TEXT + 1, TACO_B)
+    tok_lens[0] = TACO_MAX_TEXT
+    texts = [rng.integers(1, 38, int(n)).tolist() for n in tok_lens]
+    wavs = voiced_rows(dev, TACO_B, (TACO_MAX_FRAMES - 1) * taco_recipe.HOP, P19_SEED + 6)
+    melspec = taco_recipe.make_melspec(dev)
+    require_no_launch("phase 19 before the targets")
+    mels = [taco_recipe.log_mel(melspec, wavs[i, : (int(f) - 1) * taco_recipe.HOP]).cpu().numpy()
+            for i, f in enumerate(n_frames)]
+    batch = taco_recipe.to_device(taco_recipe.collate(texts, mels), dev)
+    counts = kernel_counts()
+    if counts["power_spectrogram"] != TACO_B or counts["power_spectrogram_fft"] != TACO_B:
+        raise AssertionError(f"Tacotron2's targets: K2 launches {counts['power_spectrogram']} (fft "
+                             f"{counts['power_spectrogram_fft']}), not {TACO_B}, each on 'fft'")
+    print(f"  Tacotron2 batch: {TACO_B} clips, {tok_lens.min()}-{tok_lens.max()} tokens, {n_frames.min()}-"
+          f"{n_frames.max()} frames of log-mel ({TACO_B} K2 launches on 'fft', one a clip)")
+    model = taco_recipe.make_model(False, 38, dev, generator=torch.Generator(device=dev).manual_seed(P19_SEED + 6))
+    step = taco_recipe.TrainStep(model)
+    stats = {n: b.clone() for n, b in model.named_buffers()}
+    g = torch.Generator(device=dev).manual_seed(P19_SEED + 7)
+    out["tacotron2"] = time_tts_step(
+        f"Tacotron2 train step (B={TACO_B}, {TACO_MAX_TEXT} tokens, {TACO_MAX_FRAMES} frames at most)",
+        lambda: step(batch, g), card,
+        lambda: step.loss(batch, torch.Generator(device=dev).manual_seed(P19_SEED + 8)), step.params)
+    out["tacotron2"]["params"] = sum(p.numel() for p in model.parameters())
+    if not all(torch.equal(b, stats[n]) for n, b in model.named_buffers()):
+        raise AssertionError("Tacotron2's train steps moved the BatchNorms' running statistics")
+    small = taco_recipe.collate([t[:16] for t in texts[:2]], [m[:, :24] for m in mels[:2]])
+    out["tacotron2"]["cpu"] = tts_step_grads_against_cpu(
+        "Tacotron2 train step's loss, B=2 (16 tokens, 24 frames), prenet dropout off", model,
+        lambda m, b: taco_recipe.TrainStep(m, prenet_dropout=False).loss(b), taco_recipe.to_device(small, dev))
+    del step, model
+    torch.cuda.empty_cache()
+
+    need = (WRNN_FRAMES + 4) * wrnn_recipe.HOP
+    clips = voiced_rows(dev, WRNN_B, need + 2 * wrnn_recipe.N_FFT, P19_SEED + 9)
+    starts = rng.integers(0, clips.shape[1] - need - 1, WRNN_B).tolist()
+    before = kernel_counts()["power_spectrogram"]
+    wav, mel = wrnn_recipe.crop(wrnn_recipe.make_melspec(dev), clips, starts, WRNN_FRAMES)
+    counts = kernel_counts()
+    if counts["power_spectrogram"] != before + 1 or counts["power_spectrogram_fft"] != counts["power_spectrogram"]:
+        raise AssertionError(f"WaveRNN's crops: K2 launches {counts['power_spectrogram'] - before}, not 1 on 'fft'")
+    model = wrnn_recipe.make_model(False, dev, generator=torch.Generator(device=dev).manual_seed(P19_SEED + 10))
+    step = wrnn_recipe.TrainStep(model)
+    print(f"  WaveRNN batch: {WRNN_B} crops of {WRNN_FRAMES} frames (waveform {tuple(wav.shape)}, log-mel "
+          f"{tuple(mel.shape)}; 1 K2 launch on 'fft'); {sum(p.numel() for p in model.parameters())} parameters")
+    if sum(p.numel() for p in model.parameters()) != TTS_PARAMS["wavernn_recipe"]:
+        raise AssertionError("the WaveRNN recipe's model has another parameter count")
+    out["wavernn"] = time_tts_step(f"WaveRNN train step (B={WRNN_B} x {WRNN_FRAMES} frames, hop {wrnn_recipe.HOP})",
+                                   lambda: step(wav, mel), card, lambda: step.loss(wav, mel), step.params)
+    out["wavernn"]["cpu"] = tts_step_grads_against_cpu(
+        "WaveRNN train step's loss, B=2 x 3 frames", model, lambda m, b: wrnn_recipe.TrainStep(m).loss(*b),
+        (wav[:2, :, : 3 * wrnn_recipe.HOP + 1], mel[:2, :, :, :7]))
+    del step, model
+    torch.cuda.empty_cache()
+    out["launches"] = {n: c for n, c in kernel_counts().items() if c}
+    if set(out["launches"]) != {"power_spectrogram", "power_spectrogram_fft"} or (
+            out["launches"]["power_spectrogram"] != TACO_B + 1):
+        raise AssertionError(f"phase 19's launches: {out['launches']} (K2 only, {TACO_B + 1} times, on 'fft')")
+    out["tacotron2_overfit"] = run_overfit_gate("Tacotron2", taco_recipe, TACO_OVERFIT, card)
+    out["wavernn_overfit"] = run_overfit_gate("WaveRNN", wrnn_recipe, WRNN_OVERFIT, card)
+    for gate in ("tacotron2_overfit", "wavernn_overfit"):
+        if out[gate]["overfit_launches"]:
+            raise AssertionError(f"{gate}: launched the port's kernels: {out[gate]['overfit_launches']}")
     return out
 
 
@@ -5843,6 +6193,23 @@ def main(argv=None) -> int:
     phase18["seconds"] = time.perf_counter() - t18
     print(f"  phase 18 took {phase18['seconds']:.1f} s")
 
+    # ---------------------------------------------------------------- phase 19
+    print(f"phase 19: text-to-speech: TACOTRON2_WAVERNN_CHAR_LJSPEECH and TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH at full "
+          f"width on {len(TTS_TEXTS)} sentences, the card against the CPU, the Tacotron2 (B={TACO_B}) and WaveRNN "
+          f"(B={WRNN_B} x {WRNN_FRAMES} frames) train steps at full width, and both recipes' --overfit gates")
+    t19 = time.perf_counter()
+    reset_kernel_counts()
+    phase19 = {"serving": run_tts_serving(dev, card)}
+    require_no_launch("phase 19 (a), serving")
+    phase19["cpu"] = run_tts_against_cpu(dev)
+    require_no_launch("phase 19 (b), the card against the CPU")
+    phase19["train"] = run_tts_train(dev, card)
+    phase19_launches = phase19["train"]["launches"]
+    print(f"  launches of K1-K9 (every route) in phase 19: {phase19_launches} (K2 on 'fft' while the train targets "
+          "were built, and no other kernel: Tacotron2's and WaveRNN's recurrences are plain products)")
+    phase19["seconds"] = time.perf_counter() - t19
+    print(f"  phase 19 took {phase19['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -5903,7 +6270,8 @@ def main(argv=None) -> int:
                         launches=launches["power_spectrogram"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                         bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft",
                         phase15_launches=phase15_launches["power_spectrogram"],
-                        phase17_launches=phase17_launches["power_spectrogram"]))
+                        phase17_launches=phase17_launches["power_spectrogram"],
+                        phase19_launches=phase19_launches["power_spectrogram"]))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
     k3_block_ms = cuda_ms(lambda: cuda_viterbi._launch("block", *k3_args), 20)
@@ -6049,7 +6417,7 @@ def main(argv=None) -> int:
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
                        "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo,
-                       "phase18": phase18},
+                       "phase18": phase18, "phase19": phase19},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

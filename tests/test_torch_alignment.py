@@ -28,6 +28,10 @@ import audio_tpu_torch.functional as TF
 from audio_tpu_torch.ops import cuda_viterbi
 from audio_tpu_torch.ops.viterbi import _state_labels, _state_masks
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 
 def _inputs(seed, b, t, v, l_max, repeat=False):
     rng = np.random.default_rng(seed)

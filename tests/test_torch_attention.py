@@ -24,6 +24,10 @@ from audio_tpu.ops.pallas_attention import fused_attention_supported as jax_gate
 from audio_tpu_torch.models import Emformer
 from audio_tpu_torch.ops import cuda_attention
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 NEG = -1e8
 
 # name -> (B, H, Tq, Tk, dh, fully masked row)

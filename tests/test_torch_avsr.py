@@ -41,6 +41,10 @@ from audio_tpu_torch.utils.precision import exact_conv
 from .test_torch_conformer import _attention_f64_softmax
 from .test_torch_wav2vec2 import FAST_COMPILE
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 AVSR = ROOT / "examples" / "avsr"
 

@@ -23,6 +23,10 @@ import audio_tpu.functional as JF
 
 import audio_tpu_torch.functional as TF
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 CTYPES = [np.complex128, np.complex64]
 
 

@@ -27,6 +27,10 @@ from audio_tpu_torch.models.conformer import Conformer
 
 from .test_torch_wav2vec2 import FAST_COMPILE
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 D, HEADS, FFN, LAYERS, KERNEL = 32, 4, 64, 2, 7
 LENGTHS = np.array([17, 11, 5])
 CONFIGS = [(False, False), (True, True), (True, False)]  # (use_group_norm, convolution_first)

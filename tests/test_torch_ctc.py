@@ -21,6 +21,10 @@ from audio_tpu.ops import ctc as jax_ctc
 
 from audio_tpu_torch.ops import ctc as tctc
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 
 def _case(seed, b=3, t=20, c=7, l=6, dtype=np.float64):
     rng = np.random.default_rng(seed)

@@ -24,6 +24,10 @@ import audio_tpu.functional as JF
 import audio_tpu_torch.functional as TF
 from audio_tpu_torch.functional import _filtering as tf_filtering
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 SR = 16000
 F64 = dict(atol=1e-9, rtol=0)
 RECURRENCE_F32 = dict(atol=1e-5, rtol=1e-4)

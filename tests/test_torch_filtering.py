@@ -24,6 +24,10 @@ import audio_tpu_torch.functional as TF
 from audio_tpu_torch.ops import cuda_iir
 from audio_tpu_torch.ops.iir import allpole_impulse_response, fir_causal, iir_blocked, iir_scan
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 SHORT = dict(atol=2e-5, rtol=1e-5)
 LONG = dict(atol=2e-4, rtol=1e-4)
 

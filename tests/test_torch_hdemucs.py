@@ -40,6 +40,10 @@ from audio_tpu_torch.models.hdemucs import _BLSTM
 
 from .test_torch_wav2vec2 import FAST_COMPILE
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 CFG = dict(sources=["drums", "bass"], audio_channels=1, channels=4, growth=2, nfft=256, depth=4, freq_emb=0.2,

@@ -308,13 +308,15 @@ HUBERT_PRETRAIN_NAMES = ["HuBERTPretrainModel", "hubert_pretrain_model", "hubert
                          "hubert_pretrain_large", "hubert_pretrain_xlarge"]
 ZOO_NAMES = ["Wav2Letter", "DeepSpeech", "ConvTasNet", "conv_tasnet_base", "HDemucs", "hdemucs_low", "hdemucs_medium",
              "hdemucs_high", "SquimObjective", "SquimSubjective", "squim_objective_model", "squim_objective_base",
-             "squim_subjective_model", "squim_subjective_base"]
+             "squim_subjective_model", "squim_subjective_base", "Tacotron2", "WaveRNN"]
+TTS_PIPELINE_NAMES = ["TACOTRON2_GRIFFINLIM_CHAR_LJSPEECH", "TACOTRON2_GRIFFINLIM_PHONE_LJSPEECH",
+                      "TACOTRON2_WAVERNN_CHAR_LJSPEECH", "TACOTRON2_WAVERNN_PHONE_LJSPEECH", "Tacotron2TTSBundle"]
 
 
 def test_models_export_a_subset_of_the_jax_package_s_names():
-    """``audio_tpu_torch.models`` exports only names of ``audio_tpu.models`` (43 of them), the 16 of
-    wav2vec2/HuBERT and WavLM, the 5 of HuBERT pretraining, ``Conformer``, ``Wav2Letter``, ``DeepSpeech``,
-    ``ConvTasNet``, ``conv_tasnet_base``, the 4 of Hybrid Demucs and the 6 of SQUIM among them;
+    """``audio_tpu_torch.models`` exports exactly the 45 names of ``audio_tpu.models``: the 16 of wav2vec2/HuBERT
+    and WavLM, the 5 of HuBERT pretraining, ``Conformer``, ``Wav2Letter``, ``DeepSpeech``, ``ConvTasNet``,
+    ``conv_tasnet_base``, the 4 of Hybrid Demucs, the 6 of SQUIM, ``Tacotron2`` and ``WaveRNN`` among them;
     ``audio_tpu_torch.models.wav2vec2`` exports exactly the 16 names of ``audio_tpu.models.wav2vec2``."""
     import audio_tpu.models as jm
     import audio_tpu.models.wav2vec2 as jw
@@ -322,11 +324,23 @@ def test_models_export_a_subset_of_the_jax_package_s_names():
     import audio_tpu_torch.models as tm
     import audio_tpu_torch.models.wav2vec2 as tw
 
-    assert set(tm.__all__) <= set(jm.__all__)
+    assert set(tm.__all__) == set(jm.__all__)
     assert set(WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES + ["Conformer"] + ZOO_NAMES) <= set(tm.__all__)
-    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 43
+    assert len(set(WAV2VEC2_NAMES)) == 16 and len(set(tm.__all__)) == 45
     assert all(callable(getattr(tm, n)) for n in tm.__all__)
     assert sorted(tw.__all__) == sorted(jw.__all__) and len(set(tw.__all__)) == 16
+
+
+def test_pipelines_export_the_tts_bundles():
+    """``audio_tpu_torch.pipelines`` exports the four Tacotron2 TTS bundles and ``Tacotron2TTSBundle``, the names of
+    ``audio_tpu.pipelines``; each bundle is a ``Tacotron2TTSBundle``."""
+    import audio_tpu.pipelines as jp
+
+    import audio_tpu_torch.pipelines as tp
+
+    assert set(TTS_PIPELINE_NAMES) <= set(tp.__all__) and set(TTS_PIPELINE_NAMES) <= set(jp.__all__)
+    assert set(tp.__all__) <= set(jp.__all__)
+    assert all(isinstance(getattr(tp, n), tp.Tacotron2TTSBundle) for n in TTS_PIPELINE_NAMES[:4])
 
 
 @pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES if n[0].islower()]

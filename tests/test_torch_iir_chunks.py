@@ -26,6 +26,10 @@ from audio_tpu.ops.pallas_iir import iir_pallas, lfilter_pallas
 from audio_tpu_torch.ops import cuda_iir
 from audio_tpu_torch.ops.iir import CARRY_LEVELS, CHUNK, chunk_plan, companion_matrix, iir_scan
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 LANES = 32  # chunks a pass: a warp's lanes
 
 

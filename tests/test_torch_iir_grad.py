@@ -25,6 +25,10 @@ from audio_tpu.ops.pallas_iir import iir_pallas
 import audio_tpu_torch.functional as TF
 from audio_tpu_torch.ops import cuda_iir, cuda_spectrogram
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 SHORT = dict(atol=2e-5, rtol=1e-5)
 GRAD = dict(atol=1e-4, rtol=1e-4)
 

@@ -28,6 +28,10 @@ import audio_tpu_torch.compliance.kaldi as TK
 
 from .conftest import get_whitenoise
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 WAV = get_whitenoise(duration=0.3, seed=11) * 0.5
 WAV2 = np.concatenate([WAV, get_whitenoise(duration=0.3, seed=12) * 0.5])  # two channels
 SPEC_TOL = dict(atol=2e-4, rtol=1e-4)

@@ -35,6 +35,10 @@ import audio_tpu_torch.functional as TF
 from audio_tpu_torch.functional import _misc as tf_misc
 from audio_tpu_torch.functional import _resample as tf_resample
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 F64 = dict(atol=1e-9, rtol=0)
 F32 = dict(atol=1e-5, rtol=1e-4)
 DTYPES = [np.float64, np.float32]

@@ -21,6 +21,12 @@ from audio_tpu_torch._interop import rnnt_state_dict_from_jax_params
 from audio_tpu_torch.models import emformer_rnnt_base, emformer_rnnt_model
 from audio_tpu_torch.models.rnnt import _time_reduction
 
+from .test_torch_wav2vec2 import FAST_COMPILE
+
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 ATOL, RTOL = 5e-4, 1e-3
 
 CFG = dict(
@@ -37,8 +43,9 @@ def shared_models(cfg=CFG, seed=0):
     """(JAX model, flax params as numpy, the port's model holding the same numbers, on the CPU)."""
     jmodel = jax_rnnt_model(**cfg)
     t = cfg["segment_length"] + cfg["right_context_length"]
-    params = jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((1, t, cfg["input_dim"])), jnp.asarray([t]),
-                         jnp.zeros((1, 2), jnp.int32), jnp.asarray([2]), deterministic=True)
+    init = jax.jit(lambda *a: jmodel.init(*a, deterministic=True), compiler_options=FAST_COMPILE)  # eager: ~10 s
+    params = init(jax.random.PRNGKey(seed), jnp.zeros((1, t, cfg["input_dim"])), jnp.asarray([t]),
+                  jnp.zeros((1, 2), jnp.int32), jnp.asarray([2]))
     params = jax.tree.map(np.asarray, params)
     port = emformer_rnnt_model(**cfg, device="cpu")
     port.load_state_dict(rnnt_state_dict_from_jax_params(params, device="cpu"), strict=True)

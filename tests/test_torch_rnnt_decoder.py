@@ -22,6 +22,10 @@ from audio_tpu_torch.models import rnnt_decoder as port_decoder
 
 from .test_torch_rnnt import CFG, shared_models
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 BLANK = CFG["num_symbols"] - 1
 BEAM, SMT, MAX_TOKENS = 4, 3, 24
 SEG = CFG["segment_length"] + CFG["right_context_length"]

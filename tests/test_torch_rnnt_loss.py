@@ -22,6 +22,10 @@ import audio_tpu_torch.functional as TF
 from audio_tpu_torch.ops import cuda_rnnt_lps
 from audio_tpu_torch.ops import rnnt as port_rnnt
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 B, T, U, V = 3, 12, 5, 9
 LENGTHS = {"full": ([12, 12, 12], [5, 5, 5]), "ragged": ([12, 9, 7], [5, 3, 1]), "short": ([1, 12, 2], [0, 5, 4])}
 

@@ -23,6 +23,10 @@ from audio_tpu_torch.models import RNNTBeamSearch, emformer_rnnt_model
 
 from .test_torch_rnnt import CFG, shared_models
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 
 @pytest.fixture()
 def stats_file(tmp_path, monkeypatch):

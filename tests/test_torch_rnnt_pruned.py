@@ -20,6 +20,10 @@ import audio_tpu.functional as JF
 import audio_tpu_torch.functional as TF
 from audio_tpu_torch.ops import rnnt_pruned as port_pruned
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 B, T, U, V, D = 3, 14, 6, 11, 8
 LL, TL = np.array([14, 9, 7], np.int32), np.array([6, 3, 1], np.int32)
 

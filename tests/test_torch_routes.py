@@ -32,6 +32,10 @@ from audio_tpu_torch.ops.cuda_spectrogram import spectrogram_supported
 
 from .test_torch_rnnt import CFG, shared_models
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 
 def _peak_close(got, ref, frac=5e-4):
     ref = np.asarray(ref, np.float32)

@@ -23,6 +23,10 @@ import audio_tpu.functional as JF
 
 import audio_tpu_torch.functional as TF
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 F64 = dict(atol=1e-9, rtol=0)
 DTYPES = [np.float64, np.float32]
 N_FFT, HOP = 256, 64

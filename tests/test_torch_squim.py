@@ -42,6 +42,10 @@ from audio_tpu_torch.models import (
 from .test_torch_hdemucs import seeded_state_dict
 from .test_torch_wav2vec2 import COMMON, FAST_COMPILE, MODES, _attention_f64_softmax
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 OBJECTIVE = dict(feat_dim=16, win_len=16, d_model=16, nhead=2, hidden_dim=8, num_blocks=2, chunk_size=10)
 SSL = {**COMMON, **MODES["base"], "encoder_num_layers": 2, "aux_num_out": None}
 DTYPES = {"float32": (torch.float32, np.float32, 1e-5), "float64": (torch.float64, np.float64, 1e-10)}

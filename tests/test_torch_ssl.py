@@ -50,6 +50,10 @@ from audio_tpu_torch.models.wav2vec2 import components as tcomp
 
 from .test_torch_wav2vec2 import FAST_COMPILE, _port_fields
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SSL = ROOT / "examples" / "self_supervised_learning"
 

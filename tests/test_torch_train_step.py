@@ -11,6 +11,7 @@ step keeps f32 masters: its gradients are f32 and its loss within 2e-2
 (relative) of the f32 one.
 """
 
+import functools
 import importlib.util
 import pathlib
 
@@ -29,6 +30,12 @@ from audio_tpu.utils import cast_floating as jax_cast_floating
 from audio_tpu_torch._interop import rnnt_state_dict_from_jax_params, simple_heads_from_jax_params
 from audio_tpu_torch.models import emformer_rnnt_model
 from audio_tpu_torch.utils import cast_floating, mixed_precision
+
+from .test_torch_wav2vec2 import FAST_COMPILE
+
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("emformer_rnnt_train_torch",
@@ -62,8 +69,9 @@ def shared():
     """The JAX model and its training tree (model parameters and the two simple heads)."""
     jmodel = jax_rnnt_model(**CFG)
     feats, lengths, targets, tl = _batch()
-    model_params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(feats[:1]), jnp.asarray(lengths[:1]),
-                               jnp.zeros((1, 2), jnp.int32), jnp.asarray([2]), deterministic=True)["params"]
+    init = jax.jit(lambda *a: jmodel.init(*a, deterministic=True), compiler_options=FAST_COMPILE)  # eager: ~13 s
+    model_params = init(jax.random.PRNGKey(0), jnp.asarray(feats[:1]), jnp.asarray(lengths[:1]),
+                        jnp.zeros((1, 2), jnp.int32), jnp.asarray([2]))["params"]
     rng = np.random.default_rng(5)
     tree = {"model": jax.tree.map(np.asarray, model_params),
             "simple_am": (rng.standard_normal((D, V)) * D ** -0.5).astype(np.float32),
@@ -101,6 +109,28 @@ def _jax_loss_fn(jmodel, kind, bf16=False):
     return loss_fn
 
 
+TX = optax.adamw(1e-3, weight_decay=1e-6)
+
+
+def _train_params(tree, kind):
+    """The tree an optimizer step of ``kind`` trains: the model, and for the pruned loss the two simple heads."""
+    return tree if kind == "pruned" else {"model": tree["model"]}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(kind):
+    """One ``TX`` step of the JAX side under one ``jax.jit``, (params, opt_state) -> (params, opt_state, loss,
+    grads): the gradient test reads its loss and gradients at the start, the AdamW test takes two steps."""
+    loss_fn = _jax_loss_fn(jax_rnnt_model(**CFG), kind)
+
+    def jstep(params, opt_state):
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = TX.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, grads
+
+    return jax.jit(jstep, compiler_options=FAST_COMPILE)
+
+
 def _port_step(tree, kind, compute_dtype=None, **kw):
     port = emformer_rnnt_model(**CFG, device="cpu")
     port.load_state_dict(rnnt_state_dict_from_jax_params(tree["model"], device="cpu"), strict=True)
@@ -122,8 +152,9 @@ def _tensors():
 
 @pytest.mark.parametrize("kind", ["full", "pruned"])
 def test_loss_and_every_gradient_match_jax(shared, kind):
-    jmodel, tree = shared
-    ref_loss, ref_grads = jax.jit(jax.value_and_grad(_jax_loss_fn(jmodel, kind)))(tree)
+    _, tree = shared
+    params = _train_params(tree, kind)
+    _, _, ref_loss, ref_grads = _jax_step(kind)(params, TX.init(params))
     step = _port_step(tree, kind)
     loss = step.loss(step.params, *_tensors())
     loss.backward()
@@ -138,17 +169,10 @@ def test_loss_and_every_gradient_match_jax(shared, kind):
 
 @pytest.mark.parametrize("kind", ["full", "pruned"])
 def test_two_adamw_steps_match_optax(shared, kind):
-    jmodel, tree = shared
-    tx = optax.adamw(1e-3, weight_decay=1e-6)
-
-    @jax.jit
-    def jstep(params, opt_state):
-        loss, grads = jax.value_and_grad(_jax_loss_fn(jmodel, kind))(params)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), opt_state, loss, grads
-
-    params = tree if kind == "pruned" else {"model": tree["model"]}
-    opt_state = tx.init(params)
+    _, tree = shared
+    jstep = _jax_step(kind)
+    params = _train_params(tree, kind)
+    opt_state = TX.init(params)
     step = _port_step(tree, kind)
     clear = None  # entries whose gradient stands clear of rounding noise at both steps
     for _ in range(2):
@@ -182,7 +206,7 @@ def test_bf16_compute_keeps_f32_masters(shared, kind):
         assert p.dtype == torch.float32 and p.grad is not None and p.grad.dtype == torch.float32, name
         assert bool(torch.isfinite(p.grad).all()), name
     np.testing.assert_allclose(float(loss.detach()), f32_loss, rtol=2e-2, atol=2e-2)
-    ref_loss = jax.jit(_jax_loss_fn(jmodel, kind, bf16=True))(tree)
+    ref_loss = jax.jit(_jax_loss_fn(jmodel, kind, bf16=True), compiler_options=FAST_COMPILE)(tree)
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=2e-2, atol=2e-2)
     before = {k: v.detach().clone() for k, v in step.params.items()}
     step(*_tensors())

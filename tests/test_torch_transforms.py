@@ -39,6 +39,10 @@ import audio_tpu.transforms as JT
 
 import audio_tpu_torch.transforms as TT
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 SR = 16000
 F32 = dict(atol=1e-5, rtol=1e-4)
 CPU = {"device": "cpu"}

@@ -41,6 +41,10 @@ from audio_tpu_torch import _interop
 from audio_tpu_torch.models import wavlm as twavlm
 from audio_tpu_torch.models.wav2vec2 import components as tcomp
 
+# one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
+# of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
+torch.set_num_threads(1)
+
 CONV = [(16, 10, 5), (16, 3, 2), (16, 2, 2)]
 COMMON = dict(extractor_conv_layer_config=CONV, encoder_embed_dim=32, encoder_projection_dropout=0.1,
               encoder_pos_conv_kernel=16, encoder_pos_conv_groups=4, encoder_num_heads=4,
