@@ -167,7 +167,8 @@ Phases, each of which raises on failure:
    the peak rate; ``ctc_loss`` alone against the fine-tune step, the positional convolution alone in f32
    and bf16.  No kernel is on this path: the counters are read around the phase and printed;
 15. the Conformer RNN-T recipes at full width (``examples/asr/conformer_rnnt/train_torch.py`` and
-   ``conformer_rnnt_biasing/train_torch.py``, weights from CUDA generator seeds): (a) the Conformer RNN-T
+   ``conformer_rnnt_biasing/train_torch.py``, weights drawn as the recipes' ``main`` draws them, ``flax_init_``,
+   from CUDA generator seeds): (a) the Conformer RNN-T
    train step (80 mels, stride 4, width 256, 16 layers, FFN 1024, kernel 31, LSTM 512, joiner 256, V 1024)
    in f32 on 16 voiced clips of 5-10 s with up to 40 targets, SpecAugment and dropout on: K2 only on "fft",
    K8 only on "stream"; then at B=2 x 4 s against the CPU (features 1e-3, loss 1e-4 relative, every gradient
@@ -232,6 +233,16 @@ Phases, each of which raises on failure:
    on "fft"): ms a step, launches, idle share, peak memory, the gradients with TF32 on in the backward, at B=2
    against the CPU in float64, the BatchNorms' statistics unmoved; both ``--overfit`` gates with the JAX slow tests'
    arguments; (d) the launch counters over the phase: K2 while the targets are built, no other kernel.
+20. wav2vec2 ASR serving and bundle alignment: ``WAV2VEC2_ASR_BASE_960H.get_model`` at full width (12 layers, 768
+   wide, 29 labels) from a seeded torchaudio-named ``state_dict`` with the published shapes (32 aux rows before the
+   bundle drops three, the positional weight norm as ``weight_g``/``weight_v``) on 8 clips of 10 s, the emissions
+   (8, 499, 29) against the same bundle on the CPU (1e-3 of the peak); their log-probs through ``cuda_ctc_decoder``
+   (beam 10, nbest 1) on the card, the tokens equal to the CPU's on every row without a near tie (a row whose float64
+   and float32 CPU decodes differ) and on peaked log-probs of seeded token paths, one batch timed and profiled; the
+   same log-probs on the host through the lexicon ``ctc_decoder`` with a 3-gram LM the phase writes, native on the
+   ARPA and on its KenLM binary (``build_binary_lm``) and the plain Python search, the words equal, ms a clip;
+   ``MMS_FA.get_model(with_star=True)`` with its tokenizer and aligner on 2 clips of 10 s: K3 launches (on "warp"),
+   the spans equal to the CPU aligner's on the same emissions.  No other kernel launches.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -3939,6 +3950,17 @@ CF_SEED = 160  # the CUDA and numpy seeds of phase 15 are 160-189
 TF32_GRAD_TOL = 1e-4  # f32 gradients with TF32 on in the backward against off, of each peak, where two runs differ
 
 
+def flax_drawn(model, dev, seed: int):
+    """``model`` with its parameters drawn as the recipes' ``main`` draws them (``flax_init_``: flax's default
+    initialisers), from CUDA seed ``seed``."""
+    import torch
+
+    from audio_tpu_torch._internal.init import flax_init_
+
+    flax_init_(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
 def conformer_targets(dev, b: int, u: int, v: int, seed: int):
     """(B, u) targets in [1, v - 1) zero-padded past lengths drawn from u // 2 to u (the first u), from a CUDA
     generator seeded ``seed``."""
@@ -4015,13 +4037,13 @@ def time_train_step(name: str, one, audio_s: float, card: str, against_key_avera
 
 
 def run_conformer_rnnt_train(recipe, dev, card: str) -> dict:
-    """Phase 15 (a): the Conformer RNN-T train step at the recipe's full width (weights from CUDA seed 160),
+    """Phase 15 (a): the Conformer RNN-T train step at the recipe's full width (weights drawn as flax's ``init`` draws, ``flax_init_``, from CUDA seed 160),
     f32, dropout and SpecAugment on, at the schedule's peak: featurizer (K2) -> model -> ``rnnt_loss`` (K8) ->
     backward -> clip -> AdamW, on 16 clips of 5-10 s with up to 40 targets.  Then at B=2 x 4 s against the CPU,
     and the encoder's bits with cuDNN's TF32 on."""
     import torch
 
-    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED))
+    model = flax_drawn(recipe.ConformerRNNT(CF_V, device=dev), dev, CF_SEED)
     n_params = sum(p.numel() for p in model.parameters())
     melspec = recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0, device=dev)
     stride = model.time_reduction_stride
@@ -4057,7 +4079,7 @@ def run_conformer_rnnt_train(recipe, dev, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the card against the CPU at B=2 x 4 s, SpecAugment and dropout off, seeded weights
-    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED))
+    model = flax_drawn(recipe.ConformerRNNT(CF_V, device=dev), dev, CF_SEED)
     wav2, len2, tgt2, tl2 = conformer_step_data(dev, CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U, CF_V,
                                                 CF_SEED + 8)
     reset_kernel_counts()
@@ -4089,11 +4111,11 @@ def run_conformer_rnnt_train(recipe, dev, card: str) -> dict:
 
 
 def conformer_search_model(recipe, dev, dtype):
-    """The recipe's model (weights from CUDA seed 170) in eval mode and ``dtype``, the blank (V - 1, the
+    """The recipe's model (weights drawn by ``flax_init_`` from CUDA seed 170) in eval mode and ``dtype``, the blank (V - 1, the
     search's convention) raised by RNNT_BLANK_BIAS, as ``make_rnnt`` raises the Emformer's."""
     import torch
 
-    model = recipe.ConformerRNNT(CF_V, device=dev, generator=torch.Generator(device=dev).manual_seed(CF_SEED + 10))
+    model = flax_drawn(recipe.ConformerRNNT(CF_V, device=dev), dev, CF_SEED + 10)
     with torch.no_grad():
         model.joiner.linear.bias[-1] += RNNT_BLANK_BIAS
     return model.to(dtype).eval()
@@ -4177,13 +4199,12 @@ def run_conformer_search(recipe, dev, card: str) -> dict:
 
 def run_biased_train(recipe, dev, card: str) -> dict:
     """Phase 15 (c): the TCPGen-biased Conformer RNN-T train step at full width (V 601, TCPGen 64, weights from
-    CUDA seed 180), f32, dropout on: featurizer (K2) -> trie of the batch's biasing list (16 distractors, 256
+    CUDA seed 180 through ``flax_init_``), f32, dropout on: featurizer (K2) -> trie of the batch's biasing list (16 distractors, 256
     nodes) -> model -> TCPGen -> ``rnnt_loss(fused_log_softmax=False)`` (no K8) -> backward -> clip -> AdamW, on
     8 clips of 10 s with up to 40 targets; then at B=2 x 4 s against the CPU."""
     import torch
 
-    gen = torch.Generator(device=dev).manual_seed(CF_SEED + 20)
-    model = recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev, generator=gen)
+    model = flax_drawn(recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev), dev, CF_SEED + 20)
     n_params = sum(p.numel() for p in model.parameters())
     melspec = recipe.MelSpectrogram(sample_rate=SR, n_fft=N_FFT, hop_length=HOP, n_mels=N_MELS, power=2.0, device=dev)
     wav, lengths, tgt, tgt_lens = conformer_step_data(dev, CF_BIASED_B, CF_BIASED_S, CF_BIASED_S, CF_U,
@@ -4217,8 +4238,7 @@ def run_biased_train(recipe, dev, card: str) -> dict:
     del step
     torch.cuda.empty_cache()
 
-    model = recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev,
-                                       generator=torch.Generator(device=dev).manual_seed(CF_SEED + 20))
+    model = flax_drawn(recipe.BiasedConformerRNNT(CF_BIASED_V, device=dev), dev, CF_SEED + 20)
     wav2, len2, tgt2, tl2 = conformer_step_data(dev, CF_CMP_B, CF_CMP_S, CF_CMP_MIN_S, CF_CMP_U, CF_BIASED_V,
                                                 CF_SEED + 24)
     trie2 = torch.as_tensor(recipe.make_trie(tgt2.cpu().numpy(), tl2.cpu().numpy(), np.random.default_rng(CF_SEED + 25),
@@ -4789,8 +4809,8 @@ def helper_cost(name: str, one, card: str, reps: int = 5) -> dict:
 
 
 def run_overfit_gate(name: str, recipe, argv: list, card: str) -> dict:
-    """A recipe's ``--overfit`` gate on the card (its ``main`` raises if the gate fails; the TTS recipes' train under
-    ``deterministic_cudnn``, so that their verdict is the same on every run): seconds and launches."""
+    """A recipe's ``--overfit`` gate on the card (its ``main`` raises if the gate fails; every recipe's gate trains
+    under ``deterministic_cudnn``, so that cuDNN's sums do not move its verdict between runs): seconds and launches."""
     import torch
 
     print(f"  the {name} recipe's --overfit gate on the card: train_torch.py {' '.join(argv)} --device cuda")
@@ -4904,8 +4924,7 @@ def run_deepspeech(recipe, dev, card: str) -> dict:
 
     def make(seed):
         model = DeepSpeech(n_feature, DS_HIDDEN, n_class, device=dev)
-        recipe.conformer_rnnt.flax_init_(model, torch.Generator(device=dev).manual_seed(seed))
-        return model
+        return flax_drawn(model, dev, seed)
 
     def features(spec, wav, lengths):
         return spec(wav).transpose(1, 2)[:, None], torch.div(lengths, HOP, rounding_mode="floor") + 1
@@ -5657,6 +5676,237 @@ def run_tts_train(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 20: wav2vec2 ASR serving and alignment
+# WAV2VEC2_ASR_BASE_960H at full width (12 layers, 768 wide, 29 labels; the checkpoint's aux head has 32 rows, of
+# which the bundle drops 1-3) on 8 clips of 10 s (499 frames), then both decoders; MMS_FA's tokenizer and aligner on 2
+P20_SEED = 290  # the CUDA and numpy seeds of phase 20 are 290-299
+P20_B, P20_SECONDS, P20_BEAM = 8, 10, 10
+P20_ASR_AUX_ROWS, P20_FA_AUX_ROWS = 32, 31  # the published checkpoints' aux rows, before _remove_aux_axes
+P20_FA_B, P20_FA_SECONDS = 2, 10
+P20_WORDS = ["THE", "AND", "OF", "TO", "A", "IN", "THAT", "IS", "WAS", "HE", "FOR", "IT", "WITH", "AS", "HIS", "ON",
+             "BE", "AT", "BY", "I"]
+P20_TRANSCRIPTS = [["I", "HAD", "THAT", "CURIOSITY", "BESIDE", "ME", "AT", "THIS", "MOMENT"],
+                   ["THE", "QUICK", "BROWN", "FOX", "JUMPS", "OVER", "THE", "LAZY", "DOG"]]
+
+
+def published_state_dict(params: dict, aux_rows: int, dev, seed: int) -> dict:
+    """A torchaudio-named ``state_dict`` with a published checkpoint's shapes: the model of ``params`` with
+    ``aux_rows`` rows in its aux head, drawn from CUDA seed ``seed``, its positional convolution's weight norm as
+    ``weight_g``/``weight_v`` (``torch.nn.utils.weight_norm``, as torchaudio's checkpoints hold it)."""
+    import torch
+
+    from audio_tpu_torch.models import wav2vec2_model
+
+    model = wav2vec2_model(**{**params, "aux_num_out": aux_rows}, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    pos = "encoder.transformer.pos_conv_embed.conv"
+    sd = {k.replace(f"{pos}.parametrizations.weight.original0", f"{pos}.weight_g")
+          .replace(f"{pos}.parametrizations.weight.original1", f"{pos}.weight_v"): v.detach().clone()
+          for k, v in model.state_dict().items()}
+    del model
+    return sd
+
+
+def peaked_log_probs(b: int, t: int, v: int, seed: int):
+    """(b, t, v) log-probs of seeded token paths: each row a run of tokens in [1, v), each held 1-3 frames and
+    followed by a blank frame, the path's class at 0 and the others at -4 before the log-softmax (as the JAX
+    package's decoder tests build them), the rest of the row blank."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    logits = np.full((b, t, v), -4.0, np.float32)
+    logits[:, :, 0] = 0.0
+    for i in range(b):
+        f = 0
+        while True:
+            hold = int(rng.integers(1, 4))
+            if f + hold + 1 > t:
+                break
+            logits[i, f:f + hold, 0] = -4.0
+            logits[i, f:f + hold, int(rng.integers(1, v))] = 0.0
+            f += hold + 1
+    return torch.log_softmax(torch.as_tensor(logits), dim=-1)
+
+
+def write_decoder_files(folder: str, labels, seed: int) -> dict:
+    """The lexicon (P20_WORDS spelled in ``labels``' letters, each ending with the word boundary "|"), the tokens
+    file and a 3-gram ARPA over those words (seeded log10 probabilities and backoffs), and a KenLM probing binary of
+    the ARPA made by ``build_binary_lm``."""
+    from audio_tpu_torch.models.decoder import build_binary_lm
+
+    rng = np.random.default_rng(seed)
+    paths = {name: os.path.join(folder, name) for name in ("lexicon.txt", "tokens.txt", "lm.arpa", "lm.bin")}
+    with open(paths["lexicon.txt"], "w") as f:
+        f.writelines(f"{w} {' '.join(w)} |\n" for w in P20_WORDS)
+    with open(paths["tokens.txt"], "w") as f:
+        f.write("\n".join(labels) + "\n")
+    unigrams = ["<unk>", "<s>", "</s>"] + P20_WORDS
+    bigrams = [(a, b) for a in ["<s>"] + P20_WORDS for b in P20_WORDS + ["</s>"] if rng.random() < 0.2]
+    trigrams = [(a, b, c) for a, b in bigrams if b != "</s>" for c in P20_WORDS if rng.random() < 0.1]
+    lines = ["", "\\data\\", f"ngram 1={len(unigrams)}", f"ngram 2={len(bigrams)}", f"ngram 3={len(trigrams)}", "",
+             "\\1-grams:"]
+    for w in unigrams:
+        logp = -99.0 if w == "<s>" else round(-rng.uniform(0.5, 3.0), 4)
+        lines.append(f"{logp} {w}" if w == "</s>" else f"{logp} {w} {round(-rng.uniform(0.1, 1.0), 4)}")
+    lines += ["", "\\2-grams:"]
+    lines += [f"{round(-rng.uniform(0.1, 2.0), 4)} {a} {b} {round(-rng.uniform(0.1, 1.0), 4)}" for a, b in bigrams]
+    lines += ["", "\\3-grams:"] + [f"{round(-rng.uniform(0.1, 1.5), 4)} {a} {b} {c}" for a, b, c in trigrams]
+    lines += ["", "\\end\\", ""]
+    with open(paths["lm.arpa"], "w") as f:
+        f.write("\n".join(lines))
+    build_binary_lm(paths["lm.arpa"], paths["lm.bin"])
+    print(f"  decoder files: {len(P20_WORDS)} words, a 3-gram ARPA of {len(unigrams)}/{len(bigrams)}/{len(trigrams)} "
+          f"n-grams, its KenLM binary {os.path.getsize(paths['lm.bin'])} bytes")
+    return paths
+
+
+def check_cuda_decoder(name: str, decoder, log_probs, lengths, card: str, near_ties: bool) -> dict:
+    """``decoder`` on the card against the same call on the CPU fed the same log-probs: the tokens equal.  With
+    ``near_ties``, a row whose CPU decode in float64 differs from its float32 decode has a near tie (its tokens owe
+    to rounding): it is counted and left out of the exact check, and at least one row must stay in it."""
+    got = decoder(log_probs, lengths)
+    ref = decoder(log_probs.cpu(), lengths.cpu())
+    rows = list(range(len(ref)))
+    if near_ties:
+        ref64 = decoder(log_probs.cpu().double(), lengths.cpu())
+        rows = [i for i in rows if ref64[i][0].tokens == ref[i][0].tokens]
+        if not rows:
+            raise AssertionError(f"{name}: every row has a near tie")
+    bad = [i for i in rows if got[i][0].tokens != ref[i][0].tokens]
+    score_err = max(abs(got[i][0].score - ref[i][0].score) for i in rows)
+    print(f"  {name}: tokens equal to the CPU's on {len(rows) - len(bad)} of {len(rows)} rows held to it "
+          f"({len(ref) - len(rows)} rows with a near tie left out), {sum(len(h[0].tokens) for h in got)} tokens in all, "
+          f"scores within {score_err:.3e}")
+    if bad:
+        raise AssertionError(f"{name}: rows {bad} decode to other tokens on the card")
+    return {"rows_held": len(rows), "near_tie_rows": len(ref) - len(rows), "score_err": score_err,
+            "tokens": sum(len(h[0].tokens) for h in got)}
+
+
+def run_asr_serving(dev, card: str) -> dict:
+    """Phase 20 (a)-(c): ``WAV2VEC2_ASR_BASE_960H.get_model(dl_kwargs={"state_dict": sd})`` at full width on
+    P20_B clips of P20_SECONDS (the emissions against the same bundle on the CPU, within CMP_TOL of the peak); its
+    log-probs through ``cuda_ctc_decoder`` (beam 10, nbest 1) on the card against the CPU, and the peaked log-probs of
+    seeded token paths likewise (no near tie there); the same log-probs on the host through the lexicon
+    ``ctc_decoder`` with a 3-gram LM, native on the ARPA and on its KenLM binary, and the plain Python search: the
+    same words."""
+    import torch
+
+    from audio_tpu_torch.models.decoder import ctc_decoder, cuda_ctc_decoder
+    from audio_tpu_torch.pipelines import WAV2VEC2_ASR_BASE_960H as bundle
+
+    sd = published_state_dict(bundle._params, P20_ASR_AUX_ROWS, dev, P20_SEED)
+    model = bundle.get_model(dl_kwargs={"state_dict": sd}, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    labels = bundle.get_labels()
+    wav, lengths = padded_clips(dev, P20_B, P20_SECONDS, P20_SECONDS, P20_SEED + 1)
+    with torch.no_grad():
+        emission, frames = model(wav, lengths)
+    want = (P20_B, frames_of(model.model, P20_SECONDS * SR), len(labels))  # (8, 499, 29)
+    if tuple(emission.shape) != want or not bool(torch.isfinite(emission).all()):
+        raise AssertionError(f"WAV2VEC2_ASR_BASE_960H: emissions {tuple(emission.shape)} or not finite")
+    print(f"  WAV2VEC2_ASR_BASE_960H: {n_params} parameters from a seeded state_dict ({P20_ASR_AUX_ROWS} aux rows, "
+          f"weight_g/weight_v), emissions {tuple(emission.shape)} f32 from {P20_B} clips of {P20_SECONDS} s")
+    out = {"params": n_params}
+    cpu_model = bundle.get_model(dl_kwargs={"state_dict": sd}, device="cpu")
+    with torch.no_grad():
+        ref = cpu_model(wav.cpu(), lengths.cpu())[0]
+    peak = float(ref.abs().max())
+    out["emission_err_of_peak"] = check_close(f"WAV2VEC2_ASR_BASE_960H emissions, B={P20_B} x {P20_SECONDS} s, "
+                                              "against the CPU", emission.cpu(), ref, CMP_TOL * peak, 0.0) / peak
+    del cpu_model
+    out["model_ms"] = median_call_ms(lambda: model(wav, lengths))[0]
+    print(f"  WAV2VEC2_ASR_BASE_960H forward, f32, B={P20_B} x {P20_SECONDS} s: {out['model_ms']:.3f} ms on {card}")
+
+    # (b) the batched prefix search on the card
+    log_probs = torch.log_softmax(emission, dim=-1)
+    decoder = cuda_ctc_decoder(list(labels), nbest=1, beam_size=P20_BEAM)
+    out["cuda_decoder"] = check_cuda_decoder(f"cuda_ctc_decoder, beam {P20_BEAM}, on the model's log-probs",
+                                             decoder, log_probs, frames, card, near_ties=True)
+    peaked = peaked_log_probs(P20_B, log_probs.shape[1], len(labels), P20_SEED + 2).to(dev)
+    out["cuda_decoder_peaked"] = check_cuda_decoder(f"cuda_ctc_decoder, beam {P20_BEAM}, on peaked log-probs",
+                                                    decoder, peaked, frames, card, near_ties=False)
+    batch = lambda: decoder(log_probs, frames)  # noqa: E731
+    ms, runs = median_call_ms(batch)
+    out["cuda_decoder"].update(ms=ms, runs_ms=runs, audio_s_per_s=P20_B * P20_SECONDS / (ms / 1e3))
+    print(f"  cuda_ctc_decoder, beam {P20_BEAM}, ({P20_B}, {log_probs.shape[1]}, {len(labels)}): {ms:.3f} ms a batch "
+          f"(runs {', '.join(f'{r:.3f}' for r in runs)}), {out['cuda_decoder']['audio_s_per_s']:.1f} s of audio a "
+          f"second on {card}")
+    out["cuda_decoder"]["profile"] = profile_batch(f"cuda_ctc_decoder batch ({P20_B} x {log_probs.shape[1]} frames)",
+                                                   batch)
+
+    # (c) the lexicon decoder on the host
+    host_lp = log_probs.cpu()
+    with tempfile.TemporaryDirectory() as folder:
+        files = write_decoder_files(folder, labels, P20_SEED + 3)
+        options = dict(nbest=1, beam_size=50, lm_weight=2.0, word_score=-1.0)
+        words, lexicon = {}, {}
+        for label, lm, plain in (("native, ARPA", files["lm.arpa"], False), ("native, KenLM binary", files["lm.bin"],
+                                                                              False),
+                                 ("plain Python search, ARPA", files["lm.arpa"], True)):
+            dec = ctc_decoder(files["lexicon.txt"], files["tokens.txt"], lm=lm, _plain=plain, **options)
+            t0 = time.perf_counter()
+            hyps = dec(host_lp, frames.cpu())
+            s = time.perf_counter() - t0
+            words[label] = [h[0].words for h in hyps]
+            lexicon[label] = {"ms_a_clip": 1e3 * s / P20_B, "words": sum(len(w) for w in words[label])}
+            print(f"  lexicon ctc_decoder ({label}, beam 50, 3-gram LM weight 2): {1e3 * s / P20_B:.3f} ms a clip of "
+                  f"{P20_SECONDS} s, {lexicon[label]['words']} words over {P20_B} clips, first clip "
+                  f"{' '.join(words[label][0][:8])} ...")
+    if len({json.dumps(w) for w in words.values()}) != 1:
+        raise AssertionError(f"the lexicon decoder's words differ between its paths: {words}")
+    print("  the lexicon decoder's words are equal on the native ARPA, native binary and plain Python paths")
+    out["lexicon_decoder"] = lexicon
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bundle_alignment(dev, card: str) -> dict:
+    """Phase 20 (d): ``MMS_FA.get_model(with_star=True)`` (315M parameters, a seeded state_dict with the published
+    shapes) on P20_FA_B clips of P20_FA_SECONDS, then ``get_tokenizer()`` and ``get_aligner()`` on a transcript a
+    clip: K3 must launch (on "warp"), and the spans equal the CPU aligner's on the same emissions."""
+    import torch
+
+    from audio_tpu_torch.pipelines import MMS_FA as bundle
+
+    sd = published_state_dict(bundle._params, P20_FA_AUX_ROWS, dev, P20_SEED + 5)
+    model = bundle.get_model(with_star=True, dl_kwargs={"state_dict": sd}, device=dev)
+    del sd
+    tokenizer, aligner = bundle.get_tokenizer(), bundle.get_aligner()
+    wav, _ = padded_clips(dev, P20_FA_B, P20_FA_SECONDS, P20_FA_SECONDS, P20_SEED + 6)
+    with torch.no_grad():
+        emission, _ = model(wav)
+    if emission.shape[-1] != len(bundle.get_labels()) or not bool(torch.isfinite(emission).all()):
+        raise AssertionError(f"MMS_FA: emissions {tuple(emission.shape)} or not finite")
+    tokens = [tokenizer([w.lower() for w in words]) for words in P20_TRANSCRIPTS]
+
+    def align():
+        return [aligner(emission[i], tokens[i]) for i in range(P20_FA_B)]
+
+    reset_kernel_counts()
+    spans = align()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    require_launches("the MMS_FA aligner (phase 20)", counts, ["viterbi"])
+    require_route("the MMS_FA aligner (phase 20)", counts, "viterbi", "warp")
+    out = {"k3_launches": counts["viterbi"], "params": sum(p.numel() for p in model.parameters())}
+    cpu_emission = emission.cpu()
+    ref = [aligner(cpu_emission[i], tokens[i]) for i in range(P20_FA_B)]
+    if spans != ref:
+        raise AssertionError("MMS_FA: the card's spans differ from the CPU aligner's")
+    n_spans = sum(len(word) for clip in spans for word in clip)
+    print(f"  MMS_FA ({out['params']} parameters, with the star column): {P20_FA_B} clips of {P20_FA_SECONDS} s, "
+          f"{sum(len(t) for t in P20_TRANSCRIPTS)} words, {n_spans} token spans equal to the CPU aligner's")
+    out["align_ms"] = median_call_ms(align)[0]
+    out["model_ms"] = median_call_ms(lambda: model(wav))[0]
+    print(f"  MMS_FA: the model {out['model_ms']:.3f} ms and the aligner {out['align_ms']:.3f} ms for {P20_FA_B} clips "
+          f"on {card}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
@@ -6210,6 +6460,24 @@ def main(argv=None) -> int:
     phase19["seconds"] = time.perf_counter() - t19
     print(f"  phase 19 took {phase19['seconds']:.1f} s")
 
+    # ---------------------------------------------------------------- phase 20
+    print(f"phase 20: wav2vec2 ASR serving (WAV2VEC2_ASR_BASE_960H at full width on {P20_B} clips of {P20_SECONDS} s, "
+          f"cuda_ctc_decoder on the card, the lexicon ctc_decoder with a 3-gram LM on the host) and bundle alignment "
+          f"(MMS_FA's tokenizer and aligner on {P20_FA_B} clips)")
+    t20 = time.perf_counter()
+    reset_kernel_counts()
+    phase20 = {"asr": run_asr_serving(dev, card)}
+    torch.cuda.synchronize()
+    if any(kernel_counts().values()):
+        raise AssertionError(f"phase 20 (a)-(c) launched the port's kernels: "
+                             f"{ {n: c for n, c in kernel_counts().items() if c} } (none is on these paths)")
+    phase20["alignment"] = run_bundle_alignment(dev, card)
+    phase20_launches = {"viterbi": phase20["alignment"]["k3_launches"]}
+    print(f"  launches of K1-K9 in phase 20: {phase20_launches} (K3 in the aligner; the decoders and the model "
+          "launch none)")
+    phase20["seconds"] = time.perf_counter() - t20
+    print(f"  phase 20 took {phase20['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -6286,7 +6554,8 @@ def main(argv=None) -> int:
                         replaces="audio_tpu/ops/pallas_viterbi.py:142", launches=launches["viterbi"],
                         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound[0],
                         bound_by=k3_bound[1], library_ms=None, kernel_route=k3_route, block_ms=k3_block_ms,
-                        phase13_launches=wav2vec2["forced_alignment"]["k3_launches"]))
+                        phase13_launches=wav2vec2["forced_alignment"]["k3_launches"],
+                        phase20_launches=phase20_launches["viterbi"]))
     # K5-K8 at the main shape in bf16, K5's and K7's weights as the search passes them (a
     # Linear's layout); launches from the runs of the paths that take them
     inp = slice2_kernel_inputs(np.random.default_rng(2), dev, n_main, RNNT_D, RNNT_V, RNNT_H, torch.bfloat16)
@@ -6417,7 +6686,7 @@ def main(argv=None) -> int:
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
                        "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo,
-                       "phase18": phase18, "phase19": phase19},
+                       "phase18": phase18, "phase19": phase19, "phase20": phase20},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,9 @@ padded to the stride.  ``make_train_step`` builds the step: ``rnnt_loss(blank
 backward -> optax's ``clip_by_global_norm(5.0)`` -> AdamW (weight decay 1e-6)
 at the rate of optax's ``warmup_cosine_decay_schedule(0, lr, warmup,
 max(steps, warmup + 1))``, the update numbered ``step`` from 0 taking the
-schedule's value at ``step``.  ``state_dict_from_jax_params`` carries the JAX
-recipe's flax tree across.  One card; only ``--synthetic`` data is wired up.
+schedule's value at ``step``.  ``main`` draws the model as flax's ``init`` draws the JAX recipe's
+(``flax_init_``); ``state_dict_from_jax_params`` carries the JAX recipe's flax tree across.  One card; only
+``--synthetic`` data is wired up.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from torch import nn
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", ".."))
 
 import audio_tpu_torch.functional as F  # noqa: E402
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
 from audio_tpu_torch._interop import (conformer_state_dict_from_jax_params, from_jax_params,  # noqa: E402
                                       predictor_state_dict_from_jax_params)
 from audio_tpu_torch.models import Conformer, rnnt_greedy_decode  # noqa: E402
@@ -57,38 +59,6 @@ BLANK_FIRST_TOKEN = 0  # predictor SOS = blank, as in the JAX recipe
 CLIP_NORM, WEIGHT_DECAY = 5.0, 1e-6
 LEARNING_RATE, WARMUP_STEPS = 8e-4, 40
 FREQ_MASK, TIME_MASK = 27, 100
-
-
-LECUN_STD = 0.87962566103423978  # the standard deviation of a unit normal truncated to [-2, 2]
-
-
-def flax_init_(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw ``model``'s parameters from ``generator`` as flax's default initialisers draw a JAX recipe's tree:
-    each kernel from lecun-normal (variance 1 / fan_in, a normal truncated at two of its deviations; a transposed
-    convolution's fan-in is its input channels times its kernel, as flax's (K, in, out) kernel counts it), each
-    recurrent matrix of an ``nn.RNN`` orthogonal, each embedding from N(0, 1 / E), every bias zero, every norm
-    scale one, every ``PReLU`` slope 0.25.  The numbers are drawn on the generator's own device."""
-    modules = dict(model.named_modules())
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            owner, leaf = modules[name.rpartition(".")[0]], name.rpartition(".")[2]
-            if name.endswith("embedding.weight"):
-                draw = torch.empty(p.shape, device=generator.device).normal_(0.0, p.shape[1] ** -0.5,
-                                                                             generator=generator)
-            elif isinstance(owner, nn.PReLU):
-                draw = torch.full(p.shape, 0.25)
-            elif leaf.startswith("weight_hh"):
-                draw = nn.init.orthogonal_(torch.empty(p.shape, device=generator.device), generator=generator)
-            elif p.dim() >= 2:
-                fan_in = p.shape[0] * p[0, 0].numel() if getattr(owner, "transposed", False) else p[0].numel()
-                std = fan_in ** -0.5 / LECUN_STD
-                draw = nn.init.trunc_normal_(torch.empty(p.shape, device=generator.device), 0.0, std, -2 * std,
-                                             2 * std, generator=generator)
-            elif leaf.endswith("bias") or leaf.startswith("bias"):  # "in_proj_bias", "bias_ih_l0"
-                draw = torch.zeros(p.shape)
-            else:
-                draw = torch.ones(p.shape)
-            p.copy_(draw)
 
 
 class ConformerTransducer(nn.Module):
@@ -326,8 +296,8 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     num_symbols = 32 if args.tiny else args.num_symbols
     data = SyntheticBatches(args.global_batch, num_symbols, seed=args.seed)
-    model = (tiny_model(num_symbols, device=dev, generator=gen) if args.tiny
-             else ConformerRNNT(num_symbols, device=dev, generator=gen))
+    model = tiny_model(num_symbols, device=dev) if args.tiny else ConformerRNNT(num_symbols, device=dev)
+    flax_init_(model, gen)  # drawn as the JAX recipe's flax init draws its tree
     model.train(not args.overfit)  # the memorization gate trains dropout-off
     stride = model.time_reduction_stride
     melspec = MelSpectrogram(sample_rate=SAMPLE_RATE, n_fft=400, hop_length=HOP, n_mels=N_MELS, power=2.0,

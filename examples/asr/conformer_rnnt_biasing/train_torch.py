@@ -38,6 +38,7 @@ from torch import nn
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", "..", ".."))
 
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
 from audio_tpu_torch._internal.scripts import load_by_path  # noqa: E402
 
 biasing = load_by_path("biasing_torch", os.path.join(_HERE, "biasing_torch.py"))
@@ -160,8 +161,9 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     num_symbols = 32 if args.tiny else args.num_symbols
     data = SyntheticBatches(args.global_batch, num_symbols, seed=args.seed)
-    model = (tiny_model(num_symbols, device=dev, generator=gen) if args.tiny
-             else BiasedConformerRNNT(num_symbols, device=dev, generator=gen)).train()
+    model = tiny_model(num_symbols, device=dev) if args.tiny else BiasedConformerRNNT(num_symbols, device=dev)
+    flax_init_(model, gen)  # drawn as the JAX recipe's flax init draws its tree
+    model.train()
     melspec = MelSpectrogram(sample_rate=SAMPLE_RATE, n_fft=400, hop_length=HOP, n_mels=N_MELS, power=2.0,
                              device=dev)
     step = make_train_step(model, learning_rate=args.learning_rate, warmup_steps=args.warmup_steps,

@@ -10,7 +10,7 @@ the frame counts ``wav_lens // 160 + 1``) -> ``Wav2Letter(29, "mfcc", 13)`` (23.
 lengths scaled to the stride-2 stack -> ``ops.ctc.ctc_loss(blank 0, reduction="mean")`` -> backward -> optax's
 ``clip_by_global_norm(5.0)`` -> Adadelta (lr 0.6, rho 0.9, eps 1e-6, optax's and torch's defaults alike).
 ``decode`` is the greedy CTC decode and ``cer`` the character error rate from ``F.edit_distance``.  The weights
-are drawn as flax's ``init`` draws the JAX recipe's (``conformer_rnnt/train_torch.py``'s ``flax_init_``).  Metrics
+are drawn as flax's ``init`` draws the JAX recipe's (``audio_tpu_torch/_internal/init.py``'s ``flax_init_``).  Metrics
 are JSON lines on stdout, as the JAX recipe prints them.  One card; only ``--synthetic`` data is wired up:
 ``--librispeech-path`` waits for the port's dataset loaders.  ``--tiny`` is accepted as the JAX recipe accepts
 it: Wav2Letter has no smaller configuration.
@@ -19,6 +19,7 @@ it: Wav2Letter has no smaller configuration.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -33,7 +34,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", "..", ".."))
 
-from audio_tpu_torch._internal.scripts import load_by_path  # noqa: E402
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
+from audio_tpu_torch._internal.scripts import deterministic_cudnn, load_by_path  # noqa: E402
 
 conformer_rnnt = load_by_path("conformer_rnnt_train_torch", os.path.join(_HERE, "..", "conformer_rnnt",
                                                                          "train_torch.py"))
@@ -83,7 +85,7 @@ def make_model(device="cuda", generator: torch.Generator = None) -> Wav2Letter:
     """``Wav2Letter(29, "mfcc", 13)``, drawn from ``generator`` as flax's ``init`` draws (when one is given)."""
     model = Wav2Letter(num_classes=len(LABELS), input_type="mfcc", num_features=N_MFCC, device=device)
     if generator is not None:
-        conformer_rnnt.flax_init_(model, generator)
+        flax_init_(model, generator)
     return model
 
 
@@ -164,6 +166,13 @@ def main(argv=None) -> int:
         raise NotImplementedError("--librispeech-path needs the LibriSpeech loader, which the port does not have "
                                   "yet; pass --synthetic")
 
+    # the gate's verdict must not hang on the order of cuDNN's sums
+    with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
+        return run(args)
+
+
+def run(args: argparse.Namespace) -> int:
+    """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
     num_classes = len(LABELS)
     # the gate memorises a fixed batch of short clips, as the JAX recipe's does

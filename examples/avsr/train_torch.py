@@ -26,6 +26,7 @@ the step; the last 12 are kept.  One card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import math
 import os
@@ -42,7 +43,8 @@ from torch import nn
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", ".."))
 
-from audio_tpu_torch._internal.scripts import load_by_path  # noqa: E402
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
+from audio_tpu_torch._internal.scripts import deterministic_cudnn, load_by_path  # noqa: E402
 
 frontends = load_by_path("avsr_frontends_torch", os.path.join(_HERE, "frontends_torch.py"))
 lrs3 = load_by_path("avsr_lrs3_torch", os.path.join(_HERE, "lrs3_torch.py"))
@@ -86,7 +88,7 @@ class AVConformerRNNT(nn.Module):
                                     lstm_layer_norm=True, lstm_layer_norm_epsilon=1e-3, lstm_dropout=dropout, **kw)
         self.joiner = _Joiner(joiner_dim, num_symbols, **kw)
         if generator is not None:
-            conformer_rnnt.flax_init_(self, generator)
+            flax_init_(self, generator)
 
     def fuse(self, videos, audios, video_lengths):
         """(B, T, H, W) videos and (B, L) audio -> (fused features (B, t, D), lengths), ``t`` the shorter of the
@@ -289,6 +291,15 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
+    if not (args.lrs3_path or args.synthetic):
+        p.error("pass --synthetic or --lrs3-path")
+    # the gate's verdict must not hang on the order of cuDNN's sums
+    with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
+        return run(args)
+
+
+def run(args: argparse.Namespace) -> int:
+    """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
     torch.manual_seed(0)
     num_symbols = 32 if args.tiny else args.num_symbols
@@ -296,10 +307,8 @@ def main(argv=None) -> int:
         data = LRS3Batches(args.lrs3_path, args.global_batch, max_frames=args.max_frames)
         num_symbols = data.num_symbols
         print(f"LRS3: {len(data.ds)} segments, {len(data.batches)} batches, vocab {num_symbols} (char)")
-    elif args.synthetic:
-        data = SyntheticBatches(args.global_batch, num_symbols)
     else:
-        p.error("pass --synthetic or --lrs3-path")
+        data = SyntheticBatches(args.global_batch, num_symbols)
     gen = torch.Generator().manual_seed(0)
     model = (tiny_model(num_symbols, device=dev, generator=gen) if args.tiny
              else AVConformerRNNT(num_symbols, device=dev, generator=gen))

@@ -7,13 +7,14 @@
 The step: the mixture is the sum of the sources -> ``ConvTasNet`` (``conv_tasnet_base``, 4,984,881 parameters, or the
 ``--tiny`` debug model) -> utterance-level permutation-invariant negative Si-SNR (``pit_neg_si_snr``) -> backward
 -> optax's ``clip_by_global_norm(5.0)`` -> Adam (lr 1e-3, optax's and torch's betas and epsilon alike).  The
-weights are drawn as flax's ``init`` draws the JAX recipe's (``conformer_rnnt/train_torch.py``'s ``flax_init_``).
+weights are drawn as flax's ``init`` draws the JAX recipe's (``audio_tpu_torch/_internal/init.py``'s ``flax_init_``).
 One card; only ``--synthetic`` data is wired up: ``--librimix-path`` waits for the port's dataset loaders.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import math
 import os
@@ -26,7 +27,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", ".."))
 
-from audio_tpu_torch._internal.scripts import load_by_path  # noqa: E402
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
+from audio_tpu_torch._internal.scripts import deterministic_cudnn, load_by_path  # noqa: E402
 
 conformer_rnnt = load_by_path("conformer_rnnt_train_torch", os.path.join(_HERE, "..", "asr", "conformer_rnnt",
                                                                          "train_torch.py"))
@@ -84,7 +86,7 @@ def make_model(tiny: bool, num_sources: int = 2, device="cuda", generator: torch
     """The recipe's model, drawn from ``generator`` as flax's ``init`` draws (when one is given)."""
     model = tiny_model(num_sources, device) if tiny else conv_tasnet_base(num_sources, device=device)
     if generator is not None:
-        conformer_rnnt.flax_init_(model, generator)
+        flax_init_(model, generator)
     return model
 
 
@@ -142,6 +144,13 @@ def main(argv=None) -> int:
     if not args.synthetic:
         p.error("pass --synthetic or --librimix-path")
 
+    # the gate's verdict must not hang on the order of cuDNN's sums
+    with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
+        return run(args)
+
+
+def run(args: argparse.Namespace) -> int:
+    """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
     data = SyntheticMixtures(args.global_batch, args.num_sources)
     model = make_model(args.tiny, args.num_sources, dev, torch.Generator().manual_seed(0))

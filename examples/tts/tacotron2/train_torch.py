@@ -34,12 +34,10 @@ import torch.nn.functional as nnF
 _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", "..", ".."))
 
-from audio_tpu_torch._internal.scripts import deterministic_cudnn, load_by_path  # noqa: E402
+from audio_tpu_torch._internal.init import LECUN_STD, flax_init_  # noqa: E402
+from audio_tpu_torch._internal.scripts import deterministic_cudnn  # noqa: E402
 from audio_tpu_torch.models import Tacotron2  # noqa: E402
 from audio_tpu_torch.transforms import MelSpectrogram  # noqa: E402
-
-conformer_rnnt = load_by_path("conformer_rnnt_train_torch", os.path.join(_HERE, "..", "..", "asr", "conformer_rnnt",
-                                                                         "train_torch.py"))
 
 SAMPLE_RATE = 22050
 N_MELS = 80
@@ -73,11 +71,11 @@ def make_model(tiny: bool, n_symbol: int = len(SYMBOLS), device="cuda", dtype=No
     model = (tiny_model(n_symbol, device, dtype) if tiny
              else Tacotron2(n_symbol=n_symbol, n_mels=N_MELS, device=device, dtype=dtype))
     if generator is not None:
-        conformer_rnnt.flax_init_(model, generator)
+        flax_init_(model, generator)
         with torch.no_grad():  # the JAX encoder's _BiLSTM draws its recurrent matrices lecun-normal too
             for name, p in model.encoder.lstm.named_parameters():
                 if name.startswith("weight_hh"):
-                    std = p.shape[1] ** -0.5 / conformer_rnnt.LECUN_STD
+                    std = p.shape[1] ** -0.5 / LECUN_STD
                     draw = torch.empty(p.shape, device=generator.device)
                     p.copy_(torch.nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=generator))
     return model

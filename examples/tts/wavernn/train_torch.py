@@ -32,12 +32,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_HERE, "..", "..", ".."))
 
 import audio_tpu_torch.functional as F  # noqa: E402
-from audio_tpu_torch._internal.scripts import deterministic_cudnn, load_by_path  # noqa: E402
+from audio_tpu_torch._internal.init import flax_init_  # noqa: E402
+from audio_tpu_torch._internal.scripts import deterministic_cudnn  # noqa: E402
 from audio_tpu_torch.models import WaveRNN  # noqa: E402
 from audio_tpu_torch.transforms import MelSpectrogram  # noqa: E402
-
-conformer_rnnt = load_by_path("conformer_rnnt_train_torch", os.path.join(_HERE, "..", "..", "asr", "conformer_rnnt",
-                                                                         "train_torch.py"))
 
 SAMPLE_RATE = 22050
 N_MELS = 80
@@ -56,7 +54,7 @@ def make_model(tiny: bool, device="cuda", dtype=None, generator: Optional[torch.
     model = WaveRNN(upsample_scales=[5, 5, 8], n_classes=2**N_BITS, hop_length=HOP, kernel_size=5, n_freq=N_MELS,
                     device=device, dtype=dtype, **widths)
     if generator is not None:
-        conformer_rnnt.flax_init_(model, generator)
+        flax_init_(model, generator)
         model.upsample.reset_upsample_()
     return model
 

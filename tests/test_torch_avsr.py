@@ -36,6 +36,7 @@ import audio_tpu
 import audio_tpu.functional as JF
 from audio_tpu.models.rnnt_decoder import rnnt_greedy_decode as jax_greedy_decode
 
+from audio_tpu_torch._internal.init import LECUN_STD
 from audio_tpu_torch.utils.precision import exact_conv
 
 from .test_torch_conformer import _attention_f64_softmax
@@ -405,7 +406,7 @@ def test_seeded_weights_follow_flax_s_initialisers():
             assert abs(float(p.std()) * p.shape[1] ** 0.5 - 1) < 0.2, name
         elif p.dim() >= 2:
             std = p[0].numel() ** -0.5
-            assert float(p.abs().max()) <= 2 * std / t_train.conformer_rnnt.LECUN_STD, name
+            assert float(p.abs().max()) <= 2 * std / LECUN_STD, name
             if p.numel() >= 4096:
                 assert abs(float(p.std()) / std - 1) < 0.08, name
         else:

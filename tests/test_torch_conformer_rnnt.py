@@ -17,6 +17,7 @@ float64 for that test): the loss and every gradient within 1e-10 of their peaks.
 nodes match exactly.
 """
 
+import copy
 import importlib.util
 import pathlib
 import sys
@@ -390,6 +391,41 @@ def test_synthetic_tiny_main_takes_two_steps(recipe, capsys):
     assert module.main(["--synthetic", "--tiny", "--steps", "2", "--global-batch", "2", "--device", "cpu"]) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
     assert len(lines) == 2 and all("loss" in ln for ln in lines)
+
+
+class _Built(Exception):
+    """Raised in place of the train step: ``main`` has built and drawn its model."""
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])
+@pytest.mark.parametrize("recipe", ["conformer_rnnt", "biasing"])
+def test_main_draws_its_model_through_flax_init(recipe, tiny, monkeypatch):
+    """``main`` draws the model it trains as the JAX recipe's flax ``init`` draws its tree: once, through
+    ``flax_init_``, from the generator seeded ``--seed``; the tiny model's weights are those draws."""
+    from audio_tpu_torch._internal.init import flax_init_
+
+    module = t_rnnt if recipe == "conformer_rnnt" else t_biased
+    calls = []
+
+    def record(model, generator):
+        calls.append((model, generator.initial_seed()))
+        if tiny:  # the full width is only counted: its draws are the same function's
+            flax_init_(model, generator)
+
+    def stop(model, **kwargs):
+        raise _Built(model)
+
+    monkeypatch.setattr(module, "flax_init_", record)
+    monkeypatch.setattr(module, "make_train_step", stop)
+    with pytest.raises(_Built) as built:
+        module.main(["--synthetic", "--seed", "3", "--device", "cpu"] + (["--tiny"] if tiny else []))
+    model = built.value.args[0]
+    assert len(calls) == 1 and calls[0][0] is model and calls[0][1] == 3
+    if tiny:
+        want = copy.deepcopy(model)
+        flax_init_(want, torch.Generator().manual_seed(3))
+        for (name, p), q in zip(model.named_parameters(), want.parameters()):
+            torch.testing.assert_close(p, q, rtol=0, atol=0, msg=name)
 
 
 def test_loss_and_every_gradient_in_float64_match_jax(rnnt):

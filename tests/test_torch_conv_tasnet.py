@@ -234,7 +234,7 @@ def test_flax_init_draws_the_jax_recipe_s_distributions():
     assert all(bool((sd[k] == 1).all()) for k in sd if k.endswith(("input_norm.weight", "conv_layers.2.weight")))
     for layer, fan_in in ((torch.nn.ConvTranspose1d(4000, 1, 16, bias=False), 4000 * 16),
                           (torch.nn.Conv1d(4000, 1, 16), 4000 * 16), (torch.nn.Conv1d(1, 4000, 16), 16)):
-        t_sep.conformer_rnnt.flax_init_(layer, torch.Generator().manual_seed(1))
+        t_sep.flax_init_(layer, torch.Generator().manual_seed(1))
         assert abs(float(layer.weight.detach().std()) * fan_in ** 0.5 - 1) < 0.03, layer
 
 

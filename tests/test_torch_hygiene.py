@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX and nothing of the JAX package.
 
-Scans every module of ``audio_tpu_torch``, ``chip_smoke.py``, the train
-recipes ``examples/asr/emformer_rnnt/train_torch.py``, the Conformer RNN-T,
-TCPGen-biasing, AVSR, SSL, Wav2Letter and source-separation recipes' ``*_torch.py`` files for imports of ``jax`` or of ``audio_tpu`` itself (``audio_tpu_torch`` is allowed), and checks that
+Scans every module of ``audio_tpu_torch``, ``chip_smoke.py`` and every ``examples/**/*_torch.py`` script (the
+recipes, the tutorials, the decoding example and the gate-repeat scripts) for imports of ``jax`` or of ``audio_tpu``
+itself (``audio_tpu_torch`` is allowed), and checks that
 ``csrc/`` holds one CUDA source for each ported kernel and that no module still
 announces a kernel or a gradient as missing.
 """
@@ -24,8 +24,8 @@ AVSR_RECIPES = [ROOT / "examples" / "avsr" / f"{name}_torch.py"
                 for name in ("frontends", "lrs3", "train", "average_checkpoints", "eval")]
 CTC_AND_SEPARATION_RECIPES = [ROOT / "examples" / "asr" / "wav2letter" / "train_torch.py",
                               ROOT / "examples" / "source_separation" / "train_torch.py"]
-SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES
-           + AVSR_RECIPES + CTC_AND_SEPARATION_RECIPES)
+EXAMPLES = sorted((ROOT / "examples").rglob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _forbidden(module: str) -> bool:
@@ -64,7 +64,21 @@ def test_scan_covers_the_port():
                 "models/wavlm.py", "models/conformer.py", "models/wav2letter.py", "models/deepspeech.py",
                 "models/conv_tasnet.py"):
         assert f"audio_tpu_torch/{sub}" in names
-    assert len(names) >= 52
+    assert {p.relative_to(ROOT).as_posix() for p in
+            [TRAIN_RECIPE] + SSL_RECIPES + CONFORMER_RECIPES + AVSR_RECIPES + CTC_AND_SEPARATION_RECIPES} <= names
+    for script in ("tts/tacotron2/train_torch.py", "tts/wavernn/train_torch.py", "tts/overfit_repeats_torch.py",
+                   "overfit_repeats_torch.py", "asr/ctc_decoder/infer_torch.py",
+                   "tutorials/tacotron2_pipeline_tutorial_torch.py", "tutorials/hybrid_demucs_tutorial_torch.py",
+                   "tutorials/squim_tutorial_torch.py", "tutorials/asr_inference_with_ctc_decoder_tutorial_torch.py",
+                   "tutorials/asr_inference_with_cuda_ctc_decoder_tutorial_torch.py",
+                   "tutorials/forced_alignment_tutorial_torch.py", "tutorials/ctc_forced_alignment_api_tutorial_torch.py",
+                   "tutorials/forced_alignment_for_multilingual_data_tutorial_torch.py",
+                   "tutorials/speech_recognition_pipeline_tutorial_torch.py"):
+        assert f"examples/{script}" in names
+    for sub in ("models/decoder/_ctc_decoder.py", "models/decoder/_batch_ctc_decoder.py", "models/decoder/_native.py",
+                "models/wav2vec2/utils/import_fairseq.py", "pipelines/_wav2vec2/impl.py"):
+        assert f"audio_tpu_torch/{sub}" in names
+    assert len(names) >= 80
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -341,6 +355,32 @@ def test_pipelines_export_the_tts_bundles():
     assert set(TTS_PIPELINE_NAMES) <= set(tp.__all__) and set(TTS_PIPELINE_NAMES) <= set(jp.__all__)
     assert set(tp.__all__) <= set(jp.__all__)
     assert all(isinstance(getattr(tp, n), tp.Tacotron2TTSBundle) for n in TTS_PIPELINE_NAMES[:4])
+
+
+def test_pipelines_export_every_name_of_the_jax_package():
+    """``audio_tpu_torch.pipelines.__all__`` equals ``audio_tpu.pipelines.__all__``: the 15 earlier names, the three
+    wav2vec2 bundle classes and the 30 bundles, each an instance of its class."""
+    import audio_tpu.pipelines as jp
+
+    import audio_tpu_torch.pipelines as tp
+
+    assert sorted(tp.__all__) == sorted(jp.__all__) and len(set(tp.__all__)) == 48
+    for name in tp.__all__:
+        assert type(getattr(tp, name)).__name__ == type(getattr(jp, name)).__name__, name
+    assert sum(isinstance(getattr(tp, n), tp.Wav2Vec2Bundle) for n in tp.__all__) == 30
+
+
+def test_every_recipe_draws_through_the_one_flax_init():
+    """The seven recipes that draw flax's ``init`` import ``flax_init_`` from ``audio_tpu_torch/_internal/init.py``."""
+    from audio_tpu_torch._internal.init import flax_init_
+
+    for recipe in ("asr/conformer_rnnt/train_torch.py", "asr/conformer_rnnt_biasing/train_torch.py",
+                   "asr/wav2letter/train_torch.py", "source_separation/train_torch.py", "tts/tacotron2/train_torch.py",
+                   "tts/wavernn/train_torch.py", "avsr/train_torch.py"):
+        text = (ROOT / "examples" / recipe).read_text()
+        assert "from audio_tpu_torch._internal.init import" in text and "def flax_init_" not in text, recipe
+        assert "conformer_rnnt.flax_init_" not in text, recipe
+    assert flax_init_.__module__ == "audio_tpu_torch._internal.init"
 
 
 @pytest.mark.parametrize("name", [n for n in WAV2VEC2_NAMES + HUBERT_PRETRAIN_NAMES if n[0].islower()]
