@@ -618,7 +618,7 @@ def _get_filenames(model: str) -> _PretrainedFiles:
 
 def download_pretrained_files(model: str) -> _PretrainedFiles:
     """The torchaudio decoder assets (lexicon, tokens, LM) for ``model``, from the asset cache (fetched if missing)."""
-    from ...pipelines.rnnt_pipeline import _download_asset
+    from ...utils.download import _download_asset
 
     files = _get_filenames(model)
     lexicon_file = _download_asset(files.lexicon)

@@ -3,7 +3,7 @@
 The same bundles as ``audio_tpu.pipelines._squim_pipeline``, with the same asset keys and sample rate (16 kHz).
 ``get_model`` returns the port's ``nn.Module`` in eval mode on ``device`` (CUDA unless the caller names another),
 loaded with ``load_state_dict(strict=True)`` from ``dl_kwargs["state_dict"]`` (torchaudio's names, numpy arrays or
-tensors) or else from the asset's checkpoint (``rnnt_pipeline._download_asset``).
+tensors) or else from the asset's checkpoint (``utils.download._download_asset``).
 """
 
 from __future__ import annotations

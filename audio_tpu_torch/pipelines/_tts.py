@@ -5,7 +5,7 @@ The same four bundles as ``audio_tpu.pipelines._tts``, with the same token inven
 keys.  ``get_tacotron2`` and the WaveRNN bundles' ``get_vocoder`` return the port's modules in eval mode on ``device``
 (CUDA unless the caller names another), loaded with ``load_state_dict(strict=True)`` from
 ``dl_kwargs["state_dict"]`` (torchaudio's names, numpy arrays or tensors) or else from the asset's checkpoint
-(``rnnt_pipeline._download_asset``).  The character processor returns (tokens (B, L), lengths (B,)) as int64 tensors
+(``utils.download._download_asset``).  The character processor returns (tokens (B, L), lengths (B,)) as int64 tensors
 on the CPU; the phoneme processor needs DeepPhonemizer and its checkpoint and raises, as the JAX package's does.
 
 The WaveRNN vocoder takes the mel in natural-log units: exp, then decibels (20 log10, floored at 1e-5), then

@@ -6,9 +6,10 @@ x * gain -> global-stats normalisation -> right padding), decoder, token
 processor, and the ``EMFORMER_RNNT_BASE_LIBRISPEECH`` instance with the same
 asset keys.  Everything is made on CUDA unless ``device`` says otherwise.
 
-Assets are looked up in a local cache (``$AUDIO_TPU_HOME``, by default
-``~/.cache/audio_tpu``), keyed by their route on
-``download.pytorch.org/torchaudio``; one that is missing is fetched there.
+Assets are looked up through ``utils.download._download_asset``, in a local
+cache (``$AUDIO_TPU_HOME``, by default ``~/.cache/audio_tpu``), keyed by their
+route on ``download.pytorch.org/torchaudio``; one that is missing is fetched
+there.
 ``get_decoder(dl_kwargs={"state_dict": ...})`` takes the weights from the
 caller instead.
 """
@@ -17,31 +18,20 @@ from __future__ import annotations
 
 import json
 import math
-import os
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Callable, List, Tuple
 
 import torch
 
 from .. import transforms
 from ..models import RNNT, RNNTBeamSearch, emformer_rnnt_base
+from ..utils.download import _download_asset
 
 __all__ = ["RNNTBundle", "EMFORMER_RNNT_BASE_LIBRISPEECH"]
 
 _decibel = 2 * 20 * math.log10(32767)
 _gain = pow(10, 0.05 * _decibel)
-
-
-def _download_asset(key: str) -> str:
-    """Local path of the asset ``key``, fetched into the cache if it is not there."""
-    path = Path(os.environ.get("AUDIO_TPU_HOME", Path.home() / ".cache" / "audio_tpu")) / Path(key)
-    if not path.exists():
-        path.parent.mkdir(parents=True, exist_ok=True)
-        url = key if key.startswith(("http://", "https://")) else f"https://download.pytorch.org/torchaudio/{key}"
-        torch.hub.download_url_to_file(url, str(path))
-    return str(path)
 
 
 def _state_dict(key: str, dl_kwargs=None) -> dict:

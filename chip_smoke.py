@@ -243,6 +243,19 @@ Phases, each of which raises on failure:
    ARPA and on its KenLM binary (``build_binary_lm``) and the plain Python search, the words equal, ms a clip;
    ``MMS_FA.get_model(with_star=True)`` with its tokenizer and aligner on 2 clips of 10 s: K3 launches (on "warp"),
    the spans equal to the CPU aligner's on the same emissions.  No other kernel launches.
+21. The host side feeding the card (numpy and CUDA seeds from ``--seed``, 300 by default): (a) a LibriSpeech-shaped
+   tree, ``LibriSpeech/test-clean/<speaker>/<chapter>/*.flac`` with its ``.trans.txt``, of 16 voiced utterances of
+   4-16 s at 16 kHz written as 16-bit FLAC by the port's ``io.save`` (its numpy encoder), read back through
+   ``datasets.LIBRISPEECH`` under a ``torch.utils.data.DataLoader`` in this process and in two workers (the native
+   decoder, ``csrc/host/flac.cpp``, built with ``g++`` first): every waveform bit for bit the 16-bit quantisation of
+   what was written, the metadata equal, the host's decode rate in clips and seconds of audio a second; (b) the clips
+   padded into one batch on the card and streamed through ``EMFORMER_RNNT_BASE_LIBRISPEECH`` at full width in f32 (a
+   seeded injected ``state_dict``, the bundle's streaming feature extractor, beam 10) by
+   ``online_asr_tutorial_torch.py``'s ``stream``: K2, K5 and K7 must launch (K2 on "fft"), counted by route; the
+   top-1 tokens of the two shortest clips at every step equal to the same pipeline's on the CPU; (c) one Emformer
+   RNN-T train step (B=4, bf16 over f32 masters; K8 and K9 launch) whose model, AdamW state and a CUDA generator go
+   through ``utils.save_checkpoint`` and ``restore_checkpoint`` onto the card bit for bit, ``latest_step`` naming the
+   step; (d) one search step under ``utils.trace``: its Chrome trace names K5's and K7's kernels.
 
 Then it times every kernel (``cuda_ms``) beside its bound, its plain version
 and its library call; for K1 to K8 also the route each replaced ("serial",
@@ -5907,9 +5920,263 @@ def run_bundle_alignment(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 21: the host side feeding the card
+P21_SEED = 300  # the default --seed; phase 21's numpy and CUDA seeds are seed .. seed + 9
+P21_SPEAKERS, P21_CHAPTERS, P21_UTTERANCES = (1089, 121, 237, 260), 2, 2  # 16 utterances of test-clean's shape
+P21_MIN_S, P21_MAX_S, P21_BEAM, P21_CPU_CLIPS, P21_TRAIN_B = 4, 16, 10, 2, 4
+P21_WORDS = ["HE", "HOPED", "THERE", "WOULD", "BE", "STEW", "FOR", "DINNER", "TURNIPS", "AND", "CARROTS", "BRUISED",
+             "POTATOES", "FAT", "MUTTON", "PIECES"]
+
+
+def write_librispeech_tree(root: str, seed: int) -> list:
+    """``root/LibriSpeech/test-clean/<speaker>/<chapter>/*.flac`` and ``.trans.txt`` written with the port's ``save``:
+    16 voiced utterances of 4-16 s at 16 kHz, 16-bit, drawn from ``seed``.  Returns each utterance's (file id,
+    transcript, samples as 16-bit quantisation reads them back), in the dataset's sorted order."""
+    from audio_tpu_torch import io
+
+    rng = np.random.default_rng(seed)
+    written = []
+    for i, spk in enumerate(P21_SPEAKERS):
+        for c in range(P21_CHAPTERS):
+            chap = 1000 * (i + 1) + c
+            folder = os.path.join(root, "LibriSpeech", "test-clean", str(spk), str(chap))
+            os.makedirs(folder)
+            lines = []
+            for u in range(P21_UTTERANCES):
+                n = int(rng.integers(P21_MIN_S * SR, P21_MAX_S * SR + 1))
+                t = np.arange(n) / SR
+                f0 = rng.uniform(100, 300)
+                x = sum(np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 2 * np.pi)) / h for h in range(1, 6))
+                x = (0.1 * x * (0.6 + 0.4 * np.sin(2 * np.pi * 0.5 * t)) + 0.01 * rng.standard_normal(n))
+                x = x.astype(np.float32)
+                fileid = f"{spk}-{chap}-{u:04d}"
+                io.save(os.path.join(folder, fileid + ".flac"), x[None], SR)
+                words = " ".join(rng.choice(P21_WORDS, int(rng.integers(5, 15))))
+                lines.append(f"{fileid} {words}\n")
+                # what 16-bit quantisation reads back: the port's save rounds x * 2^15 and clips it
+                q = np.clip(np.round(x.astype(np.float64) * 32768), -32768, 32767) / 32768
+                written.append((fileid, words, q.astype(np.float32)))
+            with open(os.path.join(folder, f"{spk}-{chap}.trans.txt"), "w") as f:
+                f.writelines(lines)
+    return sorted(written)
+
+
+def read_librispeech_tree(root: str, written: list, workers: int) -> dict:
+    """Every item of ``datasets.LIBRISPEECH(root, "test-clean")`` through a ``DataLoader`` with ``workers``
+    processes, held bit for bit against ``written``; the host's decode rate."""
+    import torch
+
+    from audio_tpu_torch import datasets
+
+    ds = datasets.LIBRISPEECH(root, url="test-clean")
+    if len(ds) != len(written):
+        raise AssertionError(f"LIBRISPEECH found {len(ds)} utterances, {len(written)} were written")
+    loader = torch.utils.data.DataLoader(ds, batch_size=4, num_workers=workers, collate_fn=list)
+    t0 = time.perf_counter()
+    items = [item for batch in loader for item in batch]
+    seconds = time.perf_counter() - t0
+    audio_s = 0.0
+    for (fileid, words, q), (wav, sr, transcript, spk, chap, utt) in zip(written, items):
+        if (f"{spk}-{chap}-{utt:04d}", transcript, sr) != (fileid, words, SR):
+            raise AssertionError(f"LIBRISPEECH item {fileid}: read ({spk}, {chap}, {utt}, {transcript!r}, {sr})")
+        if wav.dtype != torch.float32 or tuple(wav.shape) != (1, q.size) or not np.array_equal(wav[0].numpy(), q):
+            raise AssertionError(f"{fileid}: the waveform read back is not the 16-bit quantised one written "
+                                 f"({tuple(wav.shape)} against {(1, q.size)})")
+        audio_s += q.size / SR
+    return {"clips": len(items), "seconds": seconds, "clips_per_s": len(items) / seconds,
+            "audio_s_per_s": audio_s / seconds, "audio_s": audio_s, "workers": workers}
+
+
+def trace_search_step(decoder, extractor, batch, chunk: int) -> dict:
+    """Phase 21 (d): one search step of the batch's first chunks under ``utils.trace``; the Chrome trace it writes must
+    name K5's and K7's kernels and the step's annotation."""
+    import torch
+
+    from audio_tpu_torch import utils
+
+    dev = batch.device
+    with tempfile.TemporaryDirectory() as log_dir:
+        feats = torch.stack([extractor(batch[j, :chunk])[0] for j in range(batch.shape[0])])
+        frames = torch.full((batch.shape[0],), feats.shape[1], dtype=torch.int32, device=dev)
+        with utils.trace(log_dir):
+            with utils.annotate("phase21_search_step"):
+                decoder.infer_batch(feats, frames, P21_BEAM)
+            torch.cuda.synchronize()
+        files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+        if len(files) != 1:
+            raise AssertionError(f"phase 21 (d): utils.trace wrote {files}")
+        with open(os.path.join(log_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernels if k in n) for k in ("join_stats_topk", "lstm_gate_step")}
+    if not all(named.values()) or not any(e.get("name") == "phase21_search_step" for e in events):
+        raise AssertionError(f"phase 21 (d): the trace names {named} and {len(kernels)} kernels in all")
+    print(f"  (d) utils.trace wrote {files[0]}: {len(kernels)} kernels by name, K5 as {named['join_stats_topk']}, "
+          f"K7 as {named['lstm_gate_step']}")
+    return {"file": files[0], "kernels": len(kernels), **named}
+
+
+def checkpoint_train_step(dev, seed: int):
+    """Phase 21 (c): one Emformer RNN-T train step; its model, AdamW state, a CUDA generator and the step through
+    ``utils.save_checkpoint`` and ``restore_checkpoint`` (onto the card, and onto ``like``'s devices), bit for bit.
+    Returns the numbers and the step's launches."""
+    import torch
+
+    from audio_tpu_torch import utils
+
+    recipe = load_train_recipe()
+    model = make_rnnt(dev, torch.float32).train()
+    step = recipe.make_train_step(model, "full", TRAIN_BAND, torch.bfloat16)
+    data = recipe.synthetic_batch(np.random.default_rng(seed + 1), P21_TRAIN_B, TRAIN_T, TRAIN_RC, TRAIN_U, RNNT_V,
+                                  dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    torch.rand(3, generator=gen, device=dev)  # a state past the seed's
+    reset_kernel_counts()
+    with torch.enable_grad():
+        loss = float(step(*data))
+    torch.cuda.synchronize()
+    train_counts = kernel_counts()
+    require_launches("the train step of phase 21 (c)", train_counts,
+                     ["lattice_row_stats", "emformer_attention_fwd", "emformer_attention_bwd"])
+    state = {"model": model.state_dict(), "optimizer": step.optimizer.state_dict(), "generator": gen, "step": 1,
+             "loss": loss}
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        utils.save_checkpoint(ckpt, 1, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = utils.restore_checkpoint(ckpt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        latest = utils.latest_step(ckpt)
+        like = utils.restore_checkpoint(ckpt, like=state)
+        size_mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ckpt) for f in fs) / 1e6
+    if latest != 1 or restored["step"] != 1 or restored["loss"] != loss:
+        raise AssertionError(f"phase 21 (c): latest_step {latest}, restored step {restored['step']}")
+    pairs = [(f"model.{k}", v, restored["model"][k], like["model"][k]) for k, v in state["model"].items()]
+    for i, st in state["optimizer"]["state"].items():
+        pairs += [(f"optimizer.{i}.{k}", v, restored["optimizer"]["state"][i][k], like["optimizer"]["state"][i][k])
+                  for k, v in st.items()]
+    for name, want, got, got_like in pairs:
+        if got.device.type != "cuda" or got_like.device != want.device:
+            raise AssertionError(f"phase 21 (c): {name} restored on {got.device} (like: {got_like.device}), "
+                                 f"saved from {want.device}")
+        if got.dtype != want.dtype or not torch.equal(got.cpu(), want.cpu()) or not torch.equal(got_like, want):
+            raise AssertionError(f"phase 21 (c): {name} did not come back bit for bit")
+    g2 = restored["generator"]
+    if g2.device.type != "cuda" or not torch.equal(g2.get_state(), gen.get_state()) or not torch.equal(
+            torch.rand(4, generator=g2, device=dev), torch.rand(4, generator=gen, device=dev)):
+        raise AssertionError("phase 21 (c): the CUDA generator did not come back")
+    if restored["optimizer"]["param_groups"] != state["optimizer"]["param_groups"]:
+        raise AssertionError("phase 21 (c): the optimizer's parameter groups changed")
+    print(f"  (c) one train step (B={P21_TRAIN_B}, bf16 over f32 masters, loss {loss:.3f}): model, AdamW state, "
+          f"a CUDA generator and the step saved with utils.save_checkpoint ({size_mb:.1f} MB, {save_s:.2f} s) and "
+          f"restored onto the card ({restore_s:.2f} s): {len(pairs)} tensors bit for bit, latest_step {latest}")
+    return ({"tensors": len(pairs), "mb": size_mb, "save_s": save_s, "restore_s": restore_s, "loss": loss,
+             "latest_step": latest},
+            {name: {"total": train_counts[name]}
+             for name in ("lattice_row_stats", "emformer_attention_fwd", "emformer_attention_bwd")})
+
+
+def run_host_side_feed(dev, card: str, seed: int) -> dict:
+    """Phase 21: (a) a LibriSpeech-shaped FLAC tree written and read back bit for bit through ``LIBRISPEECH`` under a
+    ``DataLoader``; (b) its clips padded into one batch on the card and streamed through
+    ``EMFORMER_RNNT_BASE_LIBRISPEECH`` at full width in f32 (a seeded injected ``state_dict``, the bundle's streaming
+    feature extractor, beam 10) as ``online_asr_tutorial_torch.py`` streams them, the top-1 tokens of the two shortest
+    clips against the same pipeline on the CPU; (c) one Emformer RNN-T train step with its AdamW state and a CUDA
+    generator saved with ``utils.save_checkpoint`` and restored onto the card bit for bit; (d) one search step under
+    ``utils.trace``, whose file names K5's and K7's kernels."""
+    import torch
+
+    from audio_tpu_torch import pipelines
+    from audio_tpu_torch.io import _flac
+
+    tutorial = load_example("online_asr_tutorial_torch", "tutorials", "online_asr_tutorial_torch.py")
+    bundle = pipelines.EMFORMER_RNNT_BASE_LIBRISPEECH
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) write, build the decoder, read back in this process and through two worker processes
+        t0 = time.perf_counter()
+        written = write_librispeech_tree(root, seed)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _flac.build()
+        out["flac_build_s"] = time.perf_counter() - t0
+        out["read"] = [read_librispeech_tree(root, written, w) for w in (0, 2)]
+        for r in out["read"]:
+            print(f"  (a) LIBRISPEECH through a DataLoader ({r['workers']} workers): {r['clips']} FLAC clips "
+                  f"({r['audio_s']:.1f} s of audio) bit for bit as written; {r['clips_per_s']:.1f} clips/s, "
+                  f"{r['audio_s_per_s']:.1f} s of audio a second on the host")
+        print(f"  (a) writing the tree (the numpy encoder) took {out['write_s']:.2f} s, the decoder's g++ build "
+              f"{out['flac_build_s']:.2f} s")
+        waves = [torch.from_numpy(q) for _, _, q in written]
+
+        # (b) the batch on the card through the bundle, as the tutorial streams it
+        stats = os.path.join(root, "cache", "pipeline-assets", "global_stats_rnnt_librispeech.json")
+        os.makedirs(os.path.dirname(stats))
+        with open(stats, "w") as f:
+            json.dump({"mean": [8.0] * bundle.n_mels, "invstddev": [0.25] * bundle.n_mels}, f)
+        os.environ["AUDIO_TPU_HOME"] = os.path.dirname(os.path.dirname(stats))  # found there, nothing fetched
+        extractor = bundle.get_streaming_feature_extractor(device=dev)
+        cpu_extractor = bundle.get_streaming_feature_extractor(device="cpu")
+    state_dict = make_rnnt(dev, torch.float32).state_dict()
+    decoder = bundle.get_decoder(dl_kwargs={"state_dict": state_dict}, device=dev)
+    seg = bundle.segment_length * bundle.hop_length
+    rc = bundle.right_context_length * bundle.hop_length
+    lengths = torch.tensor([w.numel() for w in waves])
+    batch = torch.zeros((len(waves), int(lengths.max())), dtype=torch.float32, device=dev)
+    for j, w in enumerate(waves):
+        batch[j, :w.numel()] = w.to(dev)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    history, hypos = tutorial.stream(decoder, extractor, batch, lengths, seg, rc, P21_BEAM)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    require_launches("the bundle's streaming search (phase 21 (b))", counts,
+                     ["power_spectrogram", "join_stats_topk", "lstm_gate_step"])
+    require_route("the bundle's streaming search (phase 21 (b))", counts, "power_spectrogram", "fft")
+    launches = {name: {"total": counts[name], **{k[len(name) + 1:]: c for k, c in counts.items()
+                                                 if k.startswith(name + "_") and c}}
+                for name in ("power_spectrogram", "join_stats_topk", "lstm_gate_step")}
+    check_beams("phase 21 (b) beams", hypos.tokens, hypos.counts, hypos.scores, decoder.max_tokens, bundle._blank)
+    n_seg = [len(h) for h in history]
+    audio_s = float(lengths.sum()) / SR
+    print(f"  (b) {len(waves)} clips ({audio_s:.1f} s) padded to {batch.shape[1] / SR:.2f} s on the card, streamed "
+          f"through EMFORMER_RNNT_BASE_LIBRISPEECH in f32, beam {P21_BEAM}: {max(n_seg)} steps of {seg} samples "
+          f"(+{rc}) in {stream_s:.2f} s, real-time factor {stream_s / audio_s:.5f} over the batch's audio; top-1 "
+          f"tokens {[len(h[-1]) for h in history]}; launches {launches} on {card}")
+    # the two shortest clips through the same pipeline on the CPU
+    pick = sorted(range(len(waves)), key=lambda j: int(lengths[j]))[:P21_CPU_CLIPS]
+    cpu_decoder = bundle.get_decoder(dl_kwargs={"state_dict": {k: v.cpu() for k, v in state_dict.items()}},
+                                     device="cpu")
+    cpu_batch = torch.zeros((len(pick), int(lengths[pick].max())), dtype=torch.float32)
+    for row, j in enumerate(pick):
+        cpu_batch[row, :waves[j].numel()] = waves[j]
+    cpu_history, _ = tutorial.stream(cpu_decoder, cpu_extractor, cpu_batch, lengths[pick], seg, rc, P21_BEAM)
+    for row, j in enumerate(pick):
+        if history[j] != cpu_history[row]:
+            step = next(i for i, (a, b) in enumerate(zip(history[j], cpu_history[row])) if a != b)
+            raise AssertionError(f"phase 21 (b): clip {j}'s top-1 tokens differ from the CPU's from step {step}: "
+                                 f"{history[j][step]} against {cpu_history[row][step]}")
+    print(f"  (b) the top-1 tokens of clips {pick} equal the CPU pipeline's at every step "
+          f"({[len(cpu_history[r][-1]) for r in range(len(pick))]} tokens)")
+    out["stream"] = {"clips": len(waves), "audio_s": audio_s, "seconds": stream_s, "rtf": stream_s / audio_s,
+                     "steps": max(n_seg), "launches": dict(launches), "cpu_clips": pick}
+
+    out["trace"] = trace_search_step(decoder, extractor, batch, seg + rc)
+    del decoder, hypos
+    out["checkpoint"], train_launches = checkpoint_train_step(dev, seed)
+    launches.update(train_launches)
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the per-kernel results as JSON to this file")
+    parser.add_argument("--seed", type=int, default=P21_SEED, help="the seed of phase 21's files and train batch")
     args = parser.parse_args(argv)
 
     import torch
@@ -6478,6 +6745,18 @@ def main(argv=None) -> int:
     phase20["seconds"] = time.perf_counter() - t20
     print(f"  phase 20 took {phase20['seconds']:.1f} s")
 
+    # ---------------------------------------------------------------- phase 21
+    print(f"phase 21: the host side feeding the card (a LibriSpeech-shaped FLAC tree of "
+          f"{len(P21_SPEAKERS) * P21_CHAPTERS * P21_UTTERANCES} clips of {P21_MIN_S}-{P21_MAX_S} s from seed "
+          f"{args.seed} through LIBRISPEECH and a DataLoader, streamed through EMFORMER_RNNT_BASE_LIBRISPEECH on the "
+          f"card; a train step through a checkpoint; a traced search step)")
+    t21 = time.perf_counter()
+    phase21 = run_host_side_feed(dev, card, args.seed)
+    phase21_launches = phase21["launches"]
+    print(f"  launches of K1-K9 in phase 21 by route: {phase21_launches}")
+    phase21["seconds"] = time.perf_counter() - t21
+    print(f"  phase 21 took {phase21['seconds']:.1f} s")
+
     kernels = []
     # K1 on the chain's lowpass biquad: route chunked (the plan's launch included), route serial
     # (the kernel it replaced); then at the gradient path's orders 8 and 12 on both routes
@@ -6539,7 +6818,8 @@ def main(argv=None) -> int:
                         bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=k2_lib, kernel_route="fft",
                         phase15_launches=phase15_launches["power_spectrogram"],
                         phase17_launches=phase17_launches["power_spectrogram"],
-                        phase19_launches=phase19_launches["power_spectrogram"]))
+                        phase19_launches=phase19_launches["power_spectrogram"],
+                        phase21_launches=phase21_launches["power_spectrogram"]))
     # K3: the frames this run's lengths make the DP run
     k3_ms = cuda_ms(lambda: cuda_viterbi.viterbi_paths(*k3_args), 20)
     k3_block_ms = cuda_ms(lambda: cuda_viterbi._launch("block", *k3_args), 20)
@@ -6596,6 +6876,8 @@ def main(argv=None) -> int:
                             plain_ms=cuda_ms(plain_fn, 3), bound_ms=bound[0], bound_by=bound[1], library_ms=None))
         if name in phase15_launches:
             kernels[-1]["phase15_launches"] = phase15_launches[name]
+        if name in phase21_launches:
+            kernels[-1]["phase21_launches"] = phase21_launches[name]
         if name in phase16_launches:
             kernels[-1]["phase16_launches"] = phase16_launches[name]
             kernels[-1]["phase16_f32"] = {k: avsr["train"]["k8"][k] for k in ("err", "ms", "plain_ms", "bound_ms")}
@@ -6665,6 +6947,8 @@ def main(argv=None) -> int:
     # graph); the library call is scaled_dot_product_attention with the combined additive mask
     kernels += time_attention(np.random.default_rng(4), dev, k9_main, k9_err,
                               train["full"]["launches"])
+    for k in kernels[-2:]:
+        k["phase21_launches"] = phase21_launches[k["name"]]
     for k in kernels:
         lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
         print(f"  {k['name']}: {k['ms']:.3f} ms (bound {k['bound_ms']:.3f} ms by {k['bound_by']}; plain "
@@ -6686,7 +6970,7 @@ def main(argv=None) -> int:
                                        for o, r in filter_grad.items()},
                        "effects": effects, "vocoder": vocoder, "front_end": front_end, "transforms": transforms,
                        "wav2vec2": wav2vec2, "ssl": ssl, "conformer": conformer, "avsr": avsr, "zoo": zoo,
-                       "phase18": phase18, "phase19": phase19, "phase20": phase20},
+                       "phase18": phase18, "phase19": phase19, "phase20": phase20, "phase21": phase21},
                       f, indent=1)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

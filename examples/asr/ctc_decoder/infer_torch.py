@@ -6,8 +6,9 @@ The port of ``infer.py``.  Two decoders run on the same emissions:
   2. ``cuda_ctc_decoder``, the batched prefix beam search on the card (on ``--device``).
 
 Offline by default: peaked emissions that spell "the editor" in a toy vocabulary, with a lexicon the script writes.
-``--wav`` decodes a 16-bit PCM WAV file with a wav2vec2 ASR bundle (``--bundle``) whose weights come from
-``--state-dict`` (a ``torch.save``d torchaudio-named ``state_dict``); without one it raises, and nothing is fetched.
+``--wav`` decodes an audio file (read by ``audio_tpu_torch.io.load``) with a wav2vec2 ASR bundle (``--bundle``)
+whose weights come from ``--state-dict`` (a ``torch.save``d torchaudio-named ``state_dict``); without one it raises,
+and nothing is fetched.
 
     python3 examples/asr/ctc_decoder/infer_torch.py [--device cpu]
 """
@@ -18,13 +19,13 @@ import argparse
 import os
 import sys
 import tempfile
-import wave
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", ".."))
 
+from audio_tpu_torch.io import load as read_wav  # noqa: E402  (channels-first float32 and the rate)
 from audio_tpu_torch.models.decoder import ctc_decoder, cuda_ctc_decoder  # noqa: E402
 
 TOKENS = ["-", "|", "e", "t", "a", "o", "n", "i", "h", "s", "r", "d"]
@@ -44,15 +45,6 @@ def synthetic_emissions(transcript_tokens, vocab_size, t_per_token=3, seed=0):
         frames.append(blank)
     e = np.stack(frames)[None].astype(np.float32)
     return torch.as_tensor(e - np.log(np.exp(e).sum(-1, keepdims=True)))
-
-
-def read_wav(path: str):
-    """A 16-bit PCM WAV file as a (channels, samples) float32 tensor in [-1, 1) and its sample rate."""
-    with wave.open(path, "rb") as f:
-        if f.getsampwidth() != 2:
-            raise ValueError(f"{path}: only 16-bit PCM is read here")
-        data = np.frombuffer(f.readframes(f.getnframes()), "<i2").reshape(-1, f.getnchannels()).T
-        return torch.as_tensor(data.astype(np.float32) / 32768.0), f.getframerate()
 
 
 def bundle_emissions(args, dev):
@@ -78,7 +70,7 @@ def main(argv=None):
     p.add_argument("--beam-size", type=int, default=50)
     p.add_argument("--lm-weight", type=float, default=2.0)
     p.add_argument("--word-score", type=float, default=0.0)
-    p.add_argument("--wav", default=None, help="decode a 16-bit PCM WAV file with --bundle")
+    p.add_argument("--wav", default=None, help="decode an audio file (WAV, FLAC, ...) with --bundle")
     p.add_argument("--bundle", default="WAV2VEC2_ASR_BASE_960H")
     p.add_argument("--state-dict", default=None, help="the bundle's weights, a torch.save'd state_dict")
     p.add_argument("--device", default="cuda")

@@ -11,8 +11,9 @@ lengths scaled to the stride-2 stack -> ``ops.ctc.ctc_loss(blank 0, reduction="m
 ``clip_by_global_norm(5.0)`` -> Adadelta (lr 0.6, rho 0.9, eps 1e-6, optax's and torch's defaults alike).
 ``decode`` is the greedy CTC decode and ``cer`` the character error rate from ``F.edit_distance``.  The weights
 are drawn as flax's ``init`` draws the JAX recipe's (``audio_tpu_torch/_internal/init.py``'s ``flax_init_``).  Metrics
-are JSON lines on stdout, as the JAX recipe prints them.  One card; only ``--synthetic`` data is wired up:
-``--librispeech-path`` waits for the port's dataset loaders.  ``--tiny`` is accepted as the JAX recipe accepts
+are JSON lines on stdout, as the JAX recipe prints them.  One card.  ``--librispeech-path`` (an extracted
+LibriSpeech root, ``--librispeech-url`` its subset) reads real data through the port's ``datasets.LIBRISPEECH``,
+batched as the JAX recipe's ``LibriSpeechBatches`` batches it.  ``--tiny`` is accepted as the JAX recipe accepts
 it: Wav2Letter has no smaller configuration.
 """
 
@@ -73,6 +74,43 @@ class SyntheticBatches:
             tgt = self.rng.integers(1, self.num_classes, (b, int(tgt_len.max())))
             tgt = tgt * (np.arange(tgt.shape[1])[None] < tgt_len[:, None])
             yield wav, wav_lens.astype(np.int32), tgt.astype(np.int32), tgt_len.astype(np.int32)
+
+
+class LibriSpeechBatches:
+    """``train.py``'s LibriSpeech batches: one pass over the subset in a seed-0 permutation, each clip cut to
+    ``max_seconds`` and zero-padded to it, its transcript lower-cased and kept to ``LABELS`` (a clip with no
+    character left is skipped), the targets zero-padded to the longest; numpy arrays, as ``SyntheticBatches``."""
+
+    def __init__(self, root, url, batch_size, max_seconds=8.0):
+        from audio_tpu_torch.datasets import LIBRISPEECH
+
+        self.ds = LIBRISPEECH(root, url=url, download=False)
+        self.batch_size = batch_size
+        self.max_len = int(max_seconds * SAMPLE_RATE)
+        self.vocab = {c: i for i, c in enumerate(LABELS)}
+
+    def __iter__(self):
+        order = np.random.default_rng(0).permutation(len(self.ds))
+        batch = []
+        for i in order:
+            wav, sr, text, *_ = self.ds[int(i)]
+            wav = wav.numpy().reshape(-1)[: self.max_len]
+            tokens = [self.vocab[c] for c in text.lower() if c in self.vocab]
+            if tokens:
+                batch.append((wav, tokens))
+            if len(batch) == self.batch_size:
+                yield self._collate(batch)
+                batch = []
+
+    def _collate(self, batch):
+        wav_lens = np.array([len(w) for w, _ in batch], np.int32)
+        tgt_lens = np.array([len(t) for _, t in batch], np.int32)
+        wav = np.zeros((len(batch), self.max_len), np.float32)
+        tgt = np.zeros((len(batch), int(tgt_lens.max())), np.int32)
+        for k, (w, t) in enumerate(batch):
+            wav[k, : len(w)] = w
+            tgt[k, : len(t)] = t
+        return wav, wav_lens, tgt, tgt_lens
 
 
 def make_mfcc(device="cuda") -> MFCC:
@@ -156,15 +194,13 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true", help="accepted as the JAX recipe accepts it; the model is the same")
     p.add_argument("--synthetic", action="store_true", help="random waveforms and targets from seed 0")
     p.add_argument("--librispeech-path", default=None)
+    p.add_argument("--librispeech-url", default="train-clean-100")
     p.add_argument("--decode-every", type=int, default=50)
     p.add_argument("--overfit", action="store_true",
                    help="learning gate: train on ONE fixed batch, then assert the loss is below 1.0 and the greedy "
                         "decode's CER over the batch below 0.5")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.librispeech_path is not None:
-        raise NotImplementedError("--librispeech-path needs the LibriSpeech loader, which the port does not have "
-                                  "yet; pass --synthetic")
 
     # the gate's verdict must not hang on the order of cuDNN's sums
     with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
@@ -175,9 +211,12 @@ def run(args: argparse.Namespace) -> int:
     """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
     num_classes = len(LABELS)
-    # the gate memorises a fixed batch of short clips, as the JAX recipe's does
-    data = SyntheticBatches(args.global_batch, num_classes, audio_seconds=0.25 if args.overfit else 1.0,
-                            max_tgt_len=4 if args.overfit else 8)
+    if args.synthetic or args.librispeech_path is None:
+        # the gate memorises a fixed batch of short clips, as the JAX recipe's does
+        data = SyntheticBatches(args.global_batch, num_classes, audio_seconds=0.25 if args.overfit else 1.0,
+                                max_tgt_len=4 if args.overfit else 8)
+    else:
+        data = LibriSpeechBatches(args.librispeech_path, args.librispeech_url, args.global_batch)
     model = make_model(dev, torch.Generator().manual_seed(0))
     mfcc = make_mfcc(dev)
     step = TrainStep(model, args.learning_rate)

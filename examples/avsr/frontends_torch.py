@@ -82,6 +82,16 @@ def _add_trunk(module: nn.Module, block, width: int, layers: Sequence[int], kw: 
     module.blocks = [f"layer{s + 1}_{b}" for s, n in enumerate(layers) for b in range(n)]
 
 
+def frame_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """The stem's (1, 3, 3) max pool, stride (1, 2, 2), padding (0, 1, 1), on frames with time folded into the batch.
+
+    The pool never crosses frames, so it is 2-D: the same maxima, the same first index of a tie and the same
+    gradient as ``F.max_pool3d`` over (B, C, T, H, W), bit for bit.  On CUDA ``max_pool3d``'s backward adds into
+    its input with atomics in an order that changes from run to run; ``max_pool2d``'s gathers, and is the same
+    on every run."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
 class VideoResNetFrontend(nn.Module):
     """(B, T, H, W) grayscale lip crops -> (B, T, 8*width) embeddings."""
 
@@ -94,9 +104,9 @@ class VideoResNetFrontend(nn.Module):
 
     def forward(self, videos: torch.Tensor) -> torch.Tensor:
         x = F.silu(self.frontend3d_norm(_conv(self.frontend3d, videos[:, None])))  # (B, C, T, H', W')
-        x = F.max_pool3d(x, (1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))
         b, c, t = x.shape[:3]
         x = x.transpose(1, 2).reshape((b * t, c) + x.shape[3:])  # time folded into the batch
+        x = frame_max_pool(x)
         for name in self.blocks:
             x = getattr(self, name)(x)
         return x.mean(dim=(2, 3)).reshape(b, t, -1)

@@ -8,19 +8,19 @@ Reads the layout that ``data_prep/preprocess_lrs3.py`` writes:
       <dataset>/audio_seg/...wav      # 16 kHz mono, aligned to the video
       <dataset>/text_seg/...txt       # transcript
 
-Everything here is numpy on the host.  The WAV segments are read by ``load_audio``, a numpy reader of the
-RIFF/WAVE files the preprocessing writes (PCM 8, 16, 24 and 32 bit, IEEE float 32 and 64 bit, and
-WAVE_FORMAT_EXTENSIBLE), normalised to float32 as the JAX package's ``load`` gives them; it raises on a rate
-other than 16 kHz.
+Everything here is numpy on the host.  The WAV segments are read by ``load_audio`` through the port's
+``audio_tpu_torch.io.load`` (PCM 8, 16, 24 and 32 bit, IEEE float 32 and 64 bit, WAVE_FORMAT_EXTENSIBLE), normalised
+to float32 as the JAX package's ``load`` gives them; it raises on a rate other than 16 kHz.
 """
 
 from __future__ import annotations
 
 import os
-import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from audio_tpu_torch import io
 
 SAMPLE_RATE = 16000
 _CSV = {
@@ -28,9 +28,6 @@ _CSV = {
     "val": "lrs3_test_transcript_lengths_seg16s.csv",
     "test": "lrs3_test_transcript_lengths_seg16s.csv",
 }
-_WAVE_FORMAT_PCM = 0x0001
-_WAVE_FORMAT_IEEE_FLOAT = 0x0003
-_WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 
 def _load_list(root: str, filename: str) -> Tuple[List[str], List[int]]:
@@ -56,61 +53,12 @@ def load_video(path: str) -> np.ndarray:
     return np.asarray(vid, np.float32)
 
 
-def _parse_wav(data: bytes):
-    """(fmt fields, sample bytes) of a RIFF/WAVE file."""
-    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
-        raise ValueError("Not a RIFF/WAVE file")
-    pos = 12
-    fmt = None
-    frames = None
-    while pos + 8 <= len(data):
-        chunk_id = data[pos: pos + 4]
-        (chunk_size,) = struct.unpack("<I", data[pos + 4: pos + 8])
-        body = data[pos + 8: pos + 8 + chunk_size]
-        if chunk_id == b"fmt ":
-            fmt = struct.unpack("<HHIIHH", body[:16])
-            if fmt[0] == _WAVE_FORMAT_EXTENSIBLE and chunk_size >= 40:
-                (sub_format,) = struct.unpack("<H", body[24:26])
-                fmt = (sub_format,) + fmt[1:]
-        elif chunk_id == b"data":
-            frames = body
-        pos += 8 + chunk_size + (chunk_size % 2)
-    if fmt is None or frames is None:
-        raise ValueError("Malformed WAV: missing fmt or data chunk")
-    return fmt, frames
-
-
-def _decode(fmt, frames: bytes) -> Tuple[np.ndarray, int]:
-    """(samples (frames, channels) float32 in [-1, 1), sample rate)."""
-    audio_format, n_channels, sample_rate, _, _, bits = fmt
-    if audio_format == _WAVE_FORMAT_PCM:
-        if bits == 8:
-            x = (np.frombuffer(frames, dtype=np.uint8).astype(np.int16) - 128).astype(np.float32) / 128.0
-        elif bits == 16:
-            x = np.frombuffer(frames, dtype="<i2").astype(np.float32) / 32768.0
-        elif bits == 24:
-            b = np.frombuffer(frames, dtype=np.uint8).reshape(-1, 3)
-            raw = b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8) | (b[:, 2].astype(np.int32) << 16)
-            raw = ((raw << 8) >> 8) << 8  # sign-extend, left-justify as int32
-            x = raw.astype(np.float32) / 2147483648.0
-        elif bits == 32:
-            x = np.frombuffer(frames, dtype="<i4").astype(np.float32) / 2147483648.0
-        else:
-            raise ValueError(f"Unsupported PCM bit depth: {bits}")
-    elif audio_format == _WAVE_FORMAT_IEEE_FLOAT:
-        x = np.frombuffer(frames, dtype="<f4" if bits == 32 else "<f8").astype(np.float32)
-    else:
-        raise ValueError(f"Unsupported WAV format code: {audio_format:#x}")
-    return x.reshape(-1, n_channels), sample_rate
-
-
 def load_audio(path: str) -> np.ndarray:
-    """A 16 kHz WAV file's samples, (L,) float32 (the channels one after another)."""
-    with open(path, "rb") as f:
-        x, sr = _decode(*_parse_wav(f.read()))
+    """A 16 kHz WAV file's samples, (L,) float32 (the channels one after another), read by the port's ``io.load``."""
+    x, sr = io.load(path)
     if sr != SAMPLE_RATE:
         raise ValueError(f"expected {SAMPLE_RATE} Hz audio, got {sr} Hz in {path}")
-    return np.ascontiguousarray(x.T).reshape(-1)
+    return x.numpy().reshape(-1)
 
 
 def load_transcript(video_path: str) -> str:

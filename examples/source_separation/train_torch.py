@@ -8,7 +8,8 @@ The step: the mixture is the sum of the sources -> ``ConvTasNet`` (``conv_tasnet
 ``--tiny`` debug model) -> utterance-level permutation-invariant negative Si-SNR (``pit_neg_si_snr``) -> backward
 -> optax's ``clip_by_global_norm(5.0)`` -> Adam (lr 1e-3, optax's and torch's betas and epsilon alike).  The
 weights are drawn as flax's ``init`` draws the JAX recipe's (``audio_tpu_torch/_internal/init.py``'s ``flax_init_``).
-One card; only ``--synthetic`` data is wired up: ``--librimix-path`` waits for the port's dataset loaders.
+One card.  ``--librimix-path`` (a root holding ``Libri{2,3}Mix/``; ``--librimix-subset``, ``--seconds``) trains on real
+mixtures through the port's ``datasets.LibriMix``, cropped and batched as the JAX recipe's ``LibriMixBatches`` does.
 """
 
 from __future__ import annotations
@@ -54,6 +55,48 @@ def pit_neg_si_snr(estimates: torch.Tensor, references: torch.Tensor) -> torch.T
     perms = list(itertools.permutations(range(estimates.shape[1])))
     scores = torch.stack([si_snr(estimates[:, list(p)], references).mean(dim=-1) for p in perms], dim=-1)
     return -scores.max(dim=-1).values.mean()
+
+
+class LibriMixBatches:
+    """``train.py``'s LibriMix batches through ``datasets.LibriMix`` (8 kHz): each clip's sources cropped to
+    ``seconds`` from a start on a whole second drawn from ``seed`` (torchaudio's recipe convention), a shorter clip
+    zero-padded; clips in a permutation from the same generator, drawn anew each pass.  Numpy (B, S, T), the mixture
+    left to the step (the sum of the sources, the sep_clean task)."""
+
+    def __init__(self, root, batch_size, num_sources, subset="train-360", seconds=3.0, seed=0):
+        from audio_tpu_torch.datasets import LibriMix
+
+        self.ds = LibriMix(root, subset=subset, num_speakers=num_sources, sample_rate=SAMPLE_RATE)
+        if len(self.ds) == 0:
+            raise SystemExit(f"no mixtures found under {root}")
+        self.batch_size = batch_size
+        self.num_sources = num_sources
+        self.n = int(seconds * SAMPLE_RATE)
+        self.rng = np.random.default_rng(seed)
+
+    def _crop(self, srcs):
+        t = srcs[0].shape[-1]
+        if t <= self.n:
+            out = np.zeros((self.num_sources, self.n), np.float32)
+            for i, s in enumerate(srcs):
+                out[i, :t] = s.numpy().reshape(-1)
+            return out
+        start = int(self.rng.integers(0, (t - self.n) // SAMPLE_RATE + 1)) * SAMPLE_RATE
+        return np.stack([s.numpy().reshape(-1)[start: start + self.n] for s in srcs])
+
+    def __iter__(self):
+        order = self.rng.permutation(len(self.ds))
+        pos = 0
+        while True:
+            batch = []
+            for _ in range(self.batch_size):
+                if pos >= len(order):
+                    order = self.rng.permutation(len(self.ds))
+                    pos = 0
+                _sr, _mixed, srcs = self.ds[int(order[pos])]
+                pos += 1
+                batch.append(self._crop(srcs))
+            yield np.stack(batch)  # (B, S, T)
 
 
 class SyntheticMixtures:
@@ -133,15 +176,14 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true", help="the 2 x 2-block debug model")
     p.add_argument("--synthetic", action="store_true", help="random tone-and-noise sources from seed 0")
     p.add_argument("--librimix-path", default=None, help="root containing Libri{2,3}Mix/ (LibriMix corpus)")
+    p.add_argument("--librimix-subset", default="train-360")
+    p.add_argument("--seconds", type=float, default=3.0, help="the crop of real data (torchaudio's recipe: 3 s)")
     p.add_argument("--overfit", action="store_true",
                    help="learning gate: train on ONE fixed batch, then assert the separation improves Si-SNR over "
                         "the input mixture by more than 5 dB")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.librimix_path is not None:
-        raise NotImplementedError("--librimix-path needs the LibriMix loader, which the port does not have yet; "
-                                  "pass --synthetic")
-    if not args.synthetic:
+    if not args.synthetic and not args.librimix_path:
         p.error("pass --synthetic or --librimix-path")
 
     # the gate's verdict must not hang on the order of cuDNN's sums
@@ -152,7 +194,12 @@ def main(argv=None) -> int:
 def run(args: argparse.Namespace) -> int:
     """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
-    data = SyntheticMixtures(args.global_batch, args.num_sources)
+    if args.librimix_path:
+        data = LibriMixBatches(args.librimix_path, args.global_batch, args.num_sources, subset=args.librimix_subset,
+                               seconds=args.seconds)
+        print(f"LibriMix: {len(data.ds)} mixtures")
+    else:
+        data = SyntheticMixtures(args.global_batch, args.num_sources)
     model = make_model(args.tiny, args.num_sources, dev, torch.Generator().manual_seed(0))
     step = TrainStep(model, args.learning_rate)
     print(f"params: {sum(v.numel() for v in step.params.values()) / 1e6:.2f}M on {dev}")

@@ -12,8 +12,8 @@ JAX recipe, the BatchNorms train on their running statistics (the model never mo
 flax's ``init`` draws the JAX recipe's (``flax_init_``: lecun-normal kernels, orthogonal recurrent matrices of the
 decoder's cells, zero biases; the encoder's LSTM all lecun-normal, as the JAX ``_BiLSTM``).  ``log_mel`` is the
 LJSpeech loader's target: ``MelSpectrogram(22050 Hz, n_fft 1024, hop 256, 80 mels, power 1)`` (kernel K2 on the
-card), clamped at 1e-5, log.  One card; only ``--synthetic`` data is wired up: ``--ljspeech-path`` waits for the
-port's dataset loaders.
+card), clamped at 1e-5, log.  One card.  ``--ljspeech-path`` (an extracted LJSpeech-1.1 root) trains on it through
+the port's ``datasets.LJSPEECH``, batched as the JAX recipe's ``LJSpeechBatches`` batches it.
 """
 
 from __future__ import annotations
@@ -126,6 +126,34 @@ def collate(tokens: list, mels: list) -> Tuple[np.ndarray, ...]:
     return tok, tok_lens, mel, mel_lens
 
 
+class LJSpeechBatches:
+    """``train.py``'s character-level LJSpeech batches through ``datasets.LJSPEECH``: epochs in seed-0 permutations
+    (so a corpus smaller than a batch still trains), a clip whose text keeps no symbol skipped, the tokens of the
+    normalised transcript and the ``log_mel`` target (on ``device``), cut and padded by ``collate``."""
+
+    def __init__(self, root, batch_size, device="cuda"):
+        from audio_tpu_torch.datasets import LJSPEECH
+
+        self.ds = LJSPEECH(root, download=False)
+        self.batch_size = batch_size
+        self.melspec = make_melspec(device)
+        self.device = device
+
+    def __iter__(self):
+        rng = np.random.default_rng(0)
+        batch = []
+        while True:
+            for i in rng.permutation(len(self.ds)):
+                wav, _, _, text = self.ds[int(i)]
+                tokens = text_to_sequence(text)
+                if not tokens:
+                    continue
+                batch.append((tokens, log_mel(self.melspec, wav.reshape(-1).to(self.device)).cpu().numpy()))
+                if len(batch) == self.batch_size:
+                    yield collate(*zip(*batch))
+                    batch = []
+
+
 def masks(mel: torch.Tensor, mel_lens: torch.Tensor):
     """(valid frames (B, T) in the mel's type, the gate's target: 1 from each clip's last frame on)."""
     frames = torch.arange(mel.shape[-1], device=mel.device)[None, :]
@@ -210,10 +238,7 @@ def main(argv=None) -> int:
                         "teacher-forced mel reconstruction collapses and the stop-token is predicted exactly")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.ljspeech_path is not None:
-        raise NotImplementedError("--ljspeech-path needs the LJSpeech loader, which the port does not have yet; "
-                                  "pass --synthetic")
-    if not args.synthetic:
+    if not args.synthetic and args.ljspeech_path is None:
         p.error("pass --synthetic or --ljspeech-path")
     # the gate's verdict must not hang on the order of cuDNN's sums
     with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
@@ -223,7 +248,10 @@ def main(argv=None) -> int:
 def run(args: argparse.Namespace) -> int:
     """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
-    data = SyntheticBatches(args.global_batch, len(SYMBOLS))
+    if args.synthetic:
+        data = SyntheticBatches(args.global_batch, len(SYMBOLS))
+    else:
+        data = LJSpeechBatches(args.ljspeech_path, args.global_batch, dev)
     model = make_model(args.tiny, len(SYMBOLS), dev, generator=torch.Generator().manual_seed(0))
     step = TrainStep(model, args.learning_rate, args.weight_decay, prenet_dropout=not args.overfit)
     print(f"params: {sum(v.numel() for v in step.params.values()) / 1e6:.2f}M on {dev}")

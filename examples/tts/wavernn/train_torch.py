@@ -10,8 +10,9 @@ next sample's mu-law class (256 classes) -> backward -> Adam (optax's ``adam``: 
 the JAX recipe, the BatchNorms train on their running statistics (the model never moves them).  The weights are drawn
 as flax's ``init`` draws the JAX recipe's (``flax_init_``), the upsampling kernels torchaudio's averages.
 ``log_mel`` is the LJSpeech loader's conditioning: ``MelSpectrogram(22050 Hz, n_fft 1024, hop 200, 80 mels, power 1)``
-(kernel K2 on the card), clamped at 1e-5, log; ``crop`` cuts a clip as the loader does.  One card; only
-``--synthetic`` data is wired up: ``--ljspeech-path`` waits for the port's dataset loaders.
+(kernel K2 on the card), clamped at 1e-5, log; ``crop`` cuts a clip as the loader does.  One card.
+``--ljspeech-path`` (an extracted LJSpeech-1.1 root) trains on it through the port's ``datasets.LJSPEECH``, cropped
+as the JAX recipe's ``LJSpeechBatches`` crops it.
 """
 
 from __future__ import annotations
@@ -113,6 +114,35 @@ def crop(melspec: MelSpectrogram, wavs: torch.Tensor, starts, n_frames: int) -> 
     return crops[:, None, 2 * HOP: (n_frames + 2) * HOP + 1], mels[:, None]
 
 
+class LJSpeechBatches:
+    """``train.py``'s LJSpeech crops through ``datasets.LJSPEECH``: clips drawn from a seeded generator, one too short
+    for ``n_frames`` + 4 frames and a window skipped, each cropped at a drawn start by ``crop`` (its log-mel on
+    ``device``); numpy, as ``SyntheticBatches``."""
+
+    def __init__(self, root, batch_size, n_frames=24, seed=0, device="cuda"):
+        from audio_tpu_torch.datasets import LJSPEECH
+
+        self.ds = LJSPEECH(root, download=False)
+        self.batch_size, self.n_frames = batch_size, n_frames
+        self.rng = np.random.default_rng(seed)
+        self.melspec = make_melspec(device)
+        self.device = device
+
+    def __iter__(self):
+        need = (self.n_frames + 4) * HOP  # 4 frames are eaten by the conv stack
+        while True:
+            wavs, starts = [], []
+            while len(wavs) < self.batch_size:
+                wav, *_ = self.ds[int(self.rng.integers(len(self.ds)))]
+                wav = wav.reshape(-1)
+                if len(wav) < need + N_FFT:
+                    continue
+                starts.append(int(self.rng.integers(0, len(wav) - need - 1)))
+                wavs.append(wav.to(self.device))
+            wav, mel = crop(self.melspec, wavs, starts, self.n_frames)
+            yield wav.cpu().numpy(), mel.cpu().numpy()
+
+
 def nll_of(logits: torch.Tensor, wav: torch.Tensor) -> torch.Tensor:
     """The mean negative log-likelihood of each next sample's mu-law class."""
     target = F.mu_law_encoding(wav[:, :, 1:], 2**N_BITS).to(torch.int64)
@@ -160,10 +190,7 @@ def main(argv=None) -> int:
                         "chance NLL is ln(256) = 5.5)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.ljspeech_path is not None:
-        raise NotImplementedError("--ljspeech-path needs the LJSpeech loader, which the port does not have yet; "
-                                  "pass --synthetic")
-    if not args.synthetic:
+    if not args.synthetic and args.ljspeech_path is None:
         p.error("pass --synthetic or --ljspeech-path")
     # the gate's verdict must not hang on the order of cuDNN's sums
     with deterministic_cudnn() if args.overfit else contextlib.nullcontext():
@@ -173,7 +200,10 @@ def main(argv=None) -> int:
 def run(args: argparse.Namespace) -> int:
     """``main``'s training run (and ``--overfit``'s gate) with its parsed arguments."""
     dev = torch.device(args.device)
-    data = SyntheticBatches(args.global_batch, n_frames=6 if args.overfit else 12, tonal=args.overfit)
+    if args.synthetic:
+        data = SyntheticBatches(args.global_batch, n_frames=6 if args.overfit else 12, tonal=args.overfit)
+    else:
+        data = LJSpeechBatches(args.ljspeech_path, args.global_batch, device=dev)
     model = make_model(args.tiny, dev, generator=torch.Generator().manual_seed(0))
     step = TrainStep(model, args.learning_rate)
     print(f"params: {sum(v.numel() for v in step.params.values()) / 1e6:.2f}M on {dev}")

@@ -39,6 +39,7 @@ from audio_tpu_torch.models import RNNTBeamSearch, rnnt_greedy_decode
 
 from .test_torch_rnnt_decoder import assert_beams_match
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

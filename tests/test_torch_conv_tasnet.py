@@ -36,6 +36,7 @@ from audio_tpu_torch.models import ConvTasNet, conv_tasnet_base
 from audio_tpu_torch.utils.precision import exact_conv, exact_conv_module, tf32_off
 
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
@@ -218,7 +219,7 @@ def test_main_runs_two_synthetic_steps_and_refuses_real_data(capsys):
     assert t_sep.main(["--synthetic", "--tiny", "--steps", "2", "--global-batch", "2", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "params: 0.01M on cpu" in out and "step 1: neg-si-snr" in out
-    with pytest.raises(NotImplementedError, match="LibriMix"):
+    with pytest.raises(RuntimeError, match="Libri2Mix doesn't exist"):  # no corpus there: LibriMix refuses it
         t_sep.main(["--librimix-path", "/nonexistent", "--device", "cpu"])
 
 

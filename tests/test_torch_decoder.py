@@ -23,6 +23,7 @@ from audio_tpu_torch.models import decoder as tdec
 from audio_tpu_torch.models.decoder import _native
 
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once
 torch.set_num_threads(1)

@@ -26,6 +26,8 @@ from audio_tpu.ops.pallas_iir import iir_pallas, lfilter_pallas
 from audio_tpu_torch.ops import cuda_iir
 from audio_tpu_torch.ops.iir import CARRY_LEVELS, CHUNK, chunk_plan, companion_matrix, iir_scan
 
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
+
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
 torch.set_num_threads(1)

@@ -27,6 +27,7 @@ import audio_tpu.compliance.kaldi as JK
 import audio_tpu_torch.compliance.kaldi as TK
 
 from .conftest import get_whitenoise
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

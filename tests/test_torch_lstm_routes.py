@@ -19,6 +19,8 @@ from audio_tpu.ops import pallas_lstm as jl
 from audio_tpu_torch.ops import cuda_lstm
 from audio_tpu_torch.ops.cuda_lstm import WGMMA_UNITS, kernel_route, lstm_gate_step_plain, wgmma_gate_columns
 
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
+
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
 torch.set_num_threads(1)

@@ -35,6 +35,8 @@ import audio_tpu_torch.functional as TF
 from audio_tpu_torch.functional import _misc as tf_misc
 from audio_tpu_torch.functional import _resample as tf_resample
 
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
+
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
 torch.set_num_threads(1)

@@ -21,6 +21,7 @@ from audio_tpu_torch.models import Hypothesis, RNNTBeamSearch, rnnt_greedy_decod
 from audio_tpu_torch.models import rnnt_decoder as port_decoder
 
 from .test_torch_rnnt import CFG, shared_models
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

@@ -22,6 +22,7 @@ import audio_tpu_torch.transforms as port_transforms
 from audio_tpu_torch.models import RNNTBeamSearch, emformer_rnnt_model
 
 from .test_torch_rnnt import CFG, shared_models
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

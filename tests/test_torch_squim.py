@@ -41,6 +41,7 @@ from audio_tpu_torch.models import (
 
 from .test_torch_hdemucs import seeded_state_dict
 from .test_torch_wav2vec2 import COMMON, FAST_COMPILE, MODES, _attention_f64_softmax
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

@@ -49,6 +49,7 @@ from audio_tpu_torch import _interop
 from audio_tpu_torch.models.wav2vec2 import components as tcomp
 
 from .test_torch_wav2vec2 import FAST_COMPILE, _port_fields
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

@@ -26,6 +26,7 @@ from audio_tpu_torch.models import Tacotron2
 from audio_tpu_torch.models.tacotron2 import _dropout_half
 
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold

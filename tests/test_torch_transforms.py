@@ -39,6 +39,8 @@ import audio_tpu.transforms as JT
 
 import audio_tpu_torch.transforms as TT
 
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
+
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
 torch.set_num_threads(1)

@@ -47,6 +47,7 @@ from audio_tpu_torch.pipelines import _tts as ttts
 from .test_torch_hdemucs import seeded_state_dict
 from .test_torch_tacotron2 import close, numpy_sd
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
@@ -345,12 +346,12 @@ def test_recipe_log_mel_targets_match_jax(recipe, hop):
 
 @pytest.mark.parametrize("recipe", ["tacotron2", "wavernn"])
 def test_recipe_main_runs_and_refuses_ljspeech(recipe, capsys):
-    """``--synthetic --tiny --steps 1 --device cpu`` runs a finite step; ``--ljspeech-path`` raises
-    ``NotImplementedError`` until the port has the dataset loaders."""
+    """``--synthetic --tiny --steps 1 --device cpu`` runs a finite step; ``--ljspeech-path`` at a folder with no
+    corpus raises ``LJSPEECH``'s error (the path itself runs in ``tests/test_torch_examples.py``)."""
     module = t_taco if recipe == "tacotron2" else t_wrnn
     assert module.main(["--synthetic", "--tiny", "--steps", "1", "--global-batch", "2", "--device", "cpu"]) == 0
     assert "step 0: loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="LJSpeech-1.1/wavs doesn't exist"):
         module.main(["--ljspeech-path", "/nonexistent", "--tiny", "--device", "cpu"])
 
 

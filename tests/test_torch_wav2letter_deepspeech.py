@@ -38,6 +38,7 @@ from audio_tpu_torch._interop import deepspeech_state_dict_from_jax_params, wav2
 from audio_tpu_torch.models import DeepSpeech, Wav2Letter
 
 from .test_torch_wav2vec2 import FAST_COMPILE
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once, and torch's thread pools in each
 # of them, spinning on every small operation, slowed the small tensors' gradchecks a hundredfold
@@ -317,5 +318,5 @@ def test_main_runs_two_synthetic_steps_and_refuses_real_data(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert '"params_m": 23.283' in lines[0] and sum('"event": "step"' in line and '"cer"' in line
                                                     for line in lines) == 2
-    with pytest.raises(NotImplementedError, match="LibriSpeech"):
+    with pytest.raises(RuntimeError, match="Dataset not found"):  # no corpus there: LIBRISPEECH refuses it
         t_w2l.main(["--librispeech-path", "/nonexistent", "--device", "cpu"])

@@ -28,6 +28,7 @@ from audio_tpu_torch.models.wav2vec2 import utils as tutils
 from audio_tpu_torch.pipelines._wav2vec2._bundle_data import BUNDLE_DATA
 
 from .test_torch_wav2vec2 import COMMON, FAST_COMPILE, MODES
+from ._jax_caches import fresh_jax_caches  # noqa: F401  (autouse: see tests/_jax_caches.py)
 
 # one intra-op thread: the suite runs in several processes at once
 torch.set_num_threads(1)
